@@ -19,6 +19,11 @@
 // tests) are handled in the kernel: rows past the count are zero-filled,
 // keys past the count get probability exactly 0, and pad query rows are
 // never stored.
+//
+// The whole-block Swin kernel (swin_block.cu) runs the same attention phase on
+// the raw (B, H, W, C) map: AttnParams.map_h > 0 makes group g window g % nW of
+// image g / nW, and its rows are gathered from the map by index arithmetic
+// (map_row), so no partitioned copy of the map exists.
 #pragma once
 
 #include "common.cuh"
@@ -44,7 +49,23 @@ struct AttnParams {
   int G, Nq, Nk, C, heads, nW;
   float scale, eps;
   int ln_pre;
+  int map_h, map_w, ws;  // map_h > 0: query rows gathered from a (B, map_h, map_w, C) map
 };
+
+// Row of a (B, H, W, C) map that holds token t of window g (windows row-major
+// per image, g / nW the image, tokens row-major in the ws x ws window), moved
+// by (roll_h, roll_w) with wrap-around as jnp.roll(y, (roll_h, roll_w), (1, 2))
+// moves it. Rolls are taken in [0, H) and [0, W).
+__host__ __device__ inline size_t map_row(int g, int t, int nW, int H, int W, int ws,
+                                          int roll_h, int roll_w) {
+  const int b = g / nW, w = g % nW, nWw = W / ws;
+  int i = (w / nWw) * ws + t / ws, j = (w % nWw) * ws + t % ws;
+  i += roll_h;
+  if (i >= H) i -= H;
+  j += roll_w;
+  if (j >= W) j -= W;
+  return ((size_t)b * H + i) * W + j;
+}
 
 struct AttnSmem {
   size_t buf, q, k, v, work, total;
@@ -75,9 +96,10 @@ __host__ __device__ inline AttnSmem attn_smem(int Nq, int Nk, int C) {
   return s;
 }
 
-// buf rows [0, rows) <- bf16(src row [+ pos row]), LayerNorm'ed in f32 when
-// `ln`; rows [rows, rows_pad) <- 0. One warp per row.
-__device__ inline void load_rows(bf16* buf, int ldb, const bf16* src, const bf16* pos, int rows,
+// buf rows [0, rows) <- bf16(row r [+ pos row]), row r at src(r), LayerNorm'ed
+// in f32 when `ln`; rows [rows, rows_pad) <- 0. One warp per row.
+template <typename RowSrc>
+__device__ inline void load_rows(bf16* buf, int ldb, RowSrc src, const bf16* pos, int rows,
                                  int rows_pad, int C, const float* ln_s, const float* ln_b,
                                  float eps, bool ln) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -87,7 +109,7 @@ __device__ inline void load_rows(bf16* buf, int ldb, const bf16* src, const bf16
       for (int c = lane; c < C; c += 32) dst[c] = to_bf(0.f);
       continue;
     }
-    const bf16* s = src + (size_t)r * C;
+    const bf16* s = src(r);
     const bf16* p = pos ? pos + (size_t)r * C : nullptr;
     for (int c = lane; c < C; c += 32) {
       float v = to_f(s[c]);
@@ -146,14 +168,21 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnParams p) {
   const int ldb = p.C + 8;
 
   // q from the (LayerNorm'ed) query rows
-  load_rows(buf, ldb, p.x + (size_t)g * p.Nq * p.C, p.pos, p.Nq, npq, p.C, p.ln_s, p.ln_b,
-            p.eps, p.ln_pre != 0);
+  const bf16* xg = p.x + (size_t)g * p.Nq * p.C;
+  load_rows(
+      buf, ldb,
+      [&](int r) {
+        return p.map_h ? p.x + map_row(g, r, p.nW, p.map_h, p.map_w, p.ws, 0, 0) * p.C
+                       : xg + (size_t)r * p.C;
+      },
+      p.pos, p.Nq, npq, p.C, p.ln_s, p.ln_b, p.eps, p.ln_pre != 0);
   __syncthreads();
   project_head<D>(qs, buf, ldb, npq, p.wq, p.bq, p.C, head, scratch);
   // k, v from the cross input (raw), or from the same staged rows
   if (p.kv) {
-    load_rows(buf, ldb, p.kv + (size_t)g * p.Nk * p.C, nullptr, p.Nk, npk, p.C, nullptr,
-              nullptr, 0.f, false);
+    const bf16* kvg = p.kv + (size_t)g * p.Nk * p.C;
+    load_rows(buf, ldb, [&](int r) { return kvg + (size_t)r * p.C; }, nullptr, p.Nk, npk, p.C,
+              nullptr, nullptr, 0.f, false);
     __syncthreads();
   }
   project_head<D>(ks, buf, ldb, npk, p.wk, p.bk, p.C, head, scratch);

@@ -15,16 +15,15 @@
 // accumulated into a 16 x C f32 tile kept in shared memory (64 KB at
 // C = 1024, where a whole-row hidden would not fit). Weights are read as WMMA
 // tiles straight from L2. The epilogue adds bias and residual (or the
-// post-LN) in f32 and writes the output once.
+// post-LN) in f32 and writes the output once. The hidden loop
+// (mlp_hidden_chunks, common.cuh) is shared with the whole Swin block.
 #include "common.cuh"
 
 using namespace mmrp;
 
 namespace {
 
-constexpr int kRows = 16;    // rows per block
-constexpr int kChunk = 128;  // hidden columns per chunk: one 16-wide tile per warp
-static_assert(kChunk == kWarps * 16, "one FC1 tile per warp");
+constexpr int kRows = kMlpRows;  // rows per block
 
 struct MlpParams {
   const bf16* x;      // (M, C)
@@ -40,29 +39,10 @@ struct MlpParams {
   int post_ln, residual;
 };
 
-struct MlpSmem {
-  size_t xs, acc, hf, hs, total;
-};
-
-__host__ __device__ inline MlpSmem mlp_smem(int C) {
-  MlpSmem s;
-  size_t off = 0;
-  s.xs = off;
-  off += align128((size_t)kRows * (C + 8) * sizeof(bf16));
-  s.acc = off;
-  off += align128((size_t)kRows * (C + 4) * sizeof(float));
-  s.hf = off;
-  off += align128((size_t)kRows * (kChunk + 4) * sizeof(float));
-  s.hs = off;
-  off += align128((size_t)kRows * (kChunk + 8) * sizeof(bf16));
-  s.total = off;
-  return s;
-}
-
 __global__ void __launch_bounds__(kThreads) ln_mlp_kernel(MlpParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const MlpSmem L = mlp_smem(p.C);
-  bf16* xs = reinterpret_cast<bf16*>(smem + L.xs);
+  bf16* xs = reinterpret_cast<bf16*>(smem + L.z);
   float* acc = reinterpret_cast<float*>(smem + L.acc);
   float* hf = reinterpret_cast<float*>(smem + L.hf);
   bf16* hs = reinterpret_cast<bf16*>(smem + L.hs);
@@ -91,29 +71,7 @@ __global__ void __launch_bounds__(kThreads) ln_mlp_kernel(MlpParams p) {
   for (int i = threadIdx.x; i < kRows * lda; i += kThreads) acc[i] = 0.f;
   __syncthreads();
 
-  for (int n0 = 0; n0 < p.Hd; n0 += kChunk) {
-    {  // FC1 chunk: warp w computes hidden columns [n0 + 16w, n0 + 16w + 16)
-      FragAcc h;
-      wmma::fill_fragment(h, 0.f);
-      mma_bcol(h, xs, ldx, p.w1 + (size_t)(n0 + warp * 16) * p.C, p.C, p.C);
-      wmma::store_matrix_sync(hf + warp * 16, h, kChunk + 4, wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < kRows * kChunk; i += kThreads) {
-      const int r = i / kChunk, c = i % kChunk;
-      hs[(size_t)r * (kChunk + 8) + c] =
-          to_bf(gelu_tanh(hf[(size_t)r * (kChunk + 4) + c] + to_f(p.b1[n0 + c])));
-    }
-    __syncthreads();
-    // FC2: acc[:, 16t:16t+16] += hidden chunk @ W2^T[chunk, 16t:16t+16]
-    for (int t = warp; t < p.C / 16; t += kWarps) {
-      FragAcc o;
-      wmma::load_matrix_sync(o, acc + t * 16, lda, wmma::mem_row_major);
-      mma_bcol(o, hs, kChunk + 8, p.w2 + (size_t)t * 16 * p.Hd + n0, p.Hd, kChunk);
-      wmma::store_matrix_sync(acc + t * 16, o, lda, wmma::mem_row_major);
-    }
-    __syncthreads();
-  }
+  mlp_hidden_chunks(xs, ldx, acc, lda, hf, hs, p.w1, p.b1, p.w2, p.C, p.Hd, 0, p.Hd);
 
   for (int lr = warp; lr < kRows; lr += kWarps) {
     const int r = row0 + lr;
@@ -145,7 +103,7 @@ extern "C" {
 int mmrp_ln_mlp(const void* x, const void* ln_s, const void* ln_b, const void* w1,
                 const void* b1, const void* w2, const void* b2, void* out, int M, int C, int Hd,
                 int post_ln, int include_residual, float eps, void* stream) {
-  if (M < 1 || C % 16 || Hd % kChunk) return (int)cudaErrorInvalidValue;
+  if (M < 1 || C % 16 || Hd % kMlpChunk) return (int)cudaErrorInvalidValue;
   MlpParams p{};
   p.x = static_cast<const bf16*>(x);
   p.ln_s = static_cast<const float*>(ln_s);

@@ -17,6 +17,7 @@ from typing import Dict
 import torch
 from torch import nn
 
+from mmrp_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mmrp_tpu_torch.models.fusion import CrossModalFusion
 from mmrp_tpu_torch.models.layers import (
     LayerNorm,
@@ -52,8 +53,9 @@ class MultiModalConfig:
 class Backbones(nn.Module):
     """Vision + text encoders; the unimodal modes build only their tower."""
 
-    def __init__(self, config: MultiModalConfig, dtype=torch.float32, device=None):
+    def __init__(self, config: MultiModalConfig, dtype=torch.float32, device=DEFAULT_DEVICE):
         super().__init__()
+        device = resolve_device(device, "Backbones")
         self.config = config
         if config.mode != "text":
             if config.vision_backbone != "swin":
@@ -118,10 +120,13 @@ class MultiModalRetrievalModel(nn.Module):
     joint_emb, img_emb, txt_emb (f32)). Parameters are created in ``dtype``
     on ``device`` (LayerNorms, ``alpha``, ``rel_bias_table`` and the
     classifier's last layer in f32); build the model at the dtype it will
-    run in rather than converting it afterwards."""
+    run in rather than converting it afterwards. ``device`` is the card
+    unless the caller names another (``"cpu"`` runs every kernel's plain
+    version)."""
 
-    def __init__(self, config: MultiModalConfig, dtype=torch.float32, device=None):
+    def __init__(self, config: MultiModalConfig, dtype=torch.float32, device=DEFAULT_DEVICE):
         super().__init__()
+        device = resolve_device(device, "MultiModalRetrievalModel")
         if config.mode not in ("multimodal", "image", "text"):
             raise ValueError(f"invalid mode {config.mode!r}")
         self.config = config

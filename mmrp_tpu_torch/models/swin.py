@@ -1,27 +1,49 @@
-"""Swin Transformer vision encoder on the fused-kernel route.
+"""Swin Transformer vision encoder on the fused-kernel routes of the JAX model.
 
-Counterpart of ``mmrp_tpu/models/swin.py`` on the route that JAX takes with
-``MMRP_SWIN_WHOLE=0`` and ``quant="none"``: every block's attention half is
-the fused window-attention kernel (K1, ``ops/fused_window_attention.py``),
-its MLP half the fused LN + MLP kernel (K2, ``ops/fused_mlp.py``) at
-C <= 256 and plain GEMMs at wider stages, as in ``SwinBlock.__call__``.
+Counterpart of ``mmrp_tpu/models/swin.py`` with ``quant="none"``. Each stage
+takes the route the JAX ``SwinEncoder`` takes with its default environment
+(:func:`swin_plan`, the conditions of ``swin.py:503-510, 718-765, 791-826``):
 
-Layouts are the JAX model's: NHWC input, PatchEmbed as a space-to-depth GEMM
-over ``(kh, kw, in)``-flattened patches, PatchMerging concatenating in
-``reshape(B, H/2, 2, W/2, 2, C).transpose(0, 1, 3, 2, 4, 5)`` order.
+- ``k1k2``: every block's attention half is the fused window-attention kernel
+  (K1, ``ops/fused_window_attention.py``) between a roll + partition and a
+  reverse + roll in PyTorch, its MLP half the fused LN + MLP kernel (K2,
+  ``ops/fused_mlp.py``) at C <= 256 and plain GEMMs at wider stages — Swin-B
+  stage 1 (C = 128 < ``whole_min_c``), and every stage with
+  ``whole_block=False`` (the JAX ``MMRP_SWIN_WHOLE=0``);
+- ``pair``: a block and its shifted partner through the whole-block kernel,
+  on the raw map (``ops/fused_swin_pair.py``) — Swin-B stage 2;
+- ``chain``: one whole block per call on the raw map, each leaving the map
+  in the next block's rolled frame — Swin-B stage 3;
+- ``windows``: the whole-block kernel on the partitioned windows
+  (``ops/fused_swin_block.py``) — Swin-B stage 4, where the chain's VMEM gate
+  fails and the partition of a single window is a view.
+
+The routes share one parameter tree, so ``utils/convert.py`` loads the same
+weights into every route. Layouts are the JAX model's: NHWC input, PatchEmbed
+as a space-to-depth GEMM over ``(kh, kw, in)``-flattened patches,
+PatchMerging concatenating in ``reshape(B, H/2, 2, W/2, 2, C).transpose(0, 1,
+3, 2, 4, 5)`` order.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mmrp_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mmrp_tpu_torch.models.layers import LayerNorm, MlpParams, gelu, ln_f32
 from mmrp_tpu_torch.ops.fused_mlp import fused_ln_mlp_residual
+from mmrp_tpu_torch.ops.fused_swin_block import fused_swin_block_windows
+from mmrp_tpu_torch.ops.fused_swin_pair import (
+    chain_vmem_ok,
+    fused_swin_block_chain,
+    fused_swin_block_pair,
+    pair_vmem_ok,
+)
 from mmrp_tpu_torch.ops.fused_window_attention import (
     build_bias_full,
     fused_window_attention_windows,
@@ -43,6 +65,13 @@ class SwinConfig:
     num_heads: Tuple[int, ...] = (3, 6, 12, 24)
     window_size: int = 7
     mlp_ratio: float = 4.0
+    # the JAX routing switches, at their defaults: MMRP_SWIN_WHOLE,
+    # MMRP_SWIN_WHOLE_MINC, MMRP_SWIN_PAIR, MMRP_SWIN_PAIR_MAXC, MMRP_SWIN_CHAIN
+    whole_block: bool = True
+    whole_min_c: int = 256
+    pair: bool = True
+    pair_max_c: int = 256
+    chain: bool = True
 
     @property
     def num_features(self) -> int:
@@ -73,6 +102,69 @@ class SwinConfig:
         """Smoke-test scale: one 7x7-window stage."""
         kw.setdefault("img_size", 28)
         return SwinConfig(embed_dim=16, depths=(1,), num_heads=(2,), **kw)
+
+
+class Step(NamedTuple):
+    """One call of a stage's route: ``route`` on block ``block`` (and, for a
+    pair, ``block + 1``); ``roll_after`` is a chain step's roll into the next
+    block's frame."""
+
+    route: str  # "k1k2" | "pair" | "chain" | "windows"
+    block: int
+    roll_after: int = 0
+
+
+def stage_geometry(cfg: SwinConfig) -> List[Tuple[int, int, int]]:
+    """(dim, resolution, window) of each stage; the window is clamped to the
+    resolution, as the JAX model does."""
+    out, dim, res = [], cfg.embed_dim, cfg.img_size // cfg.patch_size
+    for stage in range(len(cfg.depths)):
+        ws = min(cfg.window_size, res)
+        if res % ws:
+            raise ValueError(f"stage {stage}: resolution {res} not divisible by window {ws}")
+        out.append((dim, res, ws))
+        dim, res = dim * 2, (res + 1) // 2
+    return out
+
+
+def block_shift(blk: int, res: int, ws: int) -> int:
+    """Odd blocks shift by ws // 2, unless the window covers the whole map
+    (``mmrp_tpu`` swin.py:242, 462)."""
+    return ws // 2 if blk % 2 and res > ws else 0
+
+
+def swin_plan(cfg: SwinConfig) -> List[List[Step]]:
+    """The steps of every stage, with the JAX ``SwinEncoder``'s conditions
+    (``swin.py:503-510, 718-765, 791-826``; the serving route: deterministic,
+    Pallas on, ``quant="none"``)."""
+    plan = []
+    for stage, (dim, res, ws) in enumerate(stage_geometry(cfg)):
+        depth, heads = cfg.depths[stage], cfg.num_heads[stage]
+        whole = cfg.whole_block and dim >= cfg.whole_min_c
+        use_pair = (cfg.pair and whole and dim <= cfg.pair_max_c and res > ws
+                    and pair_vmem_ok(dim, res, res, heads, ws, cfg.mlp_ratio))
+        use_chain = cfg.chain and whole and chain_vmem_ok(dim, res, res, heads, ws,
+                                                          cfg.mlp_ratio)
+        steps, blk = [], 0
+        while blk < depth:
+            if use_pair and blk % 2 == 0 and blk + 1 < depth:
+                steps.append(Step("pair", blk))
+                blk += 2
+                continue
+            if use_chain:
+                nxt = block_shift(blk + 1, res, ws) if blk + 1 < depth else 0
+                steps.append(Step("chain", blk, block_shift(blk, res, ws) - nxt))
+            else:
+                steps.append(Step("windows" if whole else "k1k2", blk))
+            blk += 1
+        plan.append(steps)
+    return plan
+
+
+def stage_routes(cfg: SwinConfig) -> List[str]:
+    """The route of each stage's first step (a pair stage of odd depth ends
+    with one chain or windows step)."""
+    return [steps[0].route for steps in swin_plan(cfg)]
 
 
 class PatchEmbed(nn.Module):
@@ -121,7 +213,11 @@ class WindowAttention(nn.Module):
 
 
 class SwinBlock(nn.Module):
-    """x + WindowAttention(LN0 x) (K1), then + MLP(LN1 x) (K2 at C <= 256)."""
+    """A Swin block's parameters and its two single-block routes:
+    ``forward`` is x + WindowAttention(LN0 x) (K1), then + MLP(LN1 x) (K2 at
+    C <= 256); :meth:`forward_windows` is the whole-block kernel on the
+    partitioned windows. The encoder runs the raw-map routes with
+    :meth:`kernel_args`."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, shift: int,
                  input_resolution: Tuple[int, int], mlp_ratio: float = 4.0,
@@ -137,6 +233,23 @@ class SwinBlock(nn.Module):
                                     dtype, device)
         self.LayerNorm_1 = LayerNorm(dim, dtype, device)
         self.mlp = MlpParams(int(dim * mlp_ratio), dim, dtype, device)
+
+    def kernel_args(self) -> Tuple[torch.Tensor, ...]:
+        """The 12 weight tensors of the whole-block kernels, in JAX order."""
+        return (self.LayerNorm_0.weight, self.LayerNorm_0.bias,
+                self.attn.qkv.weight, self.attn.qkv.bias,
+                self.attn.proj.weight, self.attn.proj.bias,
+                self.LayerNorm_1.weight, self.LayerNorm_1.bias, *self.mlp.weights())
+
+    def forward_windows(self, x: torch.Tensor) -> torch.Tensor:  # (B, H, W, C)
+        _, H, W, _ = x.shape
+        ws, s = self.attn.window_size, self.attn.shift
+        xs = torch.roll(x, shifts=(-s, -s), dims=(1, 2)) if s else x
+        ow = fused_swin_block_windows(window_partition(xs, ws).contiguous(),
+                                      *self.kernel_args(), self.attn.bias_full,
+                                      self.num_heads)
+        out = window_reverse(ow, ws, H, W)
+        return torch.roll(out, shifts=(s, s), dims=(1, 2)) if s else out
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, H, W, C)
         B, H, W, C = x.shape
@@ -180,41 +293,47 @@ class PatchMerging(nn.Module):
 
 class SwinEncoder(nn.Module):
     """NHWC image -> dict(patches (B, Np, F), global (B, F)), the mean over
-    patches as the global vector."""
+    patches as the global vector. Built on the card unless ``device`` names
+    another; each stage runs the steps of :func:`swin_plan`."""
 
-    def __init__(self, config: SwinConfig, dtype=torch.float32, device=None):
+    def __init__(self, config: SwinConfig, dtype=torch.float32, device=DEFAULT_DEVICE):
         super().__init__()
+        device = resolve_device(device, "SwinEncoder")
         cfg = config
         self.config = cfg
+        self.plan = swin_plan(cfg)
         self.patch_embed = PatchEmbed(cfg.embed_dim, cfg.patch_size, cfg.in_chans, dtype,
                                       device)
-        res = cfg.img_size // cfg.patch_size
-        dim = cfg.embed_dim
-        self._order = []  # submodule names in forward order (Flax names)
-        for stage, depth in enumerate(cfg.depths):
-            # clamp the window to the stage resolution, as the JAX model does
-            ws = min(cfg.window_size, res)
-            if res % ws:
-                raise ValueError(
-                    f"stage {stage}: resolution {res} not divisible by window {ws}")
-            for blk in range(depth):
-                name = f"stage{stage}_block{blk}"
-                self.add_module(name, SwinBlock(
+        geometry = stage_geometry(cfg)
+        for stage, (dim, res, ws) in enumerate(geometry):
+            for blk in range(cfg.depths[stage]):
+                self.add_module(f"stage{stage}_block{blk}", SwinBlock(
                     dim, cfg.num_heads[stage], ws, 0 if blk % 2 == 0 else ws // 2,
                     (res, res), cfg.mlp_ratio, dtype, device))
-                self._order.append(name)
-            if stage < len(cfg.depths) - 1:
-                name = f"merge{stage}"
-                self.add_module(name, PatchMerging(dim, dtype, device))
-                self._order.append(name)
-                dim *= 2
-                res = (res + 1) // 2
-        self.norm = LayerNorm(dim, dtype, device)
+            if stage < len(geometry) - 1:
+                self.add_module(f"merge{stage}", PatchMerging(dim, dtype, device))
+        self.norm = LayerNorm(cfg.num_features, dtype, device)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = self.patch_embed(x)
-        for name in self._order:
-            x = self._modules[name](x)
+        for stage, steps in enumerate(self.plan):
+            for step in steps:
+                blk = self._modules[f"stage{stage}_block{step.block}"]
+                ws = blk.attn.window_size
+                if step.route == "k1k2":
+                    x = blk(x)
+                elif step.route == "windows":
+                    x = blk.forward_windows(x)
+                elif step.route == "chain":
+                    x = fused_swin_block_chain(x, blk.kernel_args(), blk.attn.bias_full,
+                                               blk.num_heads, ws, step.roll_after)
+                else:
+                    nxt = self._modules[f"stage{stage}_block{step.block + 1}"]
+                    x = fused_swin_block_pair(x, blk.kernel_args(), blk.attn.bias_full,
+                                              nxt.kernel_args(), nxt.attn.bias_full,
+                                              blk.num_heads, ws, nxt.attn.shift)
+            if f"merge{stage}" in self._modules:
+                x = self._modules[f"merge{stage}"](x)
         x = self.norm(x)
         B, H, W, C = x.shape
         patches = x.reshape(B, H * W, C)

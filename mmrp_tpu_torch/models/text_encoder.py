@@ -14,6 +14,7 @@ from typing import Dict
 import torch
 from torch import nn
 
+from mmrp_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mmrp_tpu_torch.models.layers import LayerNorm, MhaParams, gelu, ln_f32
 from mmrp_tpu_torch.ops.fused_attention import fused_attention
 
@@ -85,10 +86,12 @@ class BertLayer(nn.Module):
 
 
 class TextEncoder(nn.Module):
-    """(ids, mask) -> dict(tokens (B, L, D), cls (B, D))."""
+    """(ids, mask) -> dict(tokens (B, L, D), cls (B, D)). Built on the card
+    unless ``device`` names another."""
 
-    def __init__(self, config: TextConfig, dtype=torch.float32, device=None):
+    def __init__(self, config: TextConfig, dtype=torch.float32, device=DEFAULT_DEVICE):
         super().__init__()
+        device = resolve_device(device, "TextEncoder")
         self.config = config
         self.embeddings = BertEmbeddings(config, dtype, device)
         for i in range(config.num_layers):

@@ -2,7 +2,8 @@
 
 The sources under ``mmrp_tpu_torch/csrc`` compile with ``nvcc`` for
 ``sm_90a`` into one shared library with a plain C interface,
-``mmrp_tpu_torch/build/libmmrp_kernels.so``, at first use. A stamp beside it
+``mmrp_tpu_torch/build/libmmrp_kernels.so``, at first use: one ``nvcc -c``
+per source, all started together, then one link. A stamp beside the library
 holds the sha256 of the sources and flags; a change to either rebuilds.
 Nothing includes PyTorch's headers, so a build takes seconds. The library is
 bound with ``ctypes``: every pointer and the stream go as ``c_void_p``, and
@@ -29,11 +30,9 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 LIB_PATH = BUILD_DIR / "libmmrp_kernels.so"
-SOURCES = ("window_attention.cu", "ln_mlp.cu", "seq_attention.cu")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCES = ("window_attention.cu", "ln_mlp.cu", "seq_attention.cu", "swin_block.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of every C entry, in the order of its definition in csrc/
@@ -41,6 +40,7 @@ _SIGNATURES = {
     "mmrp_window_attention": [_P] * 10 + [_I] * 6 + [_F, _P],
     "mmrp_ln_mlp": [_P] * 8 + [_I] * 5 + [_F, _P],
     "mmrp_seq_attention": [_P] * 17 + [_I] * 8 + [_F, _P],
+    "mmrp_swin_block": [_P] * 16 + [_I] * 10 + [_F, _P],
 }
 
 
@@ -78,18 +78,34 @@ def build(force: bool = False) -> Optional[str]:
             and stamp.read_text() == digest:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"libmmrp_kernels.{os.getpid()}.tmp.so"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC_DIR / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    nvcc, pid = nvcc_path(), os.getpid()
+    tmp = BUILD_DIR / f"libmmrp_kernels.{pid}.tmp.so"
+    objs = [BUILD_DIR / f"{Path(src).stem}.{pid}.o" for src in SOURCES]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC_DIR / src)]
+                for src, obj in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in compiles]
+    logs = [proc.communicate()[0] for proc in procs]
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    try:
+        for cmd, proc, out in zip(compiles, procs, logs):
+            _check(cmd, proc.returncode, out)
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+        _check(link, proc.returncode, proc.stdout)
+        os.replace(tmp, LIB_PATH)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIB_PATH)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     stamp.write_text(digest)
-    return proc.stdout + proc.stderr
+    return "".join(logs) + proc.stdout
+
+
+def _check(cmd, returncode: int, output: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {returncode}:\n{' '.join(cmd)}\n{output}")
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,0 +1,116 @@
+"""Whole Swin blocks on the raw map: the roll-chain step and the shifted pair.
+
+Counterpart of ``mmrp_tpu/ops/fused_swin_pair.py`` (bf16 form; the static
+W8A8 option is not ported yet):
+
+- :func:`fused_swin_block_chain`: one block on the map ``x`` (B, H, W, C),
+  already in this block's (rolled) frame, then the roll by ``roll_after``
+  that puts the map in the NEXT block's frame:
+  ``roll(reverse(block(partition(x))), roll_after)``;
+- :func:`fused_swin_block_pair`: a block and its shifted partner,
+  ``roll(block1(roll(block0(x), -s)), +s)``, the map rounded to the
+  activation dtype between them as the TPU kernel does.
+
+On CUDA tensors both launch the whole-block kernel of ``csrc/swin_block.cu``
+(see :mod:`mmrp_tpu_torch.ops.fused_swin_block`), which folds partition,
+reverse and roll into its row indexing; the pair is two launches of it, the
+barrier across the map that the shifted block needs. On CPU tensors they run
+:func:`chain_plain` / :func:`pair_plain`, the JAX ``_xla_chain`` / ``_xla_pair``
+in plain PyTorch.
+
+``pair_vmem_ok`` and ``chain_vmem_ok`` are copies of the JAX gates. They
+size TPU VMEM, not anything on the GPU; the port keeps them so that its
+Swin encoder takes the same route as the reference at every geometry
+(``models/swin.py::swin_plan``).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from mmrp_tpu_torch.ops.fused_swin_block import launch_block, raw_plain
+
+
+def pair_vmem_ok(C: int, H: int, W: int, num_heads: int, ws: int,
+                 mlp_ratio: float = 4.0,
+                 budget_bytes: int = 12 * 1024 * 1024,
+                 weight_bytes: int = 2) -> bool:
+    """The JAX gate of the pair kernel: map + both blocks' weights + both
+    bias tables + the largest live intermediates within 12 MB of VMEM."""
+    hidden = int(C * mlp_ratio)
+    nW = (H // ws) * (W // ws)
+    N = ws * ws
+    per_block = 3 * C * C + C * C + 2 * C * hidden
+    wbytes = 2 * weight_bytes * per_block
+    if weight_bytes == 1:
+        wbytes += 2 * 4 * (3 * C + C + hidden + C)
+    bias = 2 * 4 * nW * num_heads * N * N
+    xmap = 2 * H * W * C * 3
+    inter = 2 * nW * N * 3 * C + 4 * nW * N * N + 2 * nW * N * hidden
+    return wbytes + bias + xmap + inter <= budget_bytes
+
+
+def chain_vmem_ok(C: int, H: int, W: int, num_heads: int, ws: int,
+                  mlp_ratio: float = 4.0,
+                  budget_bytes: int = 12 * 1024 * 1024,
+                  weight_bytes: int = 2) -> bool:
+    """The JAX gate of the chain kernel: :func:`pair_vmem_ok` for one block."""
+    hidden = int(C * mlp_ratio)
+    nW = (H // ws) * (W // ws)
+    N = ws * ws
+    wbytes = weight_bytes * (3 * C * C + C * C + 2 * C * hidden)
+    if weight_bytes == 1:
+        wbytes += 4 * (3 * C + C + hidden + C)
+    bias = 4 * nW * num_heads * N * N
+    xmap = 2 * H * W * C * 3
+    inter = 2 * nW * N * 3 * C + 4 * nW * N * N + 2 * nW * N * hidden
+    return wbytes + bias + xmap + inter <= budget_bytes
+
+
+def chain_plain(x, blk: Sequence[torch.Tensor], bias, num_heads: int, ws: int,
+                roll_after: int, ln_eps: float = 1e-6) -> torch.Tensor:
+    """The chain step in plain PyTorch (``_xla_chain``)."""
+    y = raw_plain(x, *blk, bias, num_heads=num_heads, ws=ws, ln_eps=ln_eps)
+    return torch.roll(y, shifts=(roll_after, roll_after), dims=(1, 2)) if roll_after else y
+
+
+def pair_plain(x, blk0, bias0, blk1, bias1, num_heads: int, ws: int, shift: int,
+               ln_eps: float = 1e-6) -> torch.Tensor:
+    """The pair in plain PyTorch (``_xla_pair``)."""
+    y = chain_plain(x, blk0, bias0, num_heads, ws, -shift, ln_eps)
+    return chain_plain(y, blk1, bias1, num_heads, ws, shift, ln_eps)
+
+
+def fused_swin_block_chain(x, blk: Sequence[torch.Tensor], bias, num_heads: int, ws: int,
+                           roll_after: int, ln_eps: float = 1e-6) -> torch.Tensor:
+    """One whole block on the map ``x`` (B, H, W, C), pre-rolled for this
+    block's frame (``bias`` is this block's (nW, h, N, N) bias_full), then
+    the roll by ``roll_after = this_shift - next_shift``."""
+    if x.device.type == "cpu":
+        return chain_plain(x, blk, bias, num_heads, ws, roll_after, ln_eps)
+    out = launch_block("fused_swin_block_chain", x, blk, bias, num_heads, ln_eps,
+                       map_ws=ws, roll=roll_after)
+    fused_swin_block_chain.launches += 1
+    return out
+
+
+fused_swin_block_chain.launches = 0
+
+
+def fused_swin_block_pair(x, blk0: Sequence[torch.Tensor], bias0,
+                          blk1: Sequence[torch.Tensor], bias1, num_heads: int, ws: int,
+                          shift: int, ln_eps: float = 1e-6) -> torch.Tensor:
+    """A block (bias0, no shift) and its shifted partner (bias1, ``shift``)
+    on the map ``x`` (B, H, W, C); returns the map in the unshifted frame."""
+    if x.device.type == "cpu":
+        return pair_plain(x, blk0, bias0, blk1, bias1, num_heads, ws, shift, ln_eps)
+    op = "fused_swin_block_pair"
+    y = launch_block(op, x, blk0, bias0, num_heads, ln_eps, map_ws=ws, roll=-shift)
+    out = launch_block(op, y, blk1, bias1, num_heads, ln_eps, map_ws=ws, roll=shift)
+    fused_swin_block_pair.launches += 1
+    return out
+
+
+fused_swin_block_pair.launches = 0

@@ -28,6 +28,16 @@ def window_attention_plain(xw, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
                            bias_full, num_heads: int, ln_eps: float = 1e-6,
                            include_residual: bool = True) -> torch.Tensor:
     """The kernel's function in plain PyTorch (the reference it is held to)."""
+    return attention_half_f32(xw, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
+                              bias_full, num_heads, ln_eps, include_residual).to(xw.dtype)
+
+
+def attention_half_f32(xw, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias_full,
+                       num_heads: int, ln_eps: float = 1e-6,
+                       include_residual: bool = True) -> torch.Tensor:
+    """[x +] proj(attention(LN(x))) in f32, before the final cast: K1's
+    function, and the first half of the whole Swin block, which keeps it in
+    f32 (``ops/fused_swin_block.py``)."""
     B, nW, N, C = xw.shape
     h, d = num_heads, C // num_heads
     dt = xw.dtype
@@ -41,9 +51,7 @@ def window_attention_plain(xw, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
     p = (e / e.sum(-1, keepdim=True)).to(dt)
     attn = torch.einsum("bwhqk,bwkhd->bwqhd", p.float(), v.float()).to(dt)
     proj = attn.reshape(B, nW, N, C).float() @ w_proj.float().t() + b_proj.float()
-    if include_residual:
-        proj = xf + proj
-    return proj.to(dt)
+    return xf + proj if include_residual else proj
 
 
 def fused_window_attention_windows(xw, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,

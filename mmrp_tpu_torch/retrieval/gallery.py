@@ -15,6 +15,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from mmrp_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+
 
 def l2_normalize(x: np.ndarray, eps: float = 1e-8) -> np.ndarray:
     n = np.linalg.norm(x, axis=-1, keepdims=True)
@@ -34,11 +36,12 @@ def topk_single(queries: torch.Tensor, gallery: torch.Tensor, k: int = 10,
 
 class RetrievalEngine:
     """Embedding-gallery engine: an (N, D) matrix + aligned ids, exact
-    ``retrieve`` on ``device``, id lookup and zero-filled
-    ``get_embeddings_for_ids``. The gallery is L2-normalized at load."""
+    ``retrieve`` on ``device`` (the card unless the caller names another),
+    id lookup and zero-filled ``get_embeddings_for_ids``. The gallery is
+    L2-normalized at load."""
 
     def __init__(self, embeddings: np.ndarray, ids: Sequence[str],
-                 device: Optional[torch.device] = None):
+                 device=DEFAULT_DEVICE):
         embeddings = np.asarray(embeddings, dtype=np.float32)
         if embeddings.ndim != 2:
             raise ValueError("embeddings must be (N, D)")
@@ -47,7 +50,7 @@ class RetrievalEngine:
         self.ids = list(ids)
         self.id2idx = {r: i for i, r in enumerate(self.ids)}
         self.embeddings = l2_normalize(embeddings)
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = resolve_device(device, "RetrievalEngine")
         self._device_gallery: Optional[torch.Tensor] = None
 
     def get_embeddings_for_ids(self, ids: Sequence[str]) -> np.ndarray:

@@ -17,9 +17,15 @@ import torch
 
 from mmrp_tpu_torch.ops import fused_attention as tfa
 from mmrp_tpu_torch.ops import fused_mlp as tfm
+from mmrp_tpu_torch.ops import fused_swin_block as tsb
+from mmrp_tpu_torch.ops import fused_swin_pair as tsp
 from mmrp_tpu_torch.ops import fused_window_attention as tfw
 
 ATOL = 6e-2
+# a whole Swin block (two residual branches, and a pair two blocks deep)
+# reaches outputs of magnitude ~8, where one bf16 ulp is 0.06: bound the
+# error by 4 ulps of the output, as chip_smoke.py does
+SWIN_TOL = dict(atol=2.0 ** -5, rtol=2.0 ** -5)
 
 
 @pytest.fixture()
@@ -97,6 +103,66 @@ def test_seq_attention_kernel(dev, ln_mode, cross, B, Nq, Nk, C, heads):
         want = tfa.attention_plain(x, *ln, *w, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=ATOL, rtol=0)
+
+
+def _swin_block(gen, dev, C, heads, H, shift):
+    """12 block tensors (nn.Linear layout) and the (nW, h, 49, 49) bias_full."""
+    ws, Hd = 7, 4 * C
+    blk = (1 + _rand(gen, (C,), dev, 0.1, torch.float32), _rand(gen, (C,), dev, 0.1, torch.float32),
+           _rand(gen, (3 * C, C), dev, C ** -0.5), _rand(gen, (3 * C,), dev, 0.1),
+           _rand(gen, (C, C), dev, C ** -0.5), _rand(gen, (C,), dev, 0.1),
+           1 + _rand(gen, (C,), dev, 0.1, torch.float32), _rand(gen, (C,), dev, 0.1, torch.float32),
+           _rand(gen, (Hd, C), dev, C ** -0.5), _rand(gen, (Hd,), dev, 0.1),
+           _rand(gen, (C, Hd), dev, Hd ** -0.5), _rand(gen, (C,), dev, 0.1))
+    table = _rand(gen, ((2 * ws - 1) ** 2, heads), dev, 0.5, torch.float32)
+    return blk, tfw.build_bias_full(table, ws, H, H, shift)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flavor,C,heads,H,roll", [
+    ("windows", 1024, 32, 7, 0), ("windows", 128, 2, 14, 0), ("raw", 256, 8, 14, 0),
+    ("chain", 256, 4, 14, -3), ("chain", 512, 16, 14, 3), ("chain", 128, 4, 7, 0)])
+def test_swin_block_kernel(dev, flavor, C, heads, H, roll):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    blk, bias = _swin_block(gen, dev, C, heads, H, 3 if roll > 0 else 0)
+    x = _rand(gen, (2, H, H, C), dev)
+    with torch.no_grad():
+        if flavor == "windows":
+            xw = x.reshape(2, H // 7, 7, H // 7, 7, C).permute(0, 1, 3, 2, 4, 5) \
+                .reshape(2, (H // 7) ** 2, 49, C).contiguous()
+            fn = tsb.fused_swin_block_windows
+            before = fn.launches
+            got = fn(xw, *blk, bias, heads)
+            want = tsb.swin_block_plain(xw, *blk, bias, heads)
+        elif flavor == "raw":
+            fn = tsb.fused_swin_block_raw
+            before = fn.launches
+            got = fn(x, *blk, bias, heads, 7)
+            want = tsb.raw_plain(x, *blk, bias, num_heads=heads, ws=7)
+        else:
+            fn = tsp.fused_swin_block_chain
+            before = fn.launches
+            got = fn(x, blk, bias, heads, 7, roll)
+            want = tsp.chain_plain(x, blk, bias, heads, 7, roll)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **SWIN_TOL)
+
+
+@pytest.mark.cuda
+def test_swin_pair_kernel(dev):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    C, heads, H = 256, 8, 28
+    blk0, bias0 = _swin_block(gen, dev, C, heads, H, 0)
+    blk1, bias1 = _swin_block(gen, dev, C, heads, H, 3)
+    x = _rand(gen, (2, H, H, C), dev)
+    before = tsp.fused_swin_block_pair.launches
+    with torch.no_grad():
+        got = tsp.fused_swin_block_pair(x, blk0, bias0, blk1, bias1, heads, 7, 3)
+        want = tsp.pair_plain(x, blk0, bias0, blk1, bias1, heads, 7, 3)
+    torch.cuda.synchronize()
+    assert tsp.fused_swin_block_pair.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **SWIN_TOL)
 
 
 @pytest.mark.cuda

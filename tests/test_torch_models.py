@@ -7,9 +7,11 @@ bridge. Inputs are numpy from a seed; both sides run in float32.
 
 The JAX side runs on its XLA path and on the kernel route of the serving
 slice (``MMRP_FORCE_PALLAS=1``, ``MMRP_SWIN_WHOLE=0``: the Pallas kernels in
-interpret mode). Tolerance 1e-4: a few layers of f32 arithmetic that differ
-in the order of sums and in the LayerNorm variance form (Flax's one-pass
-E[x^2] - E[x]^2 against the port's two-pass).
+interpret mode); the Swin encoder also on the whole-block routes
+(``MMRP_SWIN_WHOLE_MINC=16``: pair, then chain or windows). Tolerance 1e-4:
+a few layers of f32 arithmetic that differ in the order of sums and in the
+LayerNorm variance form (Flax's one-pass E[x^2] - E[x]^2 against the port's
+two-pass).
 """
 
 import jax
@@ -49,15 +51,27 @@ def load(module, params):
     return module.eval()
 
 
+# JAX environment of each kernel route, and the port SwinConfig fields that match it
+ROUTE_ENV = {
+    "slice": ({"MMRP_SWIN_WHOLE": "0"}, {"whole_block": False}),
+    "whole": ({"MMRP_SWIN_WHOLE_MINC": "16"}, {"whole_min_c": 16}),
+    "whole_nochain": ({"MMRP_SWIN_WHOLE_MINC": "16", "MMRP_SWIN_CHAIN": "0"},
+                      {"whole_min_c": 16, "chain": False}),
+}
+
+
 @pytest.fixture()
 def slice_route(monkeypatch):
-    """Switch the JAX model onto the serving slice's kernel route."""
+    """Switch the JAX model onto a kernel route (default: the K1/K2/K3 slice)."""
 
-    def enable():
+    def enable(route="slice"):
         monkeypatch.setenv("MMRP_FORCE_PALLAS", "1")
-        monkeypatch.setenv("MMRP_SWIN_WHOLE", "0")
+        for key, val in ROUTE_ENV[route][0].items():
+            monkeypatch.setenv(key, val)
 
-    monkeypatch.delenv("MMRP_FORCE_PALLAS", raising=False)
+    for key in ("MMRP_FORCE_PALLAS", "MMRP_SWIN_WHOLE", "MMRP_SWIN_WHOLE_MINC",
+                "MMRP_SWIN_CHAIN"):
+        monkeypatch.delenv(key, raising=False)
     return enable
 
 
@@ -81,19 +95,21 @@ def test_sinusoidal_positions_match_jax():
     np.testing.assert_array_equal(sinusoidal_positions(51, 64), jsin(51, 64))
 
 
-@pytest.mark.parametrize("route", ["xla", "slice"])
+@pytest.mark.parametrize("route", ["xla", "slice", "whole", "whole_nochain"])
 def test_swin_encoder_matches_jax(rng, slice_route, route):
     """Tiny Swin with shifted windows and a merge (56 px: 14x14 then 7x7)."""
     jcfg = jswin.SwinConfig(img_size=56, embed_dim=16, depths=(2, 2), num_heads=(2, 2))
     img = rng.random((2, 56, 56, 3), dtype=np.float32)
     jmodel = jswin.SwinEncoder(jcfg)
     params = randomize(jmodel.init(jax.random.PRNGKey(0), jnp.asarray(img))["params"])
-    if route == "slice":
-        slice_route()
+    if route != "xla":
+        slice_route(route)
     want = jmodel.apply({"params": params}, jnp.asarray(img))
 
-    tcfg = tswin.SwinConfig(img_size=56, embed_dim=16, depths=(2, 2), num_heads=(2, 2))
-    tmodel = load(tswin.SwinEncoder(tcfg), params)
+    fields = ROUTE_ENV[route][1] if route != "xla" else {}
+    tcfg = tswin.SwinConfig(img_size=56, embed_dim=16, depths=(2, 2), num_heads=(2, 2),
+                            **fields)
+    tmodel = load(tswin.SwinEncoder(tcfg, device="cpu"), params)
     with torch.no_grad():
         got = tmodel(torch.from_numpy(img))
     assert tcfg.num_patches == 49
@@ -116,7 +132,7 @@ def test_text_encoder_matches_jax(rng, slice_route, route):
         slice_route()
     want = jmodel.apply({"params": params}, jnp.asarray(ids), jnp.asarray(mask))
 
-    tmodel = load(ttext.TextEncoder(ttext.TextConfig.small(**kw)), params)
+    tmodel = load(ttext.TextEncoder(ttext.TextConfig.small(**kw), device="cpu"), params)
     with torch.no_grad():
         got = tmodel(torch.from_numpy(ids).long(), torch.from_numpy(mask))
     assert got["tokens"].shape == (3, 16, 32)

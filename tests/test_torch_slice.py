@@ -2,17 +2,22 @@
 
 ``serving_forward`` (probs, joint_emb, img_emb, txt_emb) of a tiny
 multimodal model is held against the JAX ``serving_forward`` on its XLA
-path and on the kernel route of the slice (``MMRP_FORCE_PALLAS=1``,
-``MMRP_SWIN_WHOLE=0``: patches padded 49 -> 56 and the fusion sequence
-51 -> 56 inside the JAX model, unpadded in the port). Then predict's
-thresholds, exact top-K retrieval against the JAX ``RetrievalEngine``, the
-npz weight bridge, and the port's freedom from JAX.
+path and on its kernel routes (``MMRP_FORCE_PALLAS=1``: patches padded
+49 -> 56 and the fusion sequence 51 -> 56 inside the JAX model, unpadded in
+the port): the K1 + K2 Swin route (``MMRP_SWIN_WHOLE=0``), and the
+whole-block routes of the default environment with the width gate lowered
+to the tiny model's (``MMRP_SWIN_WHOLE_MINC=16``: the pair at stage 0, the
+chain — or with ``MMRP_SWIN_CHAIN=0`` the windows flavor — at stage 1).
+Then the routing of Swin-B, predict's thresholds, exact top-K retrieval
+against the JAX ``RetrievalEngine``, the npz weight bridge, the default
+device, and the port's freedom from JAX.
 
 Tolerance 5e-4: the whole stack (2 Swin stages, a BERT layer, 2 fusion
 layers, the head) in f32, with sums in other orders and Flax's one-pass LN
 variance against the port's two-pass.
 """
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -30,7 +35,7 @@ from mmrp_tpu.models.text_encoder import TextConfig as JTextConfig
 from mmrp_tpu.retrieval.gallery import RetrievalEngine as JRetrievalEngine
 from mmrp_tpu_torch.api import MMRPredictor, serving_forward
 from mmrp_tpu_torch.models.multimodal import MultiModalConfig, MultiModalRetrievalModel
-from mmrp_tpu_torch.models.swin import SwinConfig
+from mmrp_tpu_torch.models.swin import SwinConfig, stage_routes, swin_plan
 from mmrp_tpu_torch.models.text_encoder import TextConfig
 from mmrp_tpu_torch.retrieval.gallery import RetrievalEngine, topk_single
 from mmrp_tpu_torch.utils.convert import flax_to_state_dict, load_flax_params
@@ -76,7 +81,7 @@ def build(mode="multimodal", seed=0):
                                    jnp.asarray(ids), jnp.asarray(mask))["params"], seed)
     tcfg = MultiModalConfig(swin=SwinConfig(**SWIN), text=TextConfig.small(**TEXT), mode=mode,
                             **HEAD)
-    tmodel = MultiModalRetrievalModel(tcfg)
+    tmodel = MultiModalRetrievalModel(tcfg, device="cpu")
     load_flax_params(tmodel, params)
     return jmodel, params, tmodel.eval()
 
@@ -98,19 +103,73 @@ def multimodal():
     return build("multimodal")
 
 
-@pytest.mark.parametrize("route", ["xla", "slice"])
+# JAX environment and port SwinConfig fields of each route; the port's
+# default SwinConfig (whole_min_c=256) runs the tiny model's stages on K1 + K2
+ROUTES = {
+    "xla": ({}, {}),
+    "slice": ({"MMRP_FORCE_PALLAS": "1", "MMRP_SWIN_WHOLE": "0"}, {"whole_block": False}),
+    "whole": ({"MMRP_FORCE_PALLAS": "1", "MMRP_SWIN_WHOLE_MINC": "16"}, {"whole_min_c": 16}),
+    "whole_nochain": ({"MMRP_FORCE_PALLAS": "1", "MMRP_SWIN_WHOLE_MINC": "16",
+                       "MMRP_SWIN_CHAIN": "0"}, {"whole_min_c": 16, "chain": False}),
+}
+
+
+def on_route(tmodel, swin_fields):
+    """A port model on another Swin route, loaded with the same Flax
+    parameters through the bridge: the routes share one parameter tree."""
+    if not swin_fields:
+        return tmodel
+    cfg = tmodel.config
+    model = MultiModalRetrievalModel(
+        dataclasses.replace(cfg, swin=dataclasses.replace(cfg.swin, **swin_fields)),
+        device="cpu")
+    assert model.state_dict().keys() == tmodel.state_dict().keys()
+    return model.eval()
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
 def test_serving_forward_matches_jax(multimodal, monkeypatch, route):
     jmodel, params, tmodel = multimodal
-    monkeypatch.delenv("MMRP_FORCE_PALLAS", raising=False)
-    if route == "slice":
-        monkeypatch.setenv("MMRP_FORCE_PALLAS", "1")
-        monkeypatch.setenv("MMRP_SWIN_WHOLE", "0")
+    env, swin_fields = ROUTES[route]
+    for key in ("MMRP_FORCE_PALLAS", "MMRP_SWIN_WHOLE", "MMRP_SWIN_WHOLE_MINC",
+                "MMRP_SWIN_CHAIN"):
+        monkeypatch.delenv(key, raising=False)
+    for key, val in env.items():
+        monkeypatch.setenv(key, val)
+    tmodel = on_route(tmodel, swin_fields)
+    if tmodel is not multimodal[2]:
+        load_flax_params(tmodel, params)
     img, ids, mask = inputs()
     want = run_jax(jmodel, params, img, ids, mask)
     got = run_port(tmodel, img, ids, mask)
     for key in KEYS:
         assert got[key].dtype == np.float32
         np.testing.assert_allclose(got[key], want[key], err_msg=key, **TOL)
+
+
+def test_swin_routes_follow_the_jax_gates():
+    """Swin-B at 224 px: K1 + K2 at stage 1 (C = 128 < 256), the pair at
+    stage 2, the chain at stage 3 (18 blocks, rolls -3 / +3 alternating, the
+    last back to the unshifted frame), the windows flavor at stage 4, where
+    the chain's gate fails; and the tiny test model on the routes above."""
+    base = SwinConfig.base()
+    assert stage_routes(base) == ["k1k2", "pair", "chain", "windows"]
+    plan = swin_plan(base)
+    assert [len(steps) for steps in plan] == [2, 1, 18, 2]
+    assert [s.roll_after for s in plan[2]] == [-3, 3] * 9
+    assert stage_routes(dataclasses.replace(base, whole_block=False)) == ["k1k2"] * 4
+    assert stage_routes(dataclasses.replace(base, chain=False)) == \
+        ["k1k2", "pair", "windows", "windows"]
+    assert stage_routes(dataclasses.replace(base, pair=False)) == \
+        ["k1k2", "chain", "chain", "windows"]
+    tiny = SwinConfig(**SWIN)
+    assert stage_routes(tiny) == ["k1k2", "k1k2"]
+    assert stage_routes(dataclasses.replace(tiny, whole_min_c=16)) == ["pair", "chain"]
+    assert stage_routes(dataclasses.replace(tiny, whole_min_c=16, chain=False)) == \
+        ["pair", "windows"]
+    # odd depth: the pair's tail block is a chain step with no roll
+    odd = swin_plan(dataclasses.replace(base, depths=(2, 3, 18, 2)))[1]
+    assert [(s.route, s.block, s.roll_after) for s in odd] == [("pair", 0, 0), ("chain", 2, 0)]
 
 
 @pytest.mark.parametrize("mode", ["image", "text"])
@@ -153,7 +212,7 @@ def test_predict_thresholds_and_retrieval(multimodal):
     gal = np.concatenate([rng.standard_normal((30, 64)).astype(np.float32),
                           pred["joint_emb"]])
     gids = [f"g{i}" for i in range(30)] + ["q0", "q1"]
-    pred = MMRPredictor(tmodel, labels, retriever=RetrievalEngine(gal, gids)).predict(
+    pred = MMRPredictor(tmodel, labels, retriever=RetrievalEngine(gal, gids, device="cpu")).predict(
         img, ids, mask, K=3)
     assert [hits[0][0] for hits in pred["retrieval"]] == ["q0", "q1"]
     assert all(len(hits) == 3 for hits in pred["retrieval"])
@@ -163,7 +222,7 @@ def test_predict_applies_query_id_only_for_a_single_request(multimodal):
     _, _, tmodel = multimodal
     img, ids, mask = inputs()
     emb = run_port(tmodel, img, ids, mask)["joint_emb"]
-    engine = RetrievalEngine(emb, ["q0", "q1"])
+    engine = RetrievalEngine(emb, ["q0", "q1"], device="cpu")
     pred = MMRPredictor(tmodel, ["a"] * 7, retriever=engine).predict(
         img, ids, mask, K=2, query_id="q0")
     assert pred["retrieval"][0][0][0] == "q0"  # B == 2: query_id ignored
@@ -180,11 +239,11 @@ def test_retrieval_matches_jax_engine(K, query_id):
     ids = [f"g{i}" for i in range(20)]
     q = gal[3] + 0.3 * rng.standard_normal(16).astype(np.float32)
     want = JRetrievalEngine(gal, ids).retrieve(q, K=K, query_id=query_id)
-    got = RetrievalEngine(gal, ids).retrieve(q, K=K, query_id=query_id)
+    got = RetrievalEngine(gal, ids, device="cpu").retrieve(q, K=K, query_id=query_id)
     assert [r for r, _ in got] == [r for r, _ in want]
     np.testing.assert_allclose([s for _, s in got], [s for _, s in want], rtol=1e-5, atol=1e-6)
     assert len(got) == min(K, 20 - (query_id is not None))
-    emb = RetrievalEngine(gal, ids).get_embeddings_for_ids(["g1", "nope"])
+    emb = RetrievalEngine(gal, ids, device="cpu").get_embeddings_for_ids(["g1", "nope"])
     np.testing.assert_array_equal(emb, JRetrievalEngine(gal, ids).get_embeddings_for_ids(
         ["g1", "nope"]))
 
@@ -202,7 +261,7 @@ def test_bridge_round_trips_a_save_param_tree_npz(multimodal, tmp_path):
     _, params, tmodel = multimodal
     path = tmp_path / "params.npz"
     save_param_tree(str(path), {"params": params})
-    fresh = MultiModalRetrievalModel(tmodel.config)
+    fresh = MultiModalRetrievalModel(tmodel.config, device="cpu")
     load_flax_params(fresh, str(path))
     want = flax_to_state_dict(params)
     for key, val in fresh.state_dict().items():
@@ -217,7 +276,7 @@ def test_init_params_is_seeded_and_leaves_no_parameter_zero():
     from mmrp_tpu_torch.utils.convert import init_params
 
     cfg = MultiModalConfig(swin=SwinConfig(**SWIN), text=TextConfig.small(**TEXT), **HEAD)
-    a, b = MultiModalRetrievalModel(cfg), MultiModalRetrievalModel(cfg)
+    a, b = (MultiModalRetrievalModel(cfg, device="cpu") for _ in range(2))
     init_params(a, seed=3)
     init_params(b, seed=3)
     for (name, pa), pb in zip(a.named_parameters(), b.parameters()):
@@ -230,6 +289,22 @@ def test_init_params_is_seeded_and_leaves_no_parameter_zero():
         attn.rel_bias_table.detach(), attn.window_size, 14, 14, attn.shift))
 
 
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without a device argument the entry points build on CUDA, and say so
+    clearly where there is none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from mmrp_tpu_torch.models.multimodal import Backbones
+    from mmrp_tpu_torch.models.swin import SwinEncoder
+    from mmrp_tpu_torch.models.text_encoder import TextEncoder
+
+    cfg = MultiModalConfig(swin=SwinConfig(**SWIN), text=TextConfig.small(**TEXT), **HEAD)
+    for build_it in (lambda: MultiModalRetrievalModel(cfg), lambda: Backbones(cfg),
+                     lambda: SwinEncoder(cfg.swin), lambda: TextEncoder(cfg.text),
+                     lambda: RetrievalEngine(np.eye(2, dtype=np.float32), ["a", "b"])):
+        with pytest.raises(RuntimeError, match="no CUDA device.*device='cpu'"):
+            build_it()
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys\n"
@@ -238,6 +313,7 @@ def test_port_imports_no_jax():
         "import mmrp_tpu_torch.models.text_encoder, mmrp_tpu_torch.models.fusion\n"
         "import mmrp_tpu_torch.ops.fused_window_attention, mmrp_tpu_torch.ops.fused_mlp\n"
         "import mmrp_tpu_torch.ops.fused_attention, mmrp_tpu_torch.utils.convert\n"
+        "import mmrp_tpu_torch.ops.fused_swin_block, mmrp_tpu_torch.ops.fused_swin_pair\n"
         "import mmrp_tpu_torch.retrieval.gallery\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'yaml', 'mmrp_tpu')]\n"
