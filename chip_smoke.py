@@ -20,11 +20,27 @@ Phases, each of which fails the run (nonzero exit, no result line):
    plain path (the same weights in f32 on the CPU, where every wrapper runs
    its plain version). Then embed pairs/s of both routes at batch 8 and 64
    and the top-10 latency over the gallery, for information.
-The last two lines are the kernels' JSON record and the result line
-{"ok": true, "device": {...}}.
+5. training kernels: the raw-layout window-attention core's forward (C-F) and
+   backward (C-B) against the plain composition (autograd through it for the
+   backward) at the Swin-B stage 1-3 shapes of a batch-64 train step, shift 0
+   and 3, with C-B's dbias the same bit for bit over two launches; and the
+   head-major window attention (W) at the stage-1 geometry, batch 8, beside
+   ``F.scaled_dot_product_attention`` as its library yardstick;
+6. train agreement: one step's losses and per-tower gradients of the flagship
+   in bf16 on the card (dropout and drop path 0, batch 2) against the same
+   weights in f32 on the CPU, where every wrapper runs its plain version;
+7. train slice: ``make_train_step`` on the flagship at batch 64 with the default
+   dropout and drop path, f32 master weights, bf16 Adam mu and a 300-dim KG
+   projection, 3 warm-up and 10 timed steps on one seeded batch: 22 C-F and 22
+   C-B launches and no serving kernel per step, finite losses and gradient
+   norms, and a last loss below the first. Step time, train pairs/s and peak
+   device memory are printed for information.
+Each phase prints its seconds. The last two lines are the kernels' JSON record
+and the result line {"ok": true, "device": {...}}.
 """
 
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -75,7 +91,42 @@ SOURCES = {  # kernel -> (CUDA source, TPU kernel it replaces)
                                "mmrp_tpu/ops/fused_swin_pair.py:432"),
     "fused_swin_block_pair": ("mmrp_tpu_torch/csrc/swin_block.cu",
                               "mmrp_tpu/ops/fused_swin_pair.py:252"),
+    "wattn_core_fwd": ("mmrp_tpu_torch/csrc/wattn_core.cu", "mmrp_tpu/ops/wattn_core.py:260"),
+    "wattn_core_bwd": ("mmrp_tpu_torch/csrc/wattn_core.cu", "mmrp_tpu/ops/wattn_core.py:283"),
+    "window_attention_heads": ("mmrp_tpu_torch/csrc/wattn_core.cu",
+                               "mmrp_tpu/ops/window_attention.py:307"),
 }
+SERVING = ("fused_window_attention", "fused_ln_mlp", "fused_attention",
+           "fused_swin_block_windows", "fused_swin_block_raw", "fused_swin_block_chain",
+           "fused_swin_block_pair")
+
+# training: batch 64, text length 64. The core runs at Swin-B stages 1-3
+# (nW > 1); per train step each stage's blocks alternate shift 0 and 3, so
+# stages 1 and 2 make one call of each and stage 3 nine of each, in both
+# directions: 22 C-F and 22 C-B launches. Stage 4 (one window) takes plain
+# PyTorch attention, and no serving kernel runs.
+TRAIN_B = 64
+CORE_STAGES = ((56, 128, 4, 1), (28, 256, 8, 1), (14, 512, 16, 9))  # res, C, heads, calls
+EXPECTED_TRAIN = {**{name: 0 for name in SERVING}, "wattn_core_fwd": 22,
+                  "wattn_core_bwd": 22, "window_attention_heads": 0}
+# C-B's dbias sums 64 images' dS. The plain composition's autograd rounds dP
+# to bf16 (the cotangent of P's cast) where the kernel keeps it in f32, as the
+# TPU kernel does, so each summand differs by up to 2^-8 of |P dP|; the bound
+# is relative to the largest |dbias| (measured on an H100: at most 2.1e-3)
+DBIAS_TOL = 2.0 ** -6
+# one train step, bf16 on the card against f32 on the CPU, same weights,
+# dropout 0, batch 2; towers: Swin; text; projections + fusion stack; head +
+# kg_proj. Measured on an H100: loss 3.1e-4 relative, cosine at least
+# 0.99982; the bounds leave about 6x room for the bf16 rounding of other seeds
+LOSS_RTOL = 2e-3
+GRAD_COS_MIN = 0.999
+AGREE_B = 2
+KG_DIM = 300
+# 3 warm-up + 10 timed steps on one batch; with total_steps 13 the warmup is
+# one step, so the first update has step size 0 and the rest follow a cosine
+# from TRAIN_LR
+TRAIN_LR = 1e-4
+TRAIN_WARMUP, TRAIN_TIMED = 3, 10
 
 
 def log(*args):
@@ -131,6 +182,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     try:
         from mmrp_tpu_torch.api import MMRPredictor, serving_forward
+        from mmrp_tpu_torch.config import Config
         from mmrp_tpu_torch.models.multimodal import (
             MultiModalConfig,
             MultiModalRetrievalModel,
@@ -142,7 +194,14 @@ def main() -> int:
         from mmrp_tpu_torch.ops import fused_swin_block as SB
         from mmrp_tpu_torch.ops import fused_swin_pair as SP
         from mmrp_tpu_torch.ops import fused_window_attention as K1
+        from mmrp_tpu_torch.ops import wattn_core as WC
+        from mmrp_tpu_torch.ops import window_attention as WA
         from mmrp_tpu_torch.retrieval.gallery import RetrievalEngine
+        from mmrp_tpu_torch.train.joint import (
+            compute_losses,
+            init_train_state,
+            make_train_step,
+        )
         from mmrp_tpu_torch.utils.convert import init_params
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
@@ -152,6 +211,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     bf16, f32 = torch.bfloat16, torch.float32
+    clock = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        log(f"phase {name}: {now - clock[0]:.1f} s")
+        clock[0] = now
 
     # -- 1. environment ------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -162,6 +227,7 @@ def main() -> int:
                           text=True, check=True).stdout.strip().splitlines()[-1]
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc: {nvcc}")
     log(f"device: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
+    phase_done("environment")
 
     # -- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -169,6 +235,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s -> {_build.LIB_PATH.relative_to(REPO)}")
     (_build.BUILD_DIR / "nvcc.log").write_text(nvcc_log)
     _build.library()
+    phase_done("build")
 
     # -- 3. kernels against their plain versions -------------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -311,6 +378,7 @@ def main() -> int:
                              ("byte_ms", byte_ms), ("bound_ms", max(flop_ms, byte_ms))):
                 agg[key] += n * val
     del cases, pair_args, args, x, blk, bias, blk0, bias0, blk1, bias1
+    phase_done("kernels")
 
     # -- 4. the slice ----------------------------------------------------------
     cfg = MultiModalConfig.flagship()
@@ -418,25 +486,252 @@ def main() -> int:
             times.append((time.perf_counter() - t0) * 1e3)
     log(f"top-10 over {len(gallery_ids)} x {cfg.joint_dim}: p50 "
         f"{statistics.median(times):.3f} ms (host clock, query upload to ids)")
+    del model, model_k1k2, routes, m, predictor, engine, fwd, img_d, ids_d, mask_d
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("slice")
 
-    # -- 5. records ------------------------------------------------------------
-    # ms / plain_ms / bound_ms: summed over the calls of one predict on the
-    # default route at the shapes above ("per": "predict"), or one call for a
-    # kernel that route does not call. No single PyTorch call computes any of
-    # these functions (LN + projections + attention [+ MLP] in one), so
-    # library_ms is null.
+    # -- 5. the training kernels against their plain versions ------------------
+    def check(name, label, err, rel, tol):
+        log(f"kernel {name:24s} {label:44s} max_abs_err {err:.3e} max_rel_err {rel:.3e} "
+            f"(tol {tol:.3e})")
+        if not rel <= tol:
+            fail(f"{name} {label}: max_rel_err {rel} > {tol}")
+
+    def rel_err(got, want):
+        diff = (got.float() - want.float()).abs()
+        return diff.max().item(), (diff / want.float().abs().clamp(min=1.0)).max().item()
+
+    def record(name, label, err, ms, plain_ms, flops, nbytes, n, library_ms=None):
+        flop_ms, byte_ms = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        log(f"kernel {name:24s} {label:44s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+            f"bound {max(flop_ms, byte_ms):.4f} ms ({flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.2f} MB)" + ("" if library_ms is None else
+                                         f"  library {library_ms:.4f} ms") + f"  calls {n}")
+        agg = per_kernel.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                                               bound_ms=0.0, flop_ms=0.0, byte_ms=0.0))
+        agg["max_abs_err"] = max(agg["max_abs_err"], err)
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("flop_ms", flop_ms),
+                         ("byte_ms", byte_ms), ("bound_ms", max(flop_ms, byte_ms))):
+            agg[key] += n * val
+        if library_ms is not None:
+            agg["library_ms"] = agg.get("library_ms", 0.0) + n * library_ms
+
+    for res, C, heads, calls in CORE_STAGES:
+        for shift in (0, 3):
+            label = f"qkv({TRAIN_B},{res},{res},{3 * C}) h{heads} shift {shift}"
+            qkv = rnd((TRAIN_B, res, res, 3 * C))
+            table = rnd(((2 * ws - 1) ** 2, heads), 0.5, f32)
+            bias = K1.build_bias_full(table, ws, res, res, shift)
+            dout = rnd((TRAIN_B, res, res, C))
+            kw = dict(ws=ws, shift=shift, num_heads=heads, scale=(C // heads) ** -0.5)
+            with torch.no_grad():
+                out = WC.core_forward(qkv, bias, **kw)
+                dqkv, dbias = WC.core_backward(qkv, bias, dout, **kw)
+                dqkv2, dbias2 = WC.core_backward(qkv, bias, dout, **kw)
+                want = WC.window_attention_core_plain(qkv, bias, **kw)
+            want_dqkv, want_dbias = WC.core_backward_plain(qkv, bias, dout, **kw)
+            torch.cuda.synchronize()
+            for t in (out, dqkv, dbias):
+                if not torch.isfinite(t).all():
+                    fail(f"core {label}: non-finite output")
+            if not (torch.equal(dbias, dbias2) and torch.equal(dqkv, dqkv2)):
+                fail(f"wattn_core_bwd {label}: two launches differ")
+            f_err, f_rel = rel_err(out, want)
+            check("wattn_core_fwd", label, f_err, f_rel, KERNEL_TOL)
+            b_err, b_rel = rel_err(dqkv, want_dqkv)
+            check("wattn_core_bwd", label + " dqkv", b_err, b_rel, KERNEL_TOL)
+            db_err = (dbias - want_dbias).abs().max().item()
+            check("wattn_core_bwd", label + " dbias", db_err,
+                  db_err / want_dbias.abs().max().item(), DBIAS_TOL)
+            log(f"kernel wattn_core_bwd {label}: dbias bit-identical over two launches")
+            # per (image, window, head) and product 2 * 49 * 49 * d FLOPs:
+            # two products forward; S, dV, dP, dQ and dK backward
+            prod = 2 * TRAIN_B * res * res * ws * ws * C
+            ms = cuda_ms(torch, lambda: WC.core_forward(qkv, bias, **kw))
+            plain_ms = cuda_ms(torch, lambda: WC.window_attention_core_plain(qkv, bias, **kw))
+            record("wattn_core_fwd", label, f_err, ms, plain_ms, 2 * prod,
+                   tensor_bytes(torch, qkv, bias, out), calls)
+            ms = cuda_ms(torch, lambda: WC.core_backward(qkv, bias, dout, **kw))
+            plain_ms = cuda_ms(torch, lambda: WC.core_backward_plain(qkv, bias, dout, **kw))
+            record("wattn_core_bwd", label, max(b_err, db_err), ms, plain_ms, 5 * prod,
+                   tensor_bytes(torch, qkv, bias, dout, dqkv, dbias), calls)
+    del qkv, bias, dout, out, dqkv, dbias, dqkv2, dbias2, want, want_dqkv, want_dbias
+
+    # W at the Swin-B stage-1 geometry (64 windows x 4 heads, d 32), tokens
+    # padded to 64, batch 8: no route calls it
+    heads, d, res, shift = 4, 32, 56, 3
+    bias2 = WA.build_combined_bias(rnd(((2 * ws - 1) ** 2, heads), 0.5, f32), ws, res, res,
+                                   shift, 64)
+    G = bias2.shape[0]
+    q, k, v = (rnd((B, G, 64, d)) for _ in range(3))
+    label = f"q/k/v({B},{G},64,{d}) shift {shift}"
+    # the library call takes its additive mask in the query's dtype on the card
+    bias2_lib = bias2.to(q.dtype)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias2_lib,
+                                                                scale=d ** -0.5)
+
+    with torch.no_grad():
+        got = WA.window_attention_heads(q, k, v, bias2, d ** -0.5)
+        want = WA.window_attention_xla(q, k, v, bias2, d ** -0.5)
+        lib = library()
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        fail(f"window_attention_heads {label}: non-finite output")
+    w_err, w_rel = rel_err(got, want)
+    check("window_attention_heads", label, w_err, w_rel, KERNEL_TOL)
+    log(f"library scaled_dot_product_attention vs plain: max_abs_err "
+        f"{rel_err(lib, want)[0]:.3e}")
+    with torch.no_grad():
+        record("window_attention_heads", label, w_err,
+               cuda_ms(torch, lambda: WA.window_attention_heads(q, k, v, bias2, d ** -0.5)),
+               cuda_ms(torch, lambda: WA.window_attention_xla(q, k, v, bias2, d ** -0.5)),
+               4 * B * G * 64 * 64 * d, tensor_bytes(torch, q, k, v, bias2, got), 1,
+               library_ms=cuda_ms(torch, library))
+    del q, k, v, bias2, bias2_lib, got, want, lib
+    phase_done("training kernels")
+
+    # -- 6. one train step: the card (bf16) against the plain path (f32, CPU) ---
+    counters.update({"wattn_core_fwd": WC.core_forward, "wattn_core_bwd": WC.core_backward,
+                     "window_attention_heads": WA.window_attention_heads})
+
+    def train_batch(n):
+        return {
+            "image": rng.random((n, 224, 224, 3), dtype=np.float32),
+            "input_ids": rng.integers(0, cfg.text.vocab_size, (n, 64)).astype(np.int64),
+            "attention_mask": (np.arange(64)[None, :] < np.concatenate(
+                [[64], rng.integers(4, 64, n - 1)])[:, None]).astype(np.int64),
+            "labels": (rng.random((n, cfg.num_classes)) < 0.3).astype(np.float32),
+            "kg_target": rng.standard_normal((n, KG_DIM)).astype(np.float32),
+            "kg_target_valid": np.ones(n, np.float32),
+        }
+
+    def tower(name):
+        if name.startswith("backbones.swin."):
+            return "swin"
+        if name.startswith("backbones.text."):
+            return "text"
+        if name.startswith(("cls_hidden.", "cls_out.")):
+            return "head"
+        return "fusion"
+
+    nodrop = dataclasses.replace(cfg, dropout=0.0, drop_path=0.0,
+                                 swin=dataclasses.replace(cfg.swin, drop_path_rate=0.0),
+                                 text=dataclasses.replace(cfg.text, dropout=0.0))
+    tcfg = Config(lr=TRAIN_LR, seed=SEED)
+    agree_batch = train_batch(AGREE_B)
+    kg_proj = (torch.randn((cfg.joint_dim, KG_DIM), generator=gen, device=dev)
+               / cfg.joint_dim ** 0.5).cpu()
+
+    def loss_and_grads(model, device):
+        batch = {key: torch.from_numpy(val).to(device) for key, val in agree_batch.items()}
+        kg = kg_proj.to(device, copy=True).requires_grad_(True)
+        total, metrics = compute_losses(model, kg, batch, torch.Generator(device=device),
+                                        tcfg, torch.ones(cfg.num_classes, device=device))
+        total.backward()
+        grads = {"swin": [], "text": [], "fusion": [], "head": [kg.grad]}
+        for name, p in model.named_parameters():
+            grads[tower(name)].append(p.grad if p.grad is not None else torch.zeros_like(p))
+        flat = {key: torch.cat([g.detach().float().flatten().cpu() for g in gs])
+                for key, gs in grads.items()}
+        return float(total.detach()), {key: float(val.detach()) for key, val in
+                                       metrics.items()}, flat
+
+    card = MultiModalRetrievalModel(nodrop, dtype=bf16, device=dev)
+    init_params(card, seed=SEED)
+    plain = MultiModalRetrievalModel(nodrop, dtype=f32, device="cpu")
+    plain.load_state_dict({key: val.float().cpu() for key, val in card.state_dict().items()})
+    loss_card, terms_card, grads_card = loss_and_grads(card, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_plain, terms_plain, grads_plain = loss_and_grads(plain, torch.device("cpu"))
+    log(f"train agreement: plain path (f32, CPU, batch {AGREE_B}) forward + backward "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"train agreement: card {terms_card}")
+    log(f"train agreement: plain {terms_plain}")
+    loss_rel = abs(loss_card - loss_plain) / abs(loss_plain)
+    cos = {key: float(torch.nn.functional.cosine_similarity(
+        grads_card[key].double(), grads_plain[key].double(), dim=0)) for key in grads_plain}
+    log(f"train agreement: loss {loss_card:.6f} vs {loss_plain:.6f} (rel {loss_rel:.3e}, "
+        f"<= {LOSS_RTOL}); gradient cosine per tower {cos} (>= {GRAD_COS_MIN})")
+    if not loss_rel <= LOSS_RTOL or min(cos.values()) < GRAD_COS_MIN:
+        fail("train step: the card and the plain path disagree")
+    del card, plain, grads_card, grads_plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("train agreement")
+
+    # -- 7. the train slice: flagship, batch 64, default dropout ----------------
+    model = MultiModalRetrievalModel(cfg, dtype=bf16, device=dev)
+    init_params(model, seed=SEED)
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    state = init_train_state(model, tcfg, seed=SEED, total_steps=steps, kg_dim=KG_DIM)
+    step = make_train_step(model, tcfg, pos_weight=np.ones(cfg.num_classes, np.float32))
+    batch = {key: torch.from_numpy(val).to(dev) for key, val in train_batch(TRAIN_B).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for fn in counters.values():
+        fn.launches = 0
+    for i in range(steps):
+        before = {name: fn.launches for name, fn in counters.items()}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch)
+        end.record()
+        end.synchronize()
+        per_step = {name: fn.launches - before[name] for name, fn in counters.items()}
+        loss, gnorm = metrics["loss/total"], metrics["grad_norm"]
+        log(f"train step {i + 1}: loss {loss:.6f}, grad_norm {gnorm:.4f}, "
+            f"{start.elapsed_time(end):.2f} ms, cls {metrics['loss/cls']:.4f}, contrastive "
+            f"{metrics['loss/contrastive']:.4f}, kg {metrics['loss/kg_align']:.4f}")
+        if per_step != EXPECTED_TRAIN:
+            fail(f"train step {i + 1}: launches {per_step}, expected {EXPECTED_TRAIN}")
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            fail(f"train step {i + 1}: non-finite loss or grad_norm")
+        losses.append(loss)
+        if i >= TRAIN_WARMUP:
+            step_ms.append(start.elapsed_time(end))
+    train_launches = {name: fn.launches for name, fn in counters.items()}
+    step_launches = per_step  # the last step's; every step's was asserted equal above
+    log(f"launches in {steps} train steps (batch {TRAIN_B}): {train_launches}")
+    if losses[-1] >= losses[0]:
+        fail(f"train: loss did not fall ({losses[0]} -> {losses[-1]})")
+    ms = statistics.median(step_ms)
+    log(f"train step (batch {TRAIN_B}, L64): median {ms:.2f} ms over {TRAIN_TIMED} steps "
+        f"(min {min(step_ms):.2f}, max {max(step_ms):.2f}), {TRAIN_B / ms * 1e3:.1f} "
+        f"train pairs/s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    phase_done("train slice")
+
+    # -- 8. records ------------------------------------------------------------
+    # launches, and ms / plain_ms / bound_ms: counted or summed over the calls
+    # of one predict on the default route at the shapes above ("per":
+    # "predict"), over the calls of one train step for the core ("per": "train
+    # step"; launches_train is the total over all train_steps), or one call
+    # for a kernel no route calls. No single PyTorch call computes the serving
+    # kernels' functions (LN + projections + attention [+ MLP] in one) or the
+    # core's (roll, partition, attention and reverse in one), so their
+    # library_ms is null; W's is scaled_dot_product_attention's.
     records = []
     for name, (src, rep) in SOURCES.items():
         agg = per_kernel[name]
+        if name in SERVING:
+            run, per = launches["whole"][name], "predict" if EXPECTED["whole"][name] else "call"
+        else:
+            run, per = step_launches[name], "train step" if EXPECTED_TRAIN[name] else "call"
         records.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches["whole"][name], "max_abs_err": agg["max_abs_err"],
+            "launches": run, "max_abs_err": agg["max_abs_err"],
             "ms": agg["ms"], "plain_ms": agg["plain_ms"],
             "bound_ms": agg["bound_ms"],
             "bound_by": "operations" if agg["flop_ms"] >= agg["byte_ms"] else "bytes",
-            "library_ms": None,
-            "per": "predict" if EXPECTED["whole"][name] else "call",
-            "launches_k1k2_route": launches["k1k2"][name]})
+            "library_ms": agg.get("library_ms"), "per": per,
+            "launches_k1k2_route": launches["k1k2"].get(name, 0),
+            "launches_train": train_launches[name], "train_steps": steps})
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

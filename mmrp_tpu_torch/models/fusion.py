@@ -14,6 +14,10 @@ attention kernel (K3, ``ops/fused_attention.py``):
 The port runs the token counts as they are (49 patches, 51-token sequence);
 the JAX package pads them to multiples of 8 for its TPU kernels and masks the
 pads, which leaves the real rows unchanged.
+
+Training (``forward_train``) takes the JAX XLA branches (``fusion.py:130-163,
+216-241``): plain GEMMs, f32 scores and softmax, dropout on the attention
+probabilities.
 """
 
 from __future__ import annotations
@@ -23,18 +27,20 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from mmrp_tpu_torch.models.layers import LayerNorm, MhaParams
-from mmrp_tpu_torch.models.text_encoder import additive_key_mask
+from mmrp_tpu_torch.models.layers import LayerNorm, MhaParams, ln_f32
+from mmrp_tpu_torch.models.text_encoder import additive_key_mask, mha_train
 from mmrp_tpu_torch.ops.fused_attention import fused_attention
 
 
 class CrossAttention(nn.Module):
     """MHA with queries from ``q_in`` and keys/values from ``kv_in``."""
 
-    def __init__(self, dim: int, num_heads: int, dtype=torch.float32, device=None):
+    def __init__(self, dim: int, num_heads: int, dtype=torch.float32, device=None,
+                 dropout: float = 0.0):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.num_heads = num_heads
+        self.dropout = dropout
         self.q = nn.Linear(dim, dim, **kw)
         self.k = nn.Linear(dim, dim, **kw)
         self.v = nn.Linear(dim, dim, **kw)
@@ -52,30 +58,53 @@ class CrossAttention(nn.Module):
             num_heads=self.num_heads, ln_mode="post" if post_ln is not None else "none",
             include_residual=False)
 
+    def forward_train(self, q_in: torch.Tensor, kv_in: torch.Tensor,
+                      kv_mask: Optional[torch.Tensor], post_ln: Tuple[torch.Tensor, torch.Tensor],
+                      generator: torch.Generator) -> torch.Tensor:
+        ctx = mha_train(self.q(q_in), self.k(kv_in), self.v(kv_in), self.num_heads,
+                        None if kv_mask is None else additive_key_mask(kv_mask),
+                        self.dropout, generator)
+        return ln_f32(q_in + self.out(ctx), *post_ln, q_in.dtype, affine_in_f32=True)
+
 
 class PreFusionEnhancer(nn.Module):
     """Self-attention with a learned positional embedding and an
     alpha-scaled residual: out = x + alpha * MHA(LN(x + pos))."""
 
     def __init__(self, dim: int, num_heads: int, max_len: int, dtype=torch.float32,
-                 device=None):
+                 device=None, dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.max_len = max_len
+        self.dropout = dropout
         self.pos_embed = nn.Parameter(torch.zeros(1, max_len, dim, dtype=dtype, device=device))
         self.alpha = nn.Parameter(torch.zeros((), dtype=torch.float32, device=device))
         self.LayerNorm_0 = LayerNorm(dim, dtype, device)
         self.attention = MhaParams(dim, dtype, device)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        N = x.shape[1]
+    def _pos(self, N: int) -> torch.Tensor:
         if N > self.max_len:
             raise ValueError(f"PreFusionEnhancer: {N} tokens, positional table holds "
                              f"{self.max_len}")
+        return self.pos_embed[0, :N]
+
+    def forward_train(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                      generator: torch.Generator) -> torch.Tensor:
+        y = ln_f32(x + self._pos(x.shape[1])[None].to(x.dtype), self.LayerNorm_0.weight,
+                   self.LayerNorm_0.bias, x.dtype)
+        a = self.attention
+        ctx = mha_train(a.query(y), a.key(y), a.value(y), self.num_heads,
+                        None if mask is None else additive_key_mask(mask), self.dropout,
+                        generator)
+        return x + self.alpha.to(x.dtype) * a.out(ctx)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        N = x.shape[1]
+        pos = self._pos(N)
         return fused_attention(
             x, self.LayerNorm_0.weight, self.LayerNorm_0.bias, *self.attention.weights(),
             key_mask=None if mask is None else additive_key_mask(mask),
-            pos=self.pos_embed[0, :N], alpha=self.alpha, num_heads=self.num_heads,
+            pos=pos, alpha=self.alpha, num_heads=self.num_heads,
             ln_mode="pre", include_residual=True, residual_from_raw=True)
 
 
@@ -84,14 +113,14 @@ class CrossModalFusion(nn.Module):
     and text mask (B, Lt) -> fused sequence [cls, patches, txt] (B, Np+2, D)."""
 
     def __init__(self, dim: int, num_heads: int, num_patches: int, max_text_len: int,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, dropout: float = 0.0):
         super().__init__()
-        self.txt_enh = PreFusionEnhancer(dim, num_heads, max_text_len, dtype, device)
-        self.img_enh = PreFusionEnhancer(dim, num_heads, num_patches, dtype, device)
+        self.txt_enh = PreFusionEnhancer(dim, num_heads, max_text_len, dtype, device, dropout)
+        self.img_enh = PreFusionEnhancer(dim, num_heads, num_patches, dtype, device, dropout)
         self.txt_norm = LayerNorm(dim, dtype, device)
         self.img_norm = LayerNorm(dim, dtype, device)
-        self.txt2img = CrossAttention(dim, num_heads, dtype, device)
-        self.img2txt = CrossAttention(dim, num_heads, dtype, device)
+        self.txt2img = CrossAttention(dim, num_heads, dtype, device, dropout)
+        self.img2txt = CrossAttention(dim, num_heads, dtype, device, dropout)
         self.cls_proj = nn.Linear(2 * dim, dim, dtype=dtype, device=device)
 
     def forward(self, img_patches: torch.Tensor, img_global: torch.Tensor,
@@ -105,6 +134,22 @@ class CrossModalFusion(nn.Module):
                            post_ln=(self.txt_norm.weight, self.txt_norm.bias))
         patches = self.img2txt(pat_e, txt_e, txt_mask,
                                post_ln=(self.img_norm.weight, self.img_norm.bias))
+        return self._sequence(img_global, txt, patches, txt_mask)
+
+    def forward_train(self, img_patches: torch.Tensor, img_global: torch.Tensor,
+                      txt_tokens: torch.Tensor, txt_mask: Optional[torch.Tensor],
+                      generator: torch.Generator) -> torch.Tensor:
+        txt_e = self.txt_enh.forward_train(txt_tokens, txt_mask, generator)
+        pat_e = self.img_enh.forward_train(img_patches, None, generator)
+        txt = self.txt2img.forward_train(txt_e, pat_e, None,
+                                         (self.txt_norm.weight, self.txt_norm.bias), generator)
+        patches = self.img2txt.forward_train(pat_e, txt_e, txt_mask,
+                                             (self.img_norm.weight, self.img_norm.bias),
+                                             generator)
+        return self._sequence(img_global, txt, patches, txt_mask)
+
+    def _sequence(self, img_global, txt, patches, txt_mask) -> torch.Tensor:
+        """Masked text pooling and the fused sequence [cls, patches, txt]."""
         if txt_mask is not None:
             w = txt_mask.to(patches.dtype)
             txt_pooled = (txt * w[:, :, None]).sum(1) / torch.clamp(

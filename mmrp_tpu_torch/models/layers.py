@@ -7,7 +7,9 @@ nn.Linear (out, in) layout (``utils/convert.py`` transposes Flax kernels).
 
 Dtypes follow the JAX model's casts: dense weights and biases live in the
 compute dtype (the JAX model casts them to it at every use), LayerNorm
-parameters stay f32.
+parameters stay f32. Training keeps f32 master copies outside the model
+(``train/state.py``). Dropout and DropPath draw from an explicit
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -99,3 +101,51 @@ class MlpParams(nn.Module):
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """tanh-form GELU, ``jax.nn.gelu``'s default."""
     return F.gelu(x, approximate="tanh")
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Flax ``nn.Dropout`` in training: keep each element with probability
+    1 - rate, drawn from ``generator`` (never the global one), and compute
+    ``where(mask, x / keep, 0)``. Rate 0 returns x."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class DropPath(nn.Module):
+    """Stochastic depth in training (``layers.py::DropPath`` of the JAX
+    model): one keep/drop draw per sample for the whole residual branch,
+    ``where(mask, x / keep, 0)``; identity at rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        if self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Mlp(nn.Module):
+    """Transformer MLP (``layers.py::Mlp``): dense -> GELU -> dropout ->
+    dense -> dropout; ``generator`` None runs it deterministic."""
+
+    def __init__(self, dim: int, hidden: int, out_dim: int = 0, rate: float = 0.0,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.rate = rate
+        self.Dense_0 = nn.Linear(dim, hidden, dtype=dtype, device=device)
+        self.Dense_1 = nn.Linear(hidden, out_dim or dim, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator = None) -> torch.Tensor:
+        x = gelu(self.Dense_0(x))
+        if generator is not None:
+            x = dropout(x, self.rate, generator)
+        x = self.Dense_1(x)
+        return x if generator is None else dropout(x, self.rate, generator)

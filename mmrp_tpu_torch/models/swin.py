@@ -18,6 +18,13 @@ takes the route the JAX ``SwinEncoder`` takes with its default environment
   (``ops/fused_swin_block.py``) — Swin-B stage 4, where the chain's VMEM gate
   fails and the partition of a single window is a view.
 
+Training (``forward(x, deterministic=False, generator=...)``) takes the JAX
+XLA branch of every block whatever the plan says (``swin.py:289-401,
+584-646``): LN0, the qkv GEMM, the raw-layout attention core (C-F / C-B,
+``ops/wattn_core.py``) where a stage has more than one window, else
+``window_attention_xla_direct``, the proj GEMM and DropPath; then LN1, the
+MLP with dropout, and DropPath.
+
 The routes share one parameter tree, so ``utils/convert.py`` loads the same
 weights into every route. Layouts are the JAX model's: NHWC input, PatchEmbed
 as a space-to-depth GEMM over ``(kh, kw, in)``-flattened patches,
@@ -30,12 +37,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from mmrp_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from mmrp_tpu_torch.models.layers import LayerNorm, MlpParams, gelu, ln_f32
+from mmrp_tpu_torch.models.layers import DropPath, LayerNorm, MlpParams, dropout, gelu, ln_f32
 from mmrp_tpu_torch.ops.fused_mlp import fused_ln_mlp_residual
 from mmrp_tpu_torch.ops.fused_swin_block import fused_swin_block_windows
 from mmrp_tpu_torch.ops.fused_swin_pair import (
@@ -48,7 +56,14 @@ from mmrp_tpu_torch.ops.fused_window_attention import (
     build_bias_full,
     fused_window_attention_windows,
 )
-from mmrp_tpu_torch.ops.window_attention import window_partition, window_reverse
+from mmrp_tpu_torch.ops.wattn_core import window_attention_core
+from mmrp_tpu_torch.ops.window_attention import (
+    build_rel_bias,
+    shift_attn_mask_on,
+    window_attention_xla_direct,
+    window_partition,
+    window_reverse,
+)
 
 # Swin MLPs up to this width take the fused kernel; wider ones plain GEMMs
 # (mmrp_tpu/models/swin.py:612-631)
@@ -65,6 +80,10 @@ class SwinConfig:
     num_heads: Tuple[int, ...] = (3, 6, 12, 24)
     window_size: int = 7
     mlp_ratio: float = 4.0
+    # training only: DropPath rates rise linearly to drop_path_rate over the
+    # blocks in order; dropout acts inside the MLPs
+    drop_path_rate: float = 0.1
+    dropout: float = 0.0
     # the JAX routing switches, at their defaults: MMRP_SWIN_WHOLE,
     # MMRP_SWIN_WHOLE_MINC, MMRP_SWIN_PAIR, MMRP_SWIN_PAIR_MAXC, MMRP_SWIN_CHAIN
     whole_block: bool = True
@@ -187,9 +206,12 @@ class PatchEmbed(nn.Module):
 
 class WindowAttention(nn.Module):
     """A block's window-attention parameters (``rel_bias_table``, ``qkv``,
-    ``proj``) and its static ``bias_full`` (nW, h, N, N) f32 — relative
-    bias plus shifted-window mask, built once from the table (at init and
-    after every ``load_state_dict``), never per call."""
+    ``proj``) and the serving routes' cached ``bias_full`` (nW, h, N, N) f32
+    — relative bias plus shifted-window mask, built from the table at init,
+    after every ``load_state_dict`` and, in training, after every optimizer
+    step (``train/joint.py``), never per call. The training route builds the
+    bias per call with autograd (:meth:`bias_train`) so that the table gets
+    its gradient."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, shift: int,
                  input_resolution: Tuple[int, int], dtype, device=None):
@@ -207,9 +229,11 @@ class WindowAttention(nn.Module):
 
     @torch.no_grad()
     def refresh_bias(self) -> None:
+        self.bias_full = self.bias_train()
+
+    def bias_train(self) -> torch.Tensor:
         H, W = self.input_resolution
-        self.bias_full = build_bias_full(self.rel_bias_table, self.window_size, H, W,
-                                         self.shift)
+        return build_bias_full(self.rel_bias_table, self.window_size, H, W, self.shift)
 
 
 class SwinBlock(nn.Module):
@@ -217,22 +241,53 @@ class SwinBlock(nn.Module):
     ``forward`` is x + WindowAttention(LN0 x) (K1), then + MLP(LN1 x) (K2 at
     C <= 256); :meth:`forward_windows` is the whole-block kernel on the
     partitioned windows. The encoder runs the raw-map routes with
-    :meth:`kernel_args`."""
+    :meth:`kernel_args`, and training with :meth:`forward_train`."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, shift: int,
                  input_resolution: Tuple[int, int], mlp_ratio: float = 4.0,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, drop_path: float = 0.0,
+                 dropout: float = 0.0):
         super().__init__()
         H, W = input_resolution
         # no shift when the window covers the whole map (mmrp_tpu swin.py:242)
         shift = shift if min(H, W) > window_size else 0
         self.dim = dim
         self.num_heads = num_heads
+        self.dropout = dropout
+        self.drop_path = DropPath(drop_path)
         self.LayerNorm_0 = LayerNorm(dim, dtype, device)
         self.attn = WindowAttention(dim, num_heads, window_size, shift, input_resolution,
                                     dtype, device)
         self.LayerNorm_1 = LayerNorm(dim, dtype, device)
         self.mlp = MlpParams(int(dim * mlp_ratio), dim, dtype, device)
+
+    def forward_train(self, x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        """The JAX XLA branch with autograd (``swin.py:289-401, 584-646``)."""
+        B, H, W, C = x.shape
+        attn = self.attn
+        ws, s, h = attn.window_size, attn.shift, self.num_heads
+        nW, N = (H // ws) * (W // ws), ws * ws
+        scale = (C // h) ** -0.5
+        y = ln_f32(x, self.LayerNorm_0.weight, self.LayerNorm_0.bias, x.dtype)
+        if nW > 1 and H % ws == 0 and W % ws == 0:
+            core = window_attention_core(attn.qkv(y), attn.bias_train(), ws=ws, shift=s,
+                                         num_heads=h, scale=scale)
+            out = attn.proj(core)
+        else:
+            if s:
+                y = torch.roll(y, (-s, -s), (1, 2))
+            smask = shift_attn_mask_on(H, W, ws, s, x.device) if s else None
+            win = window_partition(attn.qkv(y), ws).reshape(B, nW, N, 3, h, C // h)
+            o = window_attention_xla_direct(win, build_rel_bias(attn.rel_bias_table, ws),
+                                            smask, scale)
+            out = attn.proj(window_reverse(o, ws, H, W))
+            if s:
+                out = torch.roll(out, (s, s), (1, 2))
+        x = x + self.drop_path(out, generator)
+        y = ln_f32(x, self.LayerNorm_1.weight, self.LayerNorm_1.bias, x.dtype)
+        y = dropout(gelu(self.mlp.Dense_0(y)), self.dropout, generator)
+        y = dropout(self.mlp.Dense_1(y), self.dropout, generator)
+        return x + self.drop_path(y, generator)
 
     def kernel_args(self) -> Tuple[torch.Tensor, ...]:
         """The 12 weight tensors of the whole-block kernels, in JAX order."""
@@ -305,17 +360,32 @@ class SwinEncoder(nn.Module):
         self.patch_embed = PatchEmbed(cfg.embed_dim, cfg.patch_size, cfg.in_chans, dtype,
                                       device)
         geometry = stage_geometry(cfg)
+        # DropPath rates in global block order (mmrp_tpu swin.py:686, 834)
+        dpr = iter(np.linspace(0.0, cfg.drop_path_rate, sum(cfg.depths)))
         for stage, (dim, res, ws) in enumerate(geometry):
             for blk in range(cfg.depths[stage]):
                 self.add_module(f"stage{stage}_block{blk}", SwinBlock(
                     dim, cfg.num_heads[stage], ws, 0 if blk % 2 == 0 else ws // 2,
-                    (res, res), cfg.mlp_ratio, dtype, device))
+                    (res, res), cfg.mlp_ratio, dtype, device, float(next(dpr)),
+                    cfg.dropout))
             if stage < len(geometry) - 1:
                 self.add_module(f"merge{stage}", PatchMerging(dim, dtype, device))
         self.norm = LayerNorm(cfg.num_features, dtype, device)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: torch.Generator = None) -> Dict[str, torch.Tensor]:
+        """``deterministic=False`` takes the training route of every block,
+        with dropout and DropPath drawn from ``generator``."""
         x = self.patch_embed(x)
+        if not deterministic:
+            if generator is None:
+                raise ValueError("SwinEncoder: the training route needs a torch.Generator")
+            for stage, depth in enumerate(self.config.depths):
+                for blk in range(depth):
+                    x = self._modules[f"stage{stage}_block{blk}"].forward_train(x, generator)
+                if f"merge{stage}" in self._modules:
+                    x = self._modules[f"merge{stage}"](x)
+            return self._pool(x)
         for stage, steps in enumerate(self.plan):
             for step in steps:
                 blk = self._modules[f"stage{stage}_block{step.block}"]
@@ -334,6 +404,9 @@ class SwinEncoder(nn.Module):
                                               blk.num_heads, ws, nxt.attn.shift)
             if f"merge{stage}" in self._modules:
                 x = self._modules[f"merge{stage}"](x)
+        return self._pool(x)
+
+    def _pool(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = self.norm(x)
         B, H, W, C = x.shape
         patches = x.reshape(B, H * W, C)

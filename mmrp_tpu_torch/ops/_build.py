@@ -30,7 +30,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 LIB_PATH = BUILD_DIR / "libmmrp_kernels.so"
-SOURCES = ("window_attention.cu", "ln_mlp.cu", "seq_attention.cu", "swin_block.cu")
+SOURCES = ("window_attention.cu", "ln_mlp.cu", "seq_attention.cu", "swin_block.cu",
+           "wattn_core.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,6 +42,9 @@ _SIGNATURES = {
     "mmrp_ln_mlp": [_P] * 8 + [_I] * 5 + [_F, _P],
     "mmrp_seq_attention": [_P] * 17 + [_I] * 8 + [_F, _P],
     "mmrp_swin_block": [_P] * 16 + [_I] * 10 + [_F, _P],
+    "mmrp_wattn_core_fwd": [_P] * 3 + [_I] * 7 + [_F, _P],
+    "mmrp_wattn_core_bwd": [_P] * 6 + [_I] * 8 + [_F, _P],
+    "mmrp_window_attention_heads": [_P] * 5 + [_I] * 4 + [_F, _P],
 }
 
 

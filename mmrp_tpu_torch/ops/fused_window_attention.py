@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from mmrp_tpu_torch.ops import _build
-from mmrp_tpu_torch.ops.window_attention import build_rel_bias, shift_attn_mask
+from mmrp_tpu_torch.ops.window_attention import build_rel_bias, shift_attn_mask_on
 
 
 def _ln(xf, scale, bias, eps):
@@ -101,6 +101,6 @@ def build_bias_full(rel_bias_table: torch.Tensor, ws: int, H: int, W: int,
     rel = build_rel_bias(rel_bias_table.float(), ws)  # (h, N, N)
     nW = (H // ws) * (W // ws)
     if shift > 0:
-        smask = torch.from_numpy(shift_attn_mask(H, W, ws, shift).copy())
-        return (smask.to(rel.device)[:, None] + rel[None]).contiguous()
+        smask = shift_attn_mask_on(H, W, ws, shift, rel.device)
+        return (smask[:, None] + rel[None]).contiguous()
     return rel[None].expand((nW,) + tuple(rel.shape)).contiguous()

@@ -1,18 +1,25 @@
-"""Swin window layout and static bias helpers.
+"""Swin window layout, static biases and the unfused window attentions.
 
-Counterpart of ``mmrp_tpu/ops/window_attention.py`` (window partition and
-reverse, relative-position index, shifted-window mask, relative bias). The
-unfused attention formulations and the head-major Pallas kernel there are not
-on the serving route; the route's attention is the fused kernel in
-:mod:`mmrp_tpu_torch.ops.fused_window_attention`.
+Counterpart of ``mmrp_tpu/ops/window_attention.py``: window partition and
+reverse, relative-position index, shifted-window mask, relative bias, the
+combined head-major bias (:func:`build_combined_bias`), the attention on the
+natural window layout (:func:`window_attention_xla_direct`, Swin's training
+route where a stage has one window), and the head-major attention
+(:func:`window_attention_xla`) with its kernel W (:func:`window_attention_heads`,
+``csrc/wattn_core.cu``), the counterpart of ``window_attention_pallas``. No
+route of the model calls W; the serving route's attention is the fused kernel
+in :mod:`mmrp_tpu_torch.ops.fused_window_attention`.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
+
+from mmrp_tpu_torch.ops import _build
 
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
@@ -62,9 +69,108 @@ def shift_attn_mask(H: int, W: int, ws: int, shift: int) -> np.ndarray:
     return out
 
 
+# The two tables above on a device, made once per (shape, device): a copy
+# from host memory waits for the card to finish its queue, and the training
+# route builds its biases at every call.
+@functools.lru_cache(maxsize=None)
+def relative_position_index_on(ws: int, device: torch.device) -> torch.Tensor:
+    """:func:`relative_position_index` flattened, int64, on ``device``."""
+    with torch.inference_mode(False):  # usable by autograd whoever asks first
+        idx = relative_position_index(ws).astype(np.int64).reshape(-1)
+        return torch.from_numpy(idx).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def shift_attn_mask_on(H: int, W: int, ws: int, shift: int,
+                       device: torch.device) -> torch.Tensor:
+    """:func:`shift_attn_mask` on ``device``; callers must not write to it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(shift_attn_mask(H, W, ws, shift).copy()).to(device)
+
+
 def build_rel_bias(rel_bias_table: torch.Tensor, ws: int) -> torch.Tensor:
     """((2ws-1)^2, h) learned table -> (h, N, N) additive bias."""
     N = ws * ws
-    idx = torch.from_numpy(relative_position_index(ws).astype(np.int64).reshape(-1))
-    idx = idx.to(rel_bias_table.device)
+    idx = relative_position_index_on(ws, rel_bias_table.device)
     return rel_bias_table[idx].reshape(N, N, -1).permute(2, 0, 1)
+
+
+def build_combined_bias(rel_bias_table: torch.Tensor, ws: int, H: int, W: int, shift: int,
+                        n_pad: int) -> torch.Tensor:
+    """Relative bias + shift mask + padding as one (G, n_pad, n_pad) f32
+    tensor, G = heads * nW ordered head-major; pad key columns get -1e9."""
+    N = ws * ws
+    nW = (H // ws) * (W // ws)
+    rel = build_rel_bias(rel_bias_table.float(), ws)  # (h, N, N)
+    h = rel.shape[0]
+    if shift > 0:
+        smask = shift_attn_mask_on(H, W, ws, shift, rel.device)
+    else:
+        smask = torch.zeros((nW, N, N), dtype=torch.float32, device=rel.device)
+    bias = (rel[:, None] + smask[None]).reshape(h * nW, N, N)
+    if n_pad > N:
+        pad = n_pad - N
+        bias = torch.nn.functional.pad(bias, (0, pad, 0, pad))
+        col_mask = torch.cat([torch.zeros(N), torch.full((pad,), -1e9)]).to(bias.device)
+        bias = bias + col_mask[None, None, :]
+    return bias
+
+
+def window_attention_xla_direct(qkv_win: torch.Tensor, rel_bias: torch.Tensor,
+                                smask: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+    """Attention on the natural window layout: ``qkv_win`` (B, nW, N, 3, h, d),
+    ``rel_bias`` (h, N, N), ``smask`` (nW, N, N) or None -> (B, nW, N, h*d).
+    Scores are in the input dtype; the softmax's exponentials and sums are f32."""
+    q, k, v = qkv_win.unbind(3)  # (B, nW, N, h, d) each
+    sdt = q.dtype
+    scores = torch.einsum("bwqhd,bwkhd->bwhqk", q, k)
+    scores = scores * torch.tensor(scale, dtype=sdt) + rel_bias[None, None].to(sdt)
+    if smask is not None:
+        scores = scores + smask[None, :, None].to(sdt)
+    m = scores.amax(-1, keepdim=True)
+    e = torch.exp((scores - m).float())
+    p = (e / e.sum(-1, keepdim=True)).to(v.dtype)
+    out = torch.einsum("bwhqk,bwkhd->bwqhd", p, v)
+    B, nW, N, h, d = out.shape
+    return out.reshape(B, nW, N, h * d)
+
+
+def window_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         bias2: torch.Tensor, scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale + bias2) v over head-major (B, G, N, d) q/k/v:
+    scores and softmax in f32, probabilities rounded to v's dtype, the
+    product summed in f32 and rounded to q's dtype. Kernel W's plain version."""
+    scores = torch.einsum("bgnd,bgmd->bgnm", q.float(), k.float())
+    scores = scores * scale + bias2[None].float()
+    p = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bgnm,bgmd->bgnd", p.float(), v.float()).to(q.dtype)
+
+
+def window_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias2: torch.Tensor, scale: float) -> torch.Tensor:
+    """Head-major window attention, ``window_attention_pallas``'s function:
+    q, k, v (B, G, N, d), bias2 (G, N, N) f32 from :func:`build_combined_bias`.
+    A CUDA tensor goes to kernel W (bf16, d = 32, N <= 64); a CPU tensor to
+    :func:`window_attention_xla`."""
+    if q.device.type == "cpu":
+        return window_attention_xla(q, k, v, bias2, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"window_attention_heads: no kernel for {q.device}")
+    B, G, N, d = q.shape
+    if d != 32 or N > 64:
+        raise ValueError("window_attention_heads: the kernel takes head dim 32 (every Swin-B "
+                         f"and Swin-T stage) and at most 64 tokens, got d={d}, N={N}")
+    bf16 = torch.bfloat16
+    _build.check_cuda_inputs("window_attention_heads", q.device, [
+        ("q", q, bf16, (B, G, N, d)), ("k", k, bf16, (B, G, N, d)),
+        ("v", v, bf16, (B, G, N, d)), ("bias2", bias2, torch.float32, (G, N, N)),
+    ])
+    out = torch.empty_like(q)
+    _build.launch("mmrp_window_attention_heads", q.device,
+                  *map(_build.ptr, (q, k, v, bias2, out)), B, G, N, d, float(scale),
+                  _build.stream_of(q))
+    window_attention_heads.launches += 1
+    return out
+
+
+window_attention_heads.launches = 0

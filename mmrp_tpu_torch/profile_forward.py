@@ -1,6 +1,7 @@
-"""Where the device time of one flagship forward goes, per Swin route.
+"""Where the device time of one flagship forward, or train step, goes.
 
     python -m mmrp_tpu_torch.profile_forward [--batch 8 64] [--out FILE]
+    python -m mmrp_tpu_torch.profile_forward --train [--batch 64] [--out FILE]
 
 On one CUDA device: builds the flagship model (Swin-B 224 px, ClinicalBERT
 dims, 5 fusion layers at 1024) in bf16 from a seeded init, once on the
@@ -17,6 +18,13 @@ against the unprofiled forward time, since the profiler's own host cost
 stretches the profiled wall time. A kind whose launch count is not a whole
 multiple of the forwards marks a trace that lost events (``complete`` false).
 One JSON line per (route, batch) goes to stdout and to ``--out``.
+
+``--train`` does the same for ``train/joint.py::make_train_step`` on the
+flagship at each batch instead (route ``train``: default dropout and drop path,
+f32 master weights, bf16 Adam mu, a 300-dim KG projection, one seeded batch
+repeated): the step time without the profiler, then the device time by kind,
+where the raw-layout attention core's forward (C-F) and backward (C-B, with
+its chunk reduction) are kinds of their own.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import statistics
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 
@@ -36,6 +45,8 @@ from mmrp_tpu_torch.models.multimodal import MultiModalConfig, MultiModalRetriev
 from mmrp_tpu_torch.utils.convert import init_params
 
 KINDS = (  # (kind, test on the kernel name), first match wins
+    ("wattn core forward (C-F)", lambda n: "core_fwd_kernel" in n),
+    ("wattn core backward (C-B)", lambda n: "core_bwd_kernel" in n or "sum_chunks_kernel" in n),
     ("swin attention phase", lambda n: "attention_kernel<32>" in n),
     ("bert/fusion attention phase", lambda n: "attention_kernel" in n),
     ("K1/K3 projection epilogue", lambda n: "proj_epilogue_kernel" in n),
@@ -91,18 +102,22 @@ def profile(fwd, args, reps: int = 5) -> dict:
             "kinds": {k: {"ms": ms, "launches": n / reps} for k, (ms, n) in kinds.items()}}
 
 
-def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, nargs="+", default=[8, 64])
-    ap.add_argument("--out", type=Path, default=None)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_forward: needs a CUDA device")
-    dev = torch.device("cuda", 0)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
-    print(card, flush=True)
+def report(rec: dict, ms: float) -> str:
+    """Print one record's breakdown; return it as a JSON line."""
+    rec["idle_share_vs_unprofiled"] = 1.0 - rec["busy_ms"] / ms
+    print(f"route {rec['route']} batch {rec['batch']}: {ms:.3f} ms, busy "
+          f"{rec['busy_ms']:.3f} ms, profiled span {rec['profiled_span_ms']:.3f} ms"
+          + ("" if rec["complete"] else " (the trace lost events)"), flush=True)
+    for kind, v in rec["kinds"].items():
+        print(f"  {kind:36s} {v['ms']:9.3f} ms {v['ms'] / rec['busy_ms']:6.1%} "
+              f"{v['launches']:7.1f} launches", flush=True)
+    line = json.dumps(rec)
+    print(line, flush=True)
+    return line
+
+
+def forward_lines(card: str, batches, dev: torch.device) -> list:
+    """One record per (route, batch) for the serving forward."""
     cfg = MultiModalConfig.flagship()
     whole = MultiModalRetrievalModel(cfg, dtype=torch.bfloat16, device=dev).eval()
     init_params(whole, seed=0)
@@ -112,7 +127,7 @@ def main(argv=None) -> None:
     k1k2.load_state_dict(whole.state_dict())
     gen = torch.Generator(device=dev).manual_seed(1)
     lines = []
-    for batch in args.batch:
+    for batch in batches:
         inputs = (torch.rand((batch, 224, 224, 3), generator=gen, device=dev),
                   torch.randint(0, cfg.text.vocab_size, (batch, 64), generator=gen,
                                 device=dev),
@@ -122,15 +137,61 @@ def main(argv=None) -> None:
             ms = forward_ms(fwd, inputs)
             rec = {"card": card, "route": route, "batch": batch, "forward_ms": ms,
                    **profile(fwd, inputs)}
-            rec["idle_share_vs_unprofiled"] = 1.0 - rec["busy_ms"] / ms
-            print(f"route {route} batch {batch}: forward {ms:.3f} ms, busy "
-                  f"{rec['busy_ms']:.3f} ms, profiled span {rec['profiled_span_ms']:.3f} ms"
-                  + ("" if rec["complete"] else " (the trace lost events)"), flush=True)
-            for kind, v in rec["kinds"].items():
-                print(f"  {kind:36s} {v['ms']:9.3f} ms {v['ms'] / rec['busy_ms']:6.1%} "
-                      f"{v['launches']:7.1f} launches", flush=True)
-            lines.append(json.dumps(rec))
-            print(lines[-1], flush=True)
+            lines.append(report(rec, ms))
+    return lines
+
+
+def train_lines(card: str, batches, dev: torch.device) -> list:
+    """One record per batch for the flagship train step."""
+    from mmrp_tpu_torch.config import Config
+    from mmrp_tpu_torch.train.joint import init_train_state, make_train_step
+
+    cfg = MultiModalConfig.flagship()
+    model = MultiModalRetrievalModel(cfg, dtype=torch.bfloat16, device=dev)
+    init_params(model, seed=0)
+    tcfg = Config(lr=1e-4)
+    rng = np.random.default_rng(1)
+    lines = []
+    for batch in batches:
+        state = init_train_state(model, tcfg, seed=0, total_steps=1000, kg_dim=300)
+        step = make_train_step(model, tcfg, pos_weight=np.ones(cfg.num_classes, np.float32))
+        data = {"image": rng.random((batch, 224, 224, 3), dtype=np.float32),
+                "input_ids": rng.integers(0, cfg.text.vocab_size, (batch, 64)),
+                "attention_mask": np.ones((batch, 64), np.int64),
+                "labels": (rng.random((batch, cfg.num_classes)) < 0.3).astype(np.float32),
+                "kg_target": rng.standard_normal((batch, 300)).astype(np.float32),
+                "kg_target_valid": np.ones(batch, np.float32)}
+        data = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+
+        def run(state=state, step=step, data=data):
+            step(state, data)  # the state is updated in place
+
+        ms = forward_ms(run, ())
+        rec = {"card": card, "route": "train", "batch": batch, "step_ms": ms,
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               **profile(run, ())}
+        lines.append(report(rec, ms))
+    return lines
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batch", type=int, nargs="+", default=None)
+    ap.add_argument("--train", action="store_true",
+                    help="profile the flagship train step (default batch 64)")
+    ap.add_argument("--out", type=Path, default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_forward: needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    if args.train:
+        lines = train_lines(card, args.batch or [64], dev)
+    else:
+        lines = forward_lines(card, args.batch or [8, 64], dev)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text("\n".join(lines) + "\n")

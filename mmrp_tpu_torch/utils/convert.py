@@ -1,9 +1,10 @@
 """Weights for the port: the Flax -> state-dict bridge and a seeded init.
 
 ``flax_to_state_dict`` maps a Flax parameter tree of ``mmrp_tpu`` (a nested
-dict of arrays, with or without the top-level ``"params"``), or the flat
+dict of arrays, with or without the top-level ``"params"``), the flat
 ``/``-joined dict that ``mmrp_tpu/utils/checkpoint.py::save_param_tree``
-writes to an npz, onto the port's ``state_dict``. Module paths are the same
+writes to an npz, or a JAX ``TrainState.params`` (``{"model": ...,
+"kg_proj": ...}``) onto the port's ``state_dict``. Module paths are the same
 in both packages; leaves change as follows:
 
 - Dense ``kernel`` (in, out) -> nn.Linear ``weight`` (out, in), which covers
@@ -14,7 +15,9 @@ in both packages; leaves change as follows:
   patches;
 - LayerNorm ``scale`` -> ``weight``; ``nn.Embed`` ``embedding`` -> ``weight``;
 - ``bias``, ``rel_bias_table``, ``pos_embed``, ``alpha`` and the null tokens
-  keep name and layout.
+  keep name and layout, and so does the train state's top-level ``kg_proj``
+  (joint_dim, kg_dim), which is no model parameter: :func:`load_flax_params`
+  returns it for the train state (``train/state.py``).
 
 The module reads numpy arrays only; it needs no JAX.
 """
@@ -64,21 +67,27 @@ def flax_to_state_dict(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         parts = key.split("/")
         if parts[0] == "params":
             parts = parts[1:]
+        if parts[0] == "model":
+            parts = parts[1:]
         name, arr = _convert_leaf(parts[-1], arr)
         out[".".join(parts[:-1] + [name])] = torch.from_numpy(np.array(arr, dtype=np.float32))
     return out
 
 
-def load_flax_params(model: nn.Module, tree_or_npz) -> None:
+def load_flax_params(model: nn.Module, tree_or_npz) -> Dict[str, torch.Tensor]:
     """Load a Flax tree, or the path of a ``save_param_tree`` npz, into
-    ``model`` (strict: every parameter must be covered, nothing left over).
-    Values are cast to each parameter's dtype."""
+    ``model`` (strict: every parameter must be covered, nothing left over but
+    ``kg_proj``). Values are cast to each parameter's dtype. Returns
+    ``{"kg_proj": f32 tensor}`` when the tree is a train state's, else {}."""
     if isinstance(tree_or_npz, Mapping):
         tree = tree_or_npz
     else:
         with np.load(tree_or_npz) as z:
             tree = {k: z[k] for k in z.files}
-    model.load_state_dict(flax_to_state_dict(tree), strict=True)
+    state = flax_to_state_dict(tree)
+    extra = {k: state.pop(k) for k in ("kg_proj",) if k in state}
+    model.load_state_dict(state, strict=True)
+    return extra
 
 
 @torch.no_grad()

@@ -20,6 +20,8 @@ from mmrp_tpu_torch.ops import fused_mlp as tfm
 from mmrp_tpu_torch.ops import fused_swin_block as tsb
 from mmrp_tpu_torch.ops import fused_swin_pair as tsp
 from mmrp_tpu_torch.ops import fused_window_attention as tfw
+from mmrp_tpu_torch.ops import wattn_core as twc
+from mmrp_tpu_torch.ops import window_attention as twa
 
 ATOL = 6e-2
 # a whole Swin block (two residual branches, and a pair two blocks deep)
@@ -162,6 +164,86 @@ def test_swin_pair_kernel(dev):
         want = tsp.pair_plain(x, blk0, bias0, blk1, bias1, heads, 7, 3)
     torch.cuda.synchronize()
     assert tsp.fused_swin_block_pair.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **SWIN_TOL)
+
+
+def _core_inputs(gen, dev, B, res, C, heads, shift):
+    ws = 7
+    qkv = _rand(gen, (B, res, res, 3 * C), dev)
+    table = _rand(gen, ((2 * ws - 1) ** 2, heads), dev, 0.5, torch.float32)
+    dout = _rand(gen, (B, res, res, C), dev)
+    kw = dict(ws=ws, shift=shift, num_heads=heads, scale=(C // heads) ** -0.5)
+    return qkv, tfw.build_bias_full(table, ws, res, res, shift), dout, kw
+
+
+# (B, res, C, heads, shift): Swin-B stage-1 and stage-3 geometries; then a
+# batch whose backward chunks hold 2, 2, 2 and 1 images, and one whose
+# backward is a single chunk (no second reduction launch)
+CORE_CASES = [(2, 56, 128, 4, 0), (2, 56, 128, 4, 3), (3, 14, 512, 16, 0),
+              (3, 14, 512, 16, 3), (7, 56, 128, 4, 3), (3, 56, 512, 16, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,res,C,heads,shift", CORE_CASES)
+def test_core_kernels(dev, B, res, C, heads, shift):
+    """C-F and C-B against the plain composition (autograd through it for
+    the backward). dbias sums B images' dS, so its bound is relative to its
+    largest element; it is the same bit for bit from run to run."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    qkv, bias, dout, kw = _core_inputs(gen, dev, B, res, C, heads, shift)
+    before = (twc.core_forward.launches, twc.core_backward.launches)
+    with torch.no_grad():
+        out = twc.core_forward(qkv, bias, **kw)
+        dqkv, dbias = twc.core_backward(qkv, bias, dout, **kw)
+        dqkv2, dbias2 = twc.core_backward(qkv, bias, dout, **kw)
+    want = twc.window_attention_core_plain(qkv, bias, **kw)
+    want_dqkv, want_dbias = twc.core_backward_plain(qkv, bias, dout, **kw)
+    torch.cuda.synchronize()
+    assert (twc.core_forward.launches, twc.core_backward.launches) == \
+        (before[0] + 1, before[1] + 2)
+    torch.testing.assert_close(out.float(), want.float(), **SWIN_TOL)
+    torch.testing.assert_close(dqkv.float(), want_dqkv.float(), **SWIN_TOL)
+    assert (dbias - want_dbias).abs().max() <= 2.0 ** -6 * want_dbias.abs().max()
+    assert torch.equal(dbias, dbias2) and torch.equal(dqkv, dqkv2)
+
+
+@pytest.mark.cuda
+def test_core_function_matches_autograd_of_the_plain_version(dev):
+    """window_attention_core on CUDA tensors is the autograd.Function of C-F
+    and C-B: its gradients for qkv and bias match autograd through the
+    plain composition, and both kernels ran."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    qkv, bias, dout, kw = _core_inputs(gen, dev, 2, 14, 256, 8, 3)
+    before = (twc.core_forward.launches, twc.core_backward.launches)
+    grads = []
+    for fn in (twc.window_attention_core, twc.window_attention_core_plain):
+        q, b = qkv.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+        out = fn(q, b, **kw)
+        out.backward(dout)
+        grads.append((out.detach(), q.grad, b.grad))
+    torch.cuda.synchronize()
+    assert (twc.core_forward.launches, twc.core_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
+    (out, dq, db), (want, want_dq, want_db) = grads
+    torch.testing.assert_close(out.float(), want.float(), **SWIN_TOL)
+    torch.testing.assert_close(dq.float(), want_dq.float(), **SWIN_TOL)
+    assert (db - want_db).abs().max() <= 2.0 ** -6 * want_db.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 3])
+def test_window_attention_heads_kernel(dev, shift):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B, heads, d, res = 2, 4, 32, 28
+    table = _rand(gen, (169, heads), dev, 0.5, torch.float32)
+    bias2 = twa.build_combined_bias(table, 7, res, res, shift, 64)
+    q, k, v = (_rand(gen, (B, bias2.shape[0], 64, d), dev) for _ in range(3))
+    before = twa.window_attention_heads.launches
+    with torch.no_grad():
+        got = twa.window_attention_heads(q, k, v, bias2, d ** -0.5)
+        want = twa.window_attention_xla(q, k, v, bias2, d ** -0.5)
+    torch.cuda.synchronize()
+    assert twa.window_attention_heads.launches == before + 1
     torch.testing.assert_close(got.float(), want.float(), **SWIN_TOL)
 
 

@@ -306,15 +306,18 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_port_imports_no_jax():
+    """Every module of the package, and chip_smoke.py (imported, not run),
+    in a fresh interpreter: none of them brings in JAX, Flax, PyYAML or the
+    JAX package."""
     code = (
-        "import sys\n"
-        "import mmrp_tpu_torch, mmrp_tpu_torch.api\n"
-        "import mmrp_tpu_torch.models.multimodal, mmrp_tpu_torch.models.swin\n"
-        "import mmrp_tpu_torch.models.text_encoder, mmrp_tpu_torch.models.fusion\n"
-        "import mmrp_tpu_torch.ops.fused_window_attention, mmrp_tpu_torch.ops.fused_mlp\n"
-        "import mmrp_tpu_torch.ops.fused_attention, mmrp_tpu_torch.utils.convert\n"
-        "import mmrp_tpu_torch.ops.fused_swin_block, mmrp_tpu_torch.ops.fused_swin_pair\n"
-        "import mmrp_tpu_torch.retrieval.gallery\n"
+        "import importlib, pkgutil, sys\n"
+        "import mmrp_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(mmrp_tpu_torch.__path__, "
+        "'mmrp_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "assert len(names) >= 20 and 'mmrp_tpu_torch.ops.wattn_core' in names, names\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'yaml', 'mmrp_tpu')]\n"
         "assert not bad, bad\n"
