@@ -8,8 +8,15 @@ Phases, each of which fails the run (nonzero exit, no result line):
 2. build: the kernels from mmrp_tpu_torch/csrc with nvcc, timed;
 3. kernels: each hand-written kernel against its plain-PyTorch version on
    the same bf16 inputs, at every shape the flagship serving path gives it
-   (batch 8) on either Swin route, then the median CUDA-event time of each
-   and its bound (bytes over 3.35 TB/s or FLOPs over 989 TFLOP/s);
+   (batch 8) on either Swin route and in the int8 serving mixes (K3's W8A8
+   form at the BERT shape; the whole-block kernel's static W8A8 pair, chain
+   and windows, the pair and windows with calibrated and with per-row
+   activation scales; its dynamic windows at stages 2-4 and raw at stage 3),
+   then the median CUDA-event time of each and its bound (bytes over 3.35
+   TB/s, or bf16 FLOPs over 989 TFLOP/s plus int8 ops over 1,979 TOPS). Each
+   int8 case also computes planted faults with its plain version (bf16
+   activations; the other kind of activation scale), each of which must break
+   the case's limits, and the static pair's difference is split by block;
 4. slice: the flagship model (Swin-B 224 px, ClinicalBERT dims, 5 fusion
    layers at 1024, 43 labels) in bf16 from a seeded init, ``MMRPredictor
    .predict`` on 8 requests against a 100,000 x 1024 gallery that also holds
@@ -20,6 +27,15 @@ Phases, each of which fails the run (nonzero exit, no result line):
    plain path (the same weights in f32 on the CPU, where every wrapper runs
    its plain version). Then embed pairs/s of both routes at batch 8 and 64
    and the top-10 latency over the gallery, for information.
+4b. int8 serving: ``act_amax`` calibrated on 8 seeded images by the plain
+   f32 Swin forward on the card (no kernel), then ``MMRPredictor.predict``
+   with the same weights at ``serve_quant="int8_static"`` (through
+   ``MultiModalConfig.from_config`` and the calibration file) and at
+   ``"int8"``: launch counts per predict (int8 and bf16 K3 counted apart),
+   each request's own id at rank 1 of a gallery that holds its int8
+   embedding, and joint_emb cosine > 0.995 against the f32 unquantized plain
+   path; their embed pairs/s beside the bf16 routes'. Then one Swin-B
+   forward at ``SwinConfig(quant="int8")``: 22 dynamic whole-block launches.
 5. training kernels: the raw-layout window-attention core's forward (C-F) and
    backward (C-B) against the plain composition (autograd through it for the
    backward) at the Swin-B stage 1-3 shapes of a batch-64 train step, shift 0
@@ -63,42 +79,108 @@ PROBS_MAX_DIFF = 5e-3
 # rate and HBM3 rate, for each kernel's bound
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
-# launches per predict of B requests, worked out from the Swin routing
-# (models/swin.py::swin_plan): on the default route stage 1 is K1 + K2
-# (2 blocks), stage 2 one pair, stage 3 18 chain steps, stage 4 2 windows
-# blocks; K2 also carries the 5 fusion FFNs and K3 the 12 BERT layers and
-# 5 x 5 fusion attentions. The K1 + K2 route runs all 24 Swin blocks on K1
-# and their MLPs on K2 at C <= 256.
+PEAK_INT8 = 1979e12  # dense int8 tensor-core rate
+# int8 kernel vs plain: the same int8 products (exact int32 sums), but a bf16
+# GEMM input one ulp apart (LN, attention, GELU summed in another order) can
+# land one int8 step away or move its row's scale: 8 bf16 ulps, twice the
+# bf16 kernels' bound
+INT8_TOL = 2.0 ** -4
+# the static pair is two blocks deep: each of its launches is within 2^-5 of
+# its plain block on the same input, but the first block's difference (up to
+# 3.0e-2 measured on an H100) reaches the second block's output through its
+# residual and moves the second block's int8 inputs across rounding
+# boundaries: 8.4e-2 after the second block's plain version alone, the whole
+# of the pair's (the kernels phase logs this split): twice INT8_TOL
+INT8_PAIR_TOL = 2.0 ** -3
+# A wrong int8 form (a GEMM input left in bf16, or the other kind of
+# activation scale) moves nearly every output by the quantization noise,
+# about as far as one flip of a sound kernel moves a few, so the largest
+# difference alone cannot tell them apart. Each int8 kernel is also held to
+# the share of its outputs more than a threshold (relative to max(1,
+# |plain|)) from plain, and each case computes such faults with its plain
+# version: the run fails unless every fault breaks a limit. Measured on an
+# H100 (PERF.md): beyond 2^-5 (4 bf16 ulps, the bf16 kernels' limit) the
+# one-block flavors showed shares of at most 2.5e-4 and their faults at least
+# 1.8e-3; the pair, whose per-row form carries the first block's jitter into
+# the second block's row scales, 1.1e-2 against 3.4e-2; K3, whose post-LN
+# output dilutes the projections' noise, beyond 2^-8: 2.0e-2 against 0.22.
+INT8_SHARE = {"fused_attention_int8": (2.0 ** -8, 7e-2),
+              "fused_swin_block_pair_static": (2.0 ** -5, 2e-2)}
+INT8_SHARE_BLOCK = (2.0 ** -5, 7e-4)  # (threshold, largest share) of the others
+# int8 serving mixes against the f32 unquantized plain path: the JAX package's
+# gate (tests/test_quant_model.py, tests/test_quant_static.py)
+INT8_COS_MIN = 0.995
+# launches per run of each serving path, worked out from the Swin routing
+# (models/swin.py::swin_plan): on the default route ("whole") stage 1 is
+# K1 + K2 (2 blocks), stage 2 one pair, stage 3 18 chain steps, stage 4 2
+# windows blocks; K2 also carries the 5 fusion FFNs and K3 the 12 BERT layers
+# and 5 x 5 fusion attentions. The K1 + K2 route runs all 24 Swin blocks on K1
+# and their MLPs on K2 at C <= 256. The int8 mixes run BERT's attention on
+# K3-int8 and the fusion stack without a kernel (W8A8 GEMMs through
+# torch._int_mm and plain attention, as JAX's XLA branches); "int8_static"
+# runs Swin stages 2-4 in static W8A8, "int8" in bf16. "swin_int8" is one
+# SwinEncoder forward at quant="int8": dynamic W8A8 windows at stages 2-4.
+SERVING = ("fused_window_attention", "fused_ln_mlp", "fused_attention",
+           "fused_attention_int8", "fused_swin_block_windows",
+           "fused_swin_block_windows_static", "fused_swin_block_windows_dynamic",
+           "fused_swin_block_raw", "fused_swin_block_raw_dynamic", "fused_swin_block_chain",
+           "fused_swin_block_chain_static", "fused_swin_block_pair",
+           "fused_swin_block_pair_static")
+ZERO = {name: 0 for name in SERVING}
 EXPECTED = {
-    "whole": {"fused_window_attention": 2, "fused_ln_mlp": 7, "fused_attention": 37,
-              "fused_swin_block_windows": 2, "fused_swin_block_raw": 0,
-              "fused_swin_block_chain": 18, "fused_swin_block_pair": 1},
-    "k1k2": {"fused_window_attention": 24, "fused_ln_mlp": 9, "fused_attention": 37,
-             "fused_swin_block_windows": 0, "fused_swin_block_raw": 0,
-             "fused_swin_block_chain": 0, "fused_swin_block_pair": 0},
+    "whole": {**ZERO, "fused_window_attention": 2, "fused_ln_mlp": 7, "fused_attention": 37,
+              "fused_swin_block_windows": 2, "fused_swin_block_chain": 18,
+              "fused_swin_block_pair": 1},
+    "k1k2": {**ZERO, "fused_window_attention": 24, "fused_ln_mlp": 9, "fused_attention": 37},
+    "int8_static": {**ZERO, "fused_window_attention": 2, "fused_ln_mlp": 2,
+                    "fused_attention_int8": 12, "fused_swin_block_pair_static": 1,
+                    "fused_swin_block_chain_static": 18,
+                    "fused_swin_block_windows_static": 2},
+    "int8": {**ZERO, "fused_window_attention": 2, "fused_ln_mlp": 2,
+             "fused_attention_int8": 12, "fused_swin_block_pair": 1,
+             "fused_swin_block_chain": 18, "fused_swin_block_windows": 2},
+    "swin_int8": {**ZERO, "fused_window_attention": 2, "fused_ln_mlp": 2,
+                  "fused_swin_block_windows_dynamic": 22},
 }
-SOURCES = {  # kernel -> (CUDA source, TPU kernel it replaces)
+# the path whose run counts each kernel's launches (None: no route calls it)
+PATH_OF = {name: "whole" for name in SERVING}
+PATH_OF.update({name: "int8_static" for name in (
+    "fused_attention_int8", "fused_swin_block_windows_static", "fused_swin_block_chain_static",
+    "fused_swin_block_pair_static")})
+PATH_OF.update({"fused_swin_block_windows_dynamic": "swin_int8", "fused_swin_block_raw": None,
+                "fused_swin_block_raw_dynamic": None, "wattn_core_fwd": "train",
+                "wattn_core_bwd": "train", "window_attention_heads": None})
+SOURCES = {  # kernel -> (CUDA source, the pallas_call of the TPU kernel it replaces)
     "fused_window_attention": ("mmrp_tpu_torch/csrc/window_attention.cu",
-                               "mmrp_tpu/ops/fused_window_attention.py:251"),
-    "fused_ln_mlp": ("mmrp_tpu_torch/csrc/ln_mlp.cu", "mmrp_tpu/ops/fused_mlp.py:122"),
+                               "mmrp_tpu/ops/fused_window_attention.py:152"),
+    "fused_ln_mlp": ("mmrp_tpu_torch/csrc/ln_mlp.cu", "mmrp_tpu/ops/fused_mlp.py:181"),
     "fused_attention": ("mmrp_tpu_torch/csrc/seq_attention.cu",
-                        "mmrp_tpu/ops/fused_attention.py:355"),
+                        "mmrp_tpu/ops/fused_attention.py:299"),
+    "fused_attention_int8": ("mmrp_tpu_torch/csrc/seq_attention.cu",
+                             "mmrp_tpu/ops/fused_attention.py:299"),
     "fused_swin_block_windows": ("mmrp_tpu_torch/csrc/swin_block.cu",
-                                 "mmrp_tpu/ops/fused_swin_block.py:670"),
+                                 "mmrp_tpu/ops/fused_swin_block.py:435"),
+    "fused_swin_block_windows_static": ("mmrp_tpu_torch/csrc/swin_block.cu",
+                                        "mmrp_tpu/ops/fused_swin_block.py:435"),
+    "fused_swin_block_windows_dynamic": ("mmrp_tpu_torch/csrc/swin_block.cu",
+                                         "mmrp_tpu/ops/fused_swin_block.py:435"),
     "fused_swin_block_raw": ("mmrp_tpu_torch/csrc/swin_block.cu",
-                             "mmrp_tpu/ops/fused_swin_block.py:545"),
+                             "mmrp_tpu/ops/fused_swin_block.py:484"),
+    "fused_swin_block_raw_dynamic": ("mmrp_tpu_torch/csrc/swin_block.cu",
+                                     "mmrp_tpu/ops/fused_swin_block.py:484"),
     "fused_swin_block_chain": ("mmrp_tpu_torch/csrc/swin_block.cu",
-                               "mmrp_tpu/ops/fused_swin_pair.py:432"),
+                               "mmrp_tpu/ops/fused_swin_pair.py:384"),
+    "fused_swin_block_chain_static": ("mmrp_tpu_torch/csrc/swin_block.cu",
+                                      "mmrp_tpu/ops/fused_swin_pair.py:384"),
     "fused_swin_block_pair": ("mmrp_tpu_torch/csrc/swin_block.cu",
-                              "mmrp_tpu/ops/fused_swin_pair.py:252"),
+                              "mmrp_tpu/ops/fused_swin_pair.py:197"),
+    "fused_swin_block_pair_static": ("mmrp_tpu_torch/csrc/swin_block.cu",
+                                     "mmrp_tpu/ops/fused_swin_pair.py:197"),
     "wattn_core_fwd": ("mmrp_tpu_torch/csrc/wattn_core.cu", "mmrp_tpu/ops/wattn_core.py:260"),
     "wattn_core_bwd": ("mmrp_tpu_torch/csrc/wattn_core.cu", "mmrp_tpu/ops/wattn_core.py:283"),
     "window_attention_heads": ("mmrp_tpu_torch/csrc/wattn_core.cu",
                                "mmrp_tpu/ops/window_attention.py:307"),
 }
-SERVING = ("fused_window_attention", "fused_ln_mlp", "fused_attention",
-           "fused_swin_block_windows", "fused_swin_block_raw", "fused_swin_block_chain",
-           "fused_swin_block_pair")
 
 # training: batch 64, text length 64. The core runs at Swin-B stages 1-3
 # (nW > 1); per train step each stage's blocks alternate shift 0 and 3, so
@@ -187,7 +269,8 @@ def main() -> int:
             MultiModalConfig,
             MultiModalRetrievalModel,
         )
-        from mmrp_tpu_torch.models.swin import stage_routes
+        from mmrp_tpu_torch.models.quant_calib import calibrate_swin_act_amax, save_act_amax
+        from mmrp_tpu_torch.models.swin import SwinConfig, SwinEncoder, stage_routes
         from mmrp_tpu_torch.ops import _build
         from mmrp_tpu_torch.ops import fused_attention as K3
         from mmrp_tpu_torch.ops import fused_mlp as K2
@@ -196,6 +279,7 @@ def main() -> int:
         from mmrp_tpu_torch.ops import fused_window_attention as K1
         from mmrp_tpu_torch.ops import wattn_core as WC
         from mmrp_tpu_torch.ops import window_attention as WA
+        from mmrp_tpu_torch.ops.quant import quantize_weight
         from mmrp_tpu_torch.retrieval.gallery import RetrievalEngine
         from mmrp_tpu_torch.train.joint import (
             compute_losses,
@@ -246,9 +330,14 @@ def main() -> int:
     def ln_params(C):
         return 1 + rnd((C,), 0.1, f32), rnd((C,), 0.1, f32)
 
-    # (kernel, shape label, calls per predict on the default route / on the
-    #  K1 + K2 route, kernel fn, plain fn, GEMM FLOPs of one call)
+    # (kernel, shape label, calls per run of the kernel's path (PATH_OF) / per
+    #  predict on the K1 + K2 route, kernel fn, plain fn, (bf16 FLOPs, int8
+    #  ops) of one call[, int8 only: {planted fault: its plain fn}])
     cases = []
+
+    def dequant(q, s):
+        """The bf16 weight an int8 cache and its scales stand for."""
+        return (q.float() * s[:, None]).to(bf16)
 
     ws = 7
     for C, heads, res, calls, shift in ((128, 4, 56, (2, 2), 3), (256, 8, 28, (0, 2), 3),
@@ -262,7 +351,7 @@ def main() -> int:
         cases.append(("fused_window_attention", f"xw({B},{nW},49,{C}) h{heads}", calls,
                       lambda a=args: K1.fused_window_attention_windows(*a),
                       lambda a=args: K1.window_attention_plain(*a),
-                      attn_flops(M, ws * ws, C, M)))
+                      (attn_flops(M, ws * ws, C, M), 0)))
 
     for M, C, Hd, calls in ((B * 3136, 128, 512, (2, 2)), (B * 784, 256, 1024, (0, 2)),
                             (B * 51, 1024, 4096, (5, 5))):
@@ -270,7 +359,7 @@ def main() -> int:
                 rnd((C, Hd), Hd ** -0.5), rnd((C,), 0.1))
         cases.append(("fused_ln_mlp", f"x({M},{C}) hidden {Hd}", calls,
                       lambda a=args: K2.fused_ln_mlp_residual(*a),
-                      lambda a=args: K2.ln_mlp_plain(*a), 4 * M * C * Hd))
+                      lambda a=args: K2.ln_mlp_plain(*a), (4 * M * C * Hd, 0)))
 
     def key_mask(n):
         valid = torch.rand((B, n), generator=gen, device=dev) < 0.8
@@ -298,7 +387,23 @@ def main() -> int:
         cases.append(("fused_attention", f"{label} ({B},{Nq}<-{Nk},{C}) h{heads} {mode}",
                       (calls, calls), lambda a=args, k=kw: K3.fused_attention(*a, **k),
                       lambda a=args, k=kw: K3.attention_plain(*a, **k),
-                      attn_flops(B * Nq, Nk, C, B * Nk)))
+                      (attn_flops(B * Nq, Nk, C, B * Nk), 0)))
+        if label == "bert":  # the int8 mixes' BERT: W8A8 projections, int8 weight caches
+            w8 = [quantize_weight(t) for t in w[0::2]]
+            args8 = (args[0], *args[1:3], *(t for (q, _), b in zip(w8, w[1::2]) for t in (q, b)))
+            kw8 = dict(kw, quant=True, wscales=tuple(s_ for _, s_ in w8))
+            argsf = (args[0], *args[1:3],
+                     *(t for (q, s_), b in zip(w8, w[1::2]) for t in (dequant(q, s_), b)))
+            for form, n in ((mode, calls), ("none", 0)):
+                k8 = dict(kw8, ln_mode=form, include_residual=form == mode)
+                kf = dict(kw, ln_mode=form, include_residual=form == mode)
+                cases.append(("fused_attention_int8", f"{label} ({B},{Nq}<-{Nk},{C}) h{heads} "
+                              f"{form}", (n, 0),
+                              lambda a=args8, k=k8: K3.fused_attention(*a, **k),
+                              lambda a=args8, k=k8: K3.attention_plain(*a, **k),
+                              (4 * B * Nq * Nk * C, 8 * B * Nq * C * C),
+                              {"bf16 activations": lambda a=argsf, k=kf: K3.attention_plain(*a,
+                                                                                            **k)}))
 
     def swin_block(C, heads, res, shift):
         """12 block tensors (nn.Linear layout) and bias_full at one stage."""
@@ -312,6 +417,28 @@ def main() -> int:
     def block_flops(M, C):
         return attn_flops(M, ws * ws, C, M) + 16 * M * C * C
 
+    def block_ops8(M, C):
+        """(bf16 attention FLOPs, int8 GEMM ops) of one W8A8 block."""
+        return 4 * M * ws * ws * C, 24 * M * C * C
+
+    def int8_block(blk):
+        """The block with its GEMM weights as int8 caches, and their scales."""
+        blk, scales = list(blk), []
+        for i in SB.GEMM_WEIGHTS:
+            blk[i], sc = quantize_weight(blk[i])
+            scales.append(sc)
+        return tuple(blk), tuple(scales)
+
+    def float_block(blk8, scales):
+        """An int8 block with its GEMM weights dequantized to bf16."""
+        blk = list(blk8)
+        for i, sc in zip(SB.GEMM_WEIGHTS, scales):
+            blk[i] = dequant(blk[i], sc)
+        return tuple(blk)
+
+    # calibrated-like static activation scales (qkv, proj, FC1, FC2 inputs)
+    acts = (5.0 / 127, 3.0 / 127, 5.0 / 127, 4.0 / 127)
+
     # stage 2: one pair per predict
     C, heads, res = 256, 8, 28
     blk0, bias0 = swin_block(C, heads, res, 0)
@@ -320,7 +447,54 @@ def main() -> int:
     pair_args = (x, blk0, bias0, blk1, bias1, heads, ws, 3)
     cases.append(("fused_swin_block_pair", f"map({B},{res},{res},{C}) h{heads}", (1, 0),
                   lambda a=pair_args: SP.fused_swin_block_pair(*a),
-                  lambda a=pair_args: SP.pair_plain(*a), 2 * block_flops(B * res * res, C)))
+                  lambda a=pair_args: SP.pair_plain(*a), (2 * block_flops(B * res * res, C), 0)))
+    (q0, s0), (q1, s1) = int8_block(blk0), int8_block(blk1)
+    pair8 = (x, q0, bias0, q1, bias1, heads, ws, 3)
+    pairf = (x, float_block(q0, s0), bias0, float_block(q1, s1), bias1, heads, ws, 3)
+    # calibrated-like scales: 1 per predict at int8_static; per-row scales (no
+    # calibration file): no path of this run
+    for label, a8, n in (("static scales", acts, 1), ("per-row scales", None, 0)):
+        kw8 = dict(quant="static", wscales0=s0, wscales1=s1, act_scales0=a8, act_scales1=a8)
+        other = dict(kw8, act_scales0=None if a8 else acts, act_scales1=None if a8 else acts)
+        cases.append(("fused_swin_block_pair_static", f"map({B},{res},{res},{C}) h{heads} "
+                      f"{label}", (n, 0),
+                      lambda a=pair8, k=kw8: SP.fused_swin_block_pair(*a, **k),
+                      lambda a=pair8, k=kw8: SP.pair_plain(*a, **k),
+                      tuple(2 * v for v in block_ops8(B * res * res, C)),
+                      {"bf16 activations": lambda a=pairf: SP.pair_plain(*a),
+                       "other activation scales": lambda a=pair8, k=other: SP.pair_plain(*a, **k)}))
+    # where the static pair's difference arises: its first launch is the
+    # chain kernel's with roll -3, so run the blocks one by one, and the second
+    # block's plain version on the kernel's own first output
+    st = dict(quant="static", act_scales=acts)
+    y0k = SP.fused_swin_block_chain(x, q0, bias0, heads, ws, -3, wscales=s0, **st)
+    y0p = SP.chain_plain(x, q0, bias0, heads, ws, -3, wscales=s0, **st)
+    y1k = SP.fused_swin_block_chain(y0k, q1, bias1, heads, ws, 3, wscales=s1, **st)
+    y1k_p = SP.chain_plain(y0k, q1, bias1, heads, ws, 3, wscales=s1, **st)
+    y1p = SP.chain_plain(y0p, q1, bias1, heads, ws, 3, wscales=s1, **st)
+
+    def max_rel(got, want):
+        return ((got.float() - want.float()).abs() / want.float().abs().clamp(min=1.0)).max()
+
+    log(f"static pair, max_rel_err by block: first block {max_rel(y0k, y0p):.3e}; second "
+        f"block on the kernel's first output {max_rel(y1k, y1k_p):.3e}; the second block's "
+        f"plain version on the kernel's against on the plain first output "
+        f"{max_rel(y1k_p, y1p):.3e}; the two launches against the plain pair "
+        f"{max_rel(y1k, y1p):.3e}")
+    del y0k, y0p, y1k, y1k_p, y1p
+    # stages 2-4 on the dynamic windows flavor (SwinConfig(quant="int8"))
+    for C, heads, res, n in ((256, 8, 28, 2), (512, 16, 14, 18), (1024, 32, 7, 2)):
+        nW = (res // ws) ** 2
+        blk, bias = swin_block(C, heads, res, 0)
+        q8, sc = int8_block(blk)
+        args = (rnd((B, nW, ws * ws, C)), *q8, bias, heads)
+        kw8 = dict(quant=True, wscales=sc)
+        argsf = (args[0], *float_block(q8, sc), bias, heads)
+        cases.append(("fused_swin_block_windows_dynamic", f"xw({B},{nW},49,{C}) h{heads}",
+                      (n, 0), lambda a=args, k=kw8: SB.fused_swin_block_windows(*a, **k),
+                      lambda a=args, k=kw8: SB.swin_block_plain(*a, **k),
+                      block_ops8(B * nW * ws * ws, C),
+                      {"bf16 activations": lambda a=argsf: SB.swin_block_plain(*a)}))
     # stage 3: 18 chain steps, rolling into the shifted frame and back
     C, heads, res = 512, 16, 14
     for roll, shift in ((-3, 0), (3, 3)):
@@ -329,55 +503,113 @@ def main() -> int:
         cases.append(("fused_swin_block_chain", f"map({B},{res},{res},{C}) h{heads} "
                       f"roll {roll:+d}", (9, 0),
                       lambda a=args: SP.fused_swin_block_chain(*a),
-                      lambda a=args: SP.chain_plain(*a), block_flops(B * res * res, C)))
+                      lambda a=args: SP.chain_plain(*a), (block_flops(B * res * res, C), 0)))
+        q8, sc = int8_block(blk)
+        argsf = (args[0], float_block(q8, sc), *args[2:])
+        args = (args[0], q8, bias, heads, ws, roll)
+        kw8 = dict(quant="static", wscales=sc, act_scales=acts)
+        cases.append(("fused_swin_block_chain_static", f"map({B},{res},{res},{C}) h{heads} "
+                      f"roll {roll:+d}", (9, 0),
+                      lambda a=args, k=kw8: SP.fused_swin_block_chain(*a, **k),
+                      lambda a=args, k=kw8: SP.chain_plain(*a, **k), block_ops8(B * res * res, C),
+                      {"bf16 activations": lambda a=argsf: SP.chain_plain(*a),
+                       "per-row scales": lambda a=args, k=dict(kw8, act_scales=None):
+                       SP.chain_plain(*a, **k)}))
     # stage 3 geometry on the raw flavor, which no route of the model calls
-    args = (rnd((B, res, res, C)), *blk, bias, heads, ws)
+    x3 = rnd((B, res, res, C))
+    args = (x3, *blk, bias, heads, ws)
     cases.append(("fused_swin_block_raw", f"map({B},{res},{res},{C}) h{heads}", (0, 0),
                   lambda a=args: SB.fused_swin_block_raw(*a),
                   lambda a=args: SB.raw_plain(*a[:-2], num_heads=a[-2], ws=a[-1]),
-                  block_flops(B * res * res, C)))
+                  (block_flops(B * res * res, C), 0)))
+    args = (x3, *q8, bias, heads, ws)
+    argsf = (x3, *float_block(q8, sc), bias)
+    kw8 = dict(quant=True, wscales=sc)
+    cases.append(("fused_swin_block_raw_dynamic", f"map({B},{res},{res},{C}) h{heads}", (0, 0),
+                  lambda a=args, k=kw8: SB.fused_swin_block_raw(*a, **k),
+                  lambda a=args, k=kw8: SB.raw_plain(*a[:-2], num_heads=a[-2], ws=a[-1], **k),
+                  block_ops8(B * res * res, C),
+                  {"bf16 activations": lambda a=argsf, h=heads: SB.raw_plain(*a, num_heads=h,
+                                                                             ws=ws)}))
     # stage 4: the window is the whole 7 x 7 map, so no shift and no roll
     C, heads = 1024, 32
     blk, bias = swin_block(C, heads, 7, 0)
     args = (rnd((B, 1, 49, C)), *blk, bias, heads)
     cases.append(("fused_swin_block_windows", f"xw({B},1,49,{C}) h{heads}", (2, 0),
                   lambda a=args: SB.fused_swin_block_windows(*a),
-                  lambda a=args: SB.swin_block_plain(*a), block_flops(B * 49, C)))
+                  lambda a=args: SB.swin_block_plain(*a), (block_flops(B * 49, C), 0)))
+    q8, sc = int8_block(blk)
+    argsf = (args[0], *float_block(q8, sc), bias, heads)
+    args = (args[0], *q8, bias, heads)
+    # calibrated scales: 2 per predict at int8_static; per-row scales (no
+    # calibration file): no path of this run
+    for label, a8, n in (("static scales", acts, 2), ("per-row scales", None, 0)):
+        kw8 = dict(quant="static", wscales=sc, act_scales=a8)
+        other = dict(kw8, act_scales=None if a8 else acts)
+        cases.append(("fused_swin_block_windows_static", f"xw({B},1,49,{C}) h{heads} {label}",
+                      (n, 0), lambda a=args, k=kw8: SB.fused_swin_block_windows(*a, **k),
+                      lambda a=args, k=kw8: SB.swin_block_plain(*a, **k), block_ops8(B * 49, C),
+                      {"bf16 activations": lambda a=argsf: SB.swin_block_plain(*a),
+                       "other activation scales": lambda a=args, k=other:
+                       SB.swin_block_plain(*a, **k)}))
 
-    per_kernel = {}
+    per_kernel, problems = {}, []
     with torch.inference_mode():
-        for name, label, (calls, calls_k1k2), kern, plain, flops in cases:
+        for name, label, (calls, calls_k1k2), kern, plain, (flops, ops8), *faults in cases:
             got = kern()
             want = plain()
             torch.cuda.synchronize()
             if got.shape != want.shape or not torch.isfinite(got).all():
                 fail(f"{name} {label}: non-finite output or wrong shape")
-            diff = (got.float() - want.float()).abs()
-            ref = want.float().abs()
-            err = diff.max().item()
-            rel = (diff / ref.clamp(min=1.0)).max().item()
+            ref = want.float().abs().clamp(min=1.0)
+            sharp, share_max = INT8_SHARE.get(name, INT8_SHARE_BLOCK)
+
+            def errors(out):
+                """max |out - plain|, its max relative to max(1, |plain|), and
+                the share of elements more than ``sharp`` relative apart."""
+                d = (out.float() - want.float()).abs()
+                return (d.max().item(), (d / ref).max().item(),
+                        (d > sharp * ref).float().mean().item())
+
+            err, rel, share = errors(got)
+            tol = (INT8_PAIR_TOL if name == "fused_swin_block_pair_static" else INT8_TOL) \
+                if ops8 else KERNEL_TOL
             ms, plain_ms = cuda_ms(torch, kern), cuda_ms(torch, plain)
             # each input read once and the output written once: the tensors
-            # the wrapper is given (kern's default args) and the result
+            # the wrapper is given (kern's default args, int8 weights at one
+            # byte each) and the result; operations: bf16 FLOPs at the bf16
+            # rate plus int8 ops at the int8 rate
             nbytes = tensor_bytes(torch, kern.__defaults__) + tensor_bytes(torch, got)
-            flop_ms, byte_ms = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+            flop_ms = (flops / PEAK_FLOPS + ops8 / PEAK_INT8) * 1e3
+            byte_ms = nbytes / PEAK_BYTES * 1e3
             log(f"kernel {name:24s} {label:36s} max_abs_err {err:.3e} max_rel_err "
-                f"{rel:.3e} (tol {KERNEL_TOL:.3e})  kernel {ms:.4f} ms  plain "
+                f"{rel:.3e} (tol {tol:.3e})" + (f" share > {sharp:g} {share:.3e} (max "
+                                               f"{share_max:g})" if ops8 else "") +
+                f"  kernel {ms:.4f} ms  plain "
                 f"{plain_ms:.4f} ms  bound {max(flop_ms, byte_ms):.4f} ms "
-                f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)  calls {calls} "
-                f"(K1+K2 route {calls_k1k2})")
-            if rel > KERNEL_TOL:
-                fail(f"{name} {label}: max_rel_err {rel} > {KERNEL_TOL}")
+                f"({flops / 1e9:.2f} GFLOP bf16, {ops8 / 1e9:.2f} GOP int8, "
+                f"{nbytes / 1e6:.2f} MB)  calls {calls} (K1+K2 route {calls_k1k2})")
+            if rel > tol or (ops8 and share > share_max):
+                problems.append(f"{name} {label}: max_rel_err {rel}, share {share}")
+            for fault, fn in (faults[0] if faults else {}).items():
+                _, f_rel, f_share = errors(fn())
+                log(f"  planted fault ({fault}) vs plain: max_rel_err {f_rel:.3e} share > "
+                    f"{sharp:g} {f_share:.3e}")
+                if f_rel <= tol and f_share <= share_max:
+                    problems.append(f"{name} {label}: the limits pass the fault ({fault})")
             agg = per_kernel.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                                                    bound_ms=0.0, flop_ms=0.0, byte_ms=0.0))
             agg["max_abs_err"] = max(agg["max_abs_err"], err)
-            # per predict on the default route; a kernel that route does not
-            # call (raw) is recorded per call
-            n = calls if EXPECTED["whole"][name] else 1
+            # per run of the kernel's path (PATH_OF); a kernel no route calls
+            # (raw) is recorded per call
+            n = calls if PATH_OF[name] else 1
             for key, val in (("ms", ms), ("plain_ms", plain_ms), ("flop_ms", flop_ms),
                              ("byte_ms", byte_ms), ("bound_ms", max(flop_ms, byte_ms))):
                 agg[key] += n * val
-    del cases, pair_args, args, x, blk, bias, blk0, bias0, blk1, bias1
+    del cases, pair_args, pair8, pairf, args, argsf, x, x3, blk, bias, blk0, bias0, blk1, bias1
+    del q8, q0, q1
+    if problems:
+        fail("; ".join(problems))
     phase_done("kernels")
 
     # -- 4. the slice ----------------------------------------------------------
@@ -410,26 +642,43 @@ def main() -> int:
     gallery_ids = [f"g{i}" for i in range(len(gallery))] + [f"req{b}" for b in range(B)]
     engine = RetrievalEngine(np.concatenate([gallery, emb]), gallery_ids, device=dev)
 
-    counters = {"fused_window_attention": K1.fused_window_attention_windows,
-                "fused_ln_mlp": K2.fused_ln_mlp_residual,
-                "fused_attention": K3.fused_attention,
-                "fused_swin_block_windows": SB.fused_swin_block_windows,
-                "fused_swin_block_raw": SB.fused_swin_block_raw,
-                "fused_swin_block_chain": SP.fused_swin_block_chain,
-                "fused_swin_block_pair": SP.fused_swin_block_pair}
+    counters = {  # kernel -> (its wrapper, the wrapper's count of that kernel's launches)
+        "fused_window_attention": (K1.fused_window_attention_windows, "launches"),
+        "fused_ln_mlp": (K2.fused_ln_mlp_residual, "launches"),
+        "fused_attention": (K3.fused_attention, "launches"),
+        "fused_attention_int8": (K3.fused_attention, "launches_int8"),
+        "fused_swin_block_windows": (SB.fused_swin_block_windows, "launches"),
+        "fused_swin_block_windows_static": (SB.fused_swin_block_windows, "launches_static"),
+        "fused_swin_block_windows_dynamic": (SB.fused_swin_block_windows, "launches_dynamic"),
+        "fused_swin_block_raw": (SB.fused_swin_block_raw, "launches"),
+        "fused_swin_block_raw_dynamic": (SB.fused_swin_block_raw, "launches_dynamic"),
+        "fused_swin_block_chain": (SP.fused_swin_block_chain, "launches"),
+        "fused_swin_block_chain_static": (SP.fused_swin_block_chain, "launches_static"),
+        "fused_swin_block_pair": (SP.fused_swin_block_pair, "launches"),
+        "fused_swin_block_pair_static": (SP.fused_swin_block_pair, "launches_static"),
+    }
+
+    def reset_counts():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def read_counts():
+        return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+
     preds, launches = {}, {}
-    for route, m in routes.items():
-        predictor = MMRPredictor(m, labels, retriever=engine, threshold=0.5)
-        for fn in counters.values():
-            fn.launches = 0
-        preds[route] = predictor.predict(images, ids, mask, K=10)
+
+    def drive(route, predictor):
+        """One predict on a serving path, its counts set to 0 just before and
+        read just after: launches as worked out, outputs finite, each
+        request's own id at rank 1."""
+        reset_counts()
+        pred = predictor.predict(images, ids, mask, K=10)
         torch.cuda.synchronize()
-        launches[route] = {name: fn.launches for name, fn in counters.items()}
-        log(f"launches in one predict (batch {B}), {route} route: {launches[route]}")
+        launches[route] = read_counts()
+        log(f"launches in one predict (batch {B}), {route} route: "
+            f"{ {k: v for k, v in launches[route].items() if v} }")
         if launches[route] != EXPECTED[route]:
             fail(f"{route} route: launch counts {launches[route]}, expected {EXPECTED[route]}")
-
-        pred = preds[route]
         probs, joint = pred["probs"], pred["joint_emb"]
         if probs.shape != (B, cfg.num_classes) or joint.shape != (B, cfg.joint_dim):
             fail(f"{route} route: output shapes {probs.shape} {joint.shape}")
@@ -439,6 +688,10 @@ def main() -> int:
         log(f"{route} route: top-1 ids {top1}")
         if top1 != [f"req{b}" for b in range(B)]:
             fail(f"{route} route: a request's own id is not at rank 1")
+        return pred
+
+    for route, m in routes.items():
+        preds[route] = drive(route, MMRPredictor(m, labels, retriever=engine, threshold=0.5))
 
     def cosine(a, b):
         return (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
@@ -466,8 +719,64 @@ def main() -> int:
     log(f"whole route: max |d img_emb| {dimg:.3e}, max |d txt_emb| {dtxt:.3e}; joint_emb "
         f"cosine between the routes min {between.min():.6f}")
     del ref
+    phase_done("slice")
 
-    # throughput of both routes and retrieval latency, for information
+    # -- 4b. int8 serving: calibration, the two int8 mixes, dynamic Swin ------
+    t0 = time.perf_counter()
+    amax = calibrate_swin_act_amax(model.backbones.swin, images, batch_size=B)
+    amax_path = _build.BUILD_DIR / "swin_act_amax.json"
+    save_act_amax(str(amax_path), amax)
+    flat = np.asarray(amax)
+    log(f"calibration (plain f32 Swin forward on {dev}, {B} images): "
+        f"{time.perf_counter() - t0:.1f} s, {len(amax)} blocks, act amax in "
+        f"[{flat.min():.3f}, {flat.max():.3f}] -> {amax_path.relative_to(REPO)}")
+    state = model.state_dict()
+    for route, serve_quant in (("int8_static", dict(serve_quant="int8_static",
+                                                    swin_act_amax_path=str(amax_path))),
+                               ("int8", dict(serve_quant="int8"))):
+        qcfg = MultiModalConfig.from_config(Config(**serve_quant), flagship=True)
+        if qcfg.swin.act_amax is not None and qcfg.swin.act_amax != amax:
+            fail(f"{route}: act_amax did not round-trip through {amax_path}")
+        m8 = MultiModalRetrievalModel(qcfg, dtype=bf16, device=dev).eval()
+        m8.load_state_dict(state)
+        routes[route] = m8
+        emb8 = MMRPredictor(m8, labels).embed(images, ids, mask)["joint_emb"]
+        engine8 = RetrievalEngine(np.concatenate([gallery, emb8]), gallery_ids, device=dev)
+        preds[route] = drive(route, MMRPredictor(m8, labels, retriever=engine8,
+                                                 threshold=0.5))
+        cos = cosine(preds[route]["joint_emb"], wj)
+        dprobs = float(np.abs(preds[route]["probs"] - wp).max())
+        log(f"{route} route vs the f32 unquantized plain path: joint_emb cosine min "
+            f"{cos.min():.6f} (> {INT8_COS_MIN}), max |dprobs| {dprobs:.3e}")
+        if not cos.min() > INT8_COS_MIN:
+            fail(f"{route} route: int8 joint_emb strays from the f32 plain path")
+        del engine8
+    # one Swin-B forward at quant="int8": every whole-block stage on the
+    # dynamic W8A8 windows flavor
+    enc = SwinEncoder(SwinConfig.base(quant="int8"), dtype=bf16, device=dev).eval()
+    enc.load_state_dict(model.backbones.swin.state_dict())
+    img_t = torch.from_numpy(images).to(dev)
+    with torch.inference_mode():
+        ref_global = model.backbones.swin(img_t)["global"].float()
+        reset_counts()
+        out = enc(img_t)
+        torch.cuda.synchronize()
+        launches["swin_int8"] = read_counts()
+    log(f"launches in one Swin-B forward (batch {B}) at quant='int8': "
+        f"{ {k: v for k, v in launches['swin_int8'].items() if v} }")
+    if launches["swin_int8"] != EXPECTED["swin_int8"]:
+        fail(f"swin_int8: launch counts {launches['swin_int8']}, "
+             f"expected {EXPECTED['swin_int8']}")
+    g8 = out["global"].float()
+    if g8.shape != ref_global.shape or not torch.isfinite(out["patches"]).all():
+        fail("swin_int8: non-finite output or wrong shape")
+    cos = torch.nn.functional.cosine_similarity(g8, ref_global, dim=1).min().item()
+    log(f"swin_int8: global cosine against the bf16 encoder min {cos:.6f} (> {INT8_COS_MIN})")
+    if not cos > INT8_COS_MIN:
+        fail("swin_int8: the dynamic int8 encoder strays from the bf16 one")
+    del enc, out, img_t, ref_global, state, m8
+
+    # throughput of every route and retrieval latency, for information
     for batch in (8, 64):
         img_d = torch.rand((batch, 224, 224, 3), generator=gen, device=dev)
         ids_d = torch.randint(0, cfg.text.vocab_size, (batch, 64), generator=gen, device=dev)
@@ -486,10 +795,10 @@ def main() -> int:
             times.append((time.perf_counter() - t0) * 1e3)
     log(f"top-10 over {len(gallery_ids)} x {cfg.joint_dim}: p50 "
         f"{statistics.median(times):.3f} ms (host clock, query upload to ids)")
-    del model, model_k1k2, routes, m, predictor, engine, fwd, img_d, ids_d, mask_d
+    del model, model_k1k2, routes, m, engine, fwd, img_d, ids_d, mask_d
     gc.collect()
     torch.cuda.empty_cache()
-    phase_done("slice")
+    phase_done("int8 serving and throughput")
 
     # -- 5. the training kernels against their plain versions ------------------
     def check(name, label, err, rel, tol):
@@ -594,8 +903,9 @@ def main() -> int:
     phase_done("training kernels")
 
     # -- 6. one train step: the card (bf16) against the plain path (f32, CPU) ---
-    counters.update({"wattn_core_fwd": WC.core_forward, "wattn_core_bwd": WC.core_backward,
-                     "window_attention_heads": WA.window_attention_heads})
+    counters.update({"wattn_core_fwd": (WC.core_forward, "launches"),
+                     "wattn_core_bwd": (WC.core_backward, "launches"),
+                     "window_attention_heads": (WA.window_attention_heads, "launches")})
 
     def train_batch(n):
         return {
@@ -673,17 +983,16 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms = [], []
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts()
     for i in range(steps):
-        before = {name: fn.launches for name, fn in counters.items()}
+        before = read_counts()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         state, metrics = step(state, batch)
         end.record()
         end.synchronize()
-        per_step = {name: fn.launches - before[name] for name, fn in counters.items()}
+        per_step = {name: n - before[name] for name, n in read_counts().items()}
         loss, gnorm = metrics["loss/total"], metrics["grad_norm"]
         log(f"train step {i + 1}: loss {loss:.6f}, grad_norm {gnorm:.4f}, "
             f"{start.elapsed_time(end):.2f} ms, cls {metrics['loss/cls']:.4f}, contrastive "
@@ -695,7 +1004,7 @@ def main() -> int:
         losses.append(loss)
         if i >= TRAIN_WARMUP:
             step_ms.append(start.elapsed_time(end))
-    train_launches = {name: fn.launches for name, fn in counters.items()}
+    train_launches = read_counts()
     step_launches = per_step  # the last step's; every step's was asserted equal above
     log(f"launches in {steps} train steps (batch {TRAIN_B}): {train_launches}")
     if losses[-1] >= losses[0]:
@@ -709,28 +1018,32 @@ def main() -> int:
 
     # -- 8. records ------------------------------------------------------------
     # launches, and ms / plain_ms / bound_ms: counted or summed over the calls
-    # of one predict on the default route at the shapes above ("per":
-    # "predict"), over the calls of one train step for the core ("per": "train
-    # step"; launches_train is the total over all train_steps), or one call
-    # for a kernel no route calls. No single PyTorch call computes the serving
-    # kernels' functions (LN + projections + attention [+ MLP] in one) or the
-    # core's (roll, partition, attention and reverse in one), so their
-    # library_ms is null; W's is scaled_dot_product_attention's.
+    # of one run of the kernel's path at the shapes above (PATH_OF; "per":
+    # "predict" on the default route or an int8 mix, "encoder forward" at
+    # Swin quant="int8", "train step" for the core, whose launches_train is
+    # the total over all train_steps), or one call for a kernel no route
+    # calls. launches_by_path holds every path's count. No single PyTorch
+    # call computes the serving kernels' functions (LN + projections +
+    # attention [+ MLP] in one, in bf16 or W8A8) or the core's (roll,
+    # partition, attention and reverse in one), so their library_ms is null;
+    # W's is scaled_dot_product_attention's.
+    per_label = {"whole": "predict", "int8_static": "predict", "swin_int8": "encoder forward",
+                 "train": "train step", None: "call"}
+    launches["train"] = step_launches
     records = []
     for name, (src, rep) in SOURCES.items():
         agg = per_kernel[name]
-        if name in SERVING:
-            run, per = launches["whole"][name], "predict" if EXPECTED["whole"][name] else "call"
-        else:
-            run, per = step_launches[name], "train step" if EXPECTED_TRAIN[name] else "call"
+        path = PATH_OF[name]
         records.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": run, "max_abs_err": agg["max_abs_err"],
+            "launches": launches[path][name] if path else 0,
+            "max_abs_err": agg["max_abs_err"],
             "ms": agg["ms"], "plain_ms": agg["plain_ms"],
             "bound_ms": agg["bound_ms"],
             "bound_by": "operations" if agg["flop_ms"] >= agg["byte_ms"] else "bytes",
-            "library_ms": agg.get("library_ms"), "per": per,
-            "launches_k1k2_route": launches["k1k2"].get(name, 0),
+            "library_ms": agg.get("library_ms"), "per": per_label[path],
+            "path": path or "none",
+            "launches_by_path": {k: v.get(name, 0) for k, v in launches.items()},
             "launches_train": train_launches[name], "train_steps": steps})
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

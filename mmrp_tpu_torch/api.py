@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from mmrp_tpu_torch.models.multimodal import MultiModalRetrievalModel
+from mmrp_tpu_torch.models.quant_calib import build_quant_cache
 from mmrp_tpu_torch.retrieval.gallery import RetrievalEngine
 
 
@@ -50,6 +51,11 @@ class MMRPredictor:
     ):
         # threshold: a scalar or the per-class calibrated vector
         self.model = model
+        # int8_static serving: the Swin int8 weights are quantized once, here
+        # at the latest (the model keeps them current across loads), so that
+        # no request pays for it (mmrp_tpu/api.py:75-86)
+        if model.config.swin.quant == "int8_static":
+            build_quant_cache(model, stale_only=True)
         self.label_names = list(label_names)
         self.retriever = retriever
         self.reranker = reranker

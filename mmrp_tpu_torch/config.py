@@ -1,19 +1,27 @@
-"""Training settings of the joint step.
+"""Settings of the joint train step and of the served model.
 
 Counterpart of the fields of ``mmrp_tpu/config.py::Config`` that
-``train/joint.py`` and ``train/state.py`` read, under the same names and
-defaults. Loading a YAML file is not ported.
+``train/joint.py``, ``train/state.py`` and ``MultiModalConfig.from_config``
+read, under the same names and defaults. Loading a YAML file is not ported.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 
 @dataclass(frozen=True)
 class Config:
     lr: float = 2e-5
     seed: int = 2709
+    # serving precision (MultiModalConfig.from_config): "none" = bf16; "int8" = W8A8 in the text tower (K3's
+    # in-kernel form and the FFN) and the fusion stack; "int8_static" = that
+    # and static W8A8 in the Swin whole-block kernels, with the calibrated
+    # activation abs-max of swin_act_amax_path (models/quant_calib.py), or
+    # per-row activation scales without one. Training is full precision.
+    serve_quant: str = "none"
+    swin_act_amax_path: Optional[str] = None
     # classification loss: hybrid (1 - focal_ratio) * BCE + focal_ratio * focal
     use_hybrid: bool = True
     use_focal: bool = False

@@ -50,6 +50,13 @@ struct AttnParams {
   float scale, eps;
   int ln_pre;
   int map_h, map_w, ws;  // map_h > 0: query rows gathered from a (B, map_h, map_w, C) map
+  // W8A8 (qmode != kQuantOff): int8 (C, C) weights and (C,) scales replace
+  // wq/wk/wv; the staged rows are quantized per row, or with the static
+  // scale act_s (act_inv = f32(1 / act_s) > 0)
+  int qmode;
+  const signed char *wq8, *wk8, *wv8;
+  const float *swq, *swk, *swv;
+  float act_s, act_inv;
 };
 
 // Row of a (B, H, W, C) map that holds token t of window g (windows row-major
@@ -68,7 +75,7 @@ __host__ __device__ inline size_t map_row(int g, int t, int nW, int H, int W, in
 }
 
 struct AttnSmem {
-  size_t buf, q, k, v, work, total;
+  size_t buf, q, k, v, work, rs, total;
 };
 
 // Shared-memory layout of attention_kernel; the host sizes the launch with it.
@@ -92,6 +99,8 @@ __host__ __device__ inline AttnSmem attn_smem(int Nq, int Nk, int C) {
   const size_t soft_bytes = align128((size_t)npq * (npk + 4) * sizeof(float)) +
                             (size_t)npq * (npk + 8) * sizeof(bf16);
   off += align128(proj_bytes > soft_bytes ? proj_bytes : soft_bytes);
+  s.rs = off;  // int8 forms: the staged rows' activation scales
+  off += align128((size_t)npm * sizeof(float));
   s.total = off;
   return s;
 }
@@ -149,6 +158,30 @@ __device__ inline void project_head(bf16* dst, const bf16* buf, int ldb, int row
   __syncthreads();
 }
 
+// The int8 form: dst[r][c] = bf16(dequant(a[r] . w8[head*D + c]) + b[head*D + c])
+// on rows quantized in place (a, lda bytes) with row scales rs. The sums stay
+// in the mma fragments and are dequantized from there.
+template <int D>
+__device__ inline void project_head_q8(bf16* dst, const signed char* a, int lda, int rows_pad,
+                                       const signed char* w, const float* sw, const bf16* b,
+                                       int C, int head, const float* rs, int mode) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  constexpr int nt = D / 8;
+  const int tiles = (rows_pad / 16) * nt;
+  for (int tile = warp; tile < tiles; tile += kWarps) {
+    const int mi = tile / nt, c0 = (tile % nt) * 8, n0 = head * D + c0;
+    int acc[4] = {0, 0, 0, 0};
+    mma_s8(acc, a + (size_t)mi * 16 * lda, lda, w + (size_t)n0 * C, C, C);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = mi * 16 + g + (i >> 1) * 8, c = c0 + 2 * t + (i & 1);
+      dst[(size_t)r * (D + 8) + c] =
+          to_bf(dequant(acc[i], rs[r], sw[head * D + c], mode) + to_f(b[head * D + c]));
+    }
+  }
+  __syncthreads();
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads) attention_kernel(AttnParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -166,6 +199,10 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnParams p) {
   bf16* ps = reinterpret_cast<bf16*>(smem + L.work +
                                      align128((size_t)npq * (npk + 4) * sizeof(float)));
   const int ldb = p.C + 8;
+  // int8 forms: the staged bf16 rows quantized in place (2 ldb bytes per row)
+  const bool q8 = p.qmode != kQuantOff;
+  const signed char* buf8 = reinterpret_cast<const signed char*>(buf);
+  float* rs = reinterpret_cast<float*>(smem + L.rs);
 
   // q from the (LayerNorm'ed) query rows
   const bf16* xg = p.x + (size_t)g * p.Nq * p.C;
@@ -177,16 +214,27 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnParams p) {
       },
       p.pos, p.Nq, npq, p.C, p.ln_s, p.ln_b, p.eps, p.ln_pre != 0);
   __syncthreads();
-  project_head<D>(qs, buf, ldb, npq, p.wq, p.bq, p.C, head, scratch);
+  if (q8) {
+    quantize_rows(buf, ldb, npq, p.C, p.act_s, p.act_inv, rs);
+    project_head_q8<D>(qs, buf8, 2 * ldb, npq, p.wq8, p.swq, p.bq, p.C, head, rs, p.qmode);
+  } else {
+    project_head<D>(qs, buf, ldb, npq, p.wq, p.bq, p.C, head, scratch);
+  }
   // k, v from the cross input (raw), or from the same staged rows
   if (p.kv) {
     const bf16* kvg = p.kv + (size_t)g * p.Nk * p.C;
     load_rows(buf, ldb, [&](int r) { return kvg + (size_t)r * p.C; }, nullptr, p.Nk, npk, p.C,
               nullptr, nullptr, 0.f, false);
     __syncthreads();
+    if (q8) quantize_rows(buf, ldb, npk, p.C, p.act_s, p.act_inv, rs);
   }
-  project_head<D>(ks, buf, ldb, npk, p.wk, p.bk, p.C, head, scratch);
-  project_head<D>(vs, buf, ldb, npk, p.wv, p.bv, p.C, head, scratch);
+  if (q8) {
+    project_head_q8<D>(ks, buf8, 2 * ldb, npk, p.wk8, p.swk, p.bk, p.C, head, rs, p.qmode);
+    project_head_q8<D>(vs, buf8, 2 * ldb, npk, p.wv8, p.swv, p.bv, p.C, head, rs, p.qmode);
+  } else {
+    project_head<D>(ks, buf, ldb, npk, p.wk, p.bk, p.C, head, scratch);
+    project_head<D>(vs, buf, ldb, npk, p.wv, p.bv, p.C, head, scratch);
+  }
 
   // scores = q k^T (f32), k read column-major straight from its row-major tile
   {
@@ -282,7 +330,17 @@ struct EpiParams {
   int M, C, Nq;
   float eps;
   int mode;            // EpiMode
+  int qmode;           // kQuantDyn: the context rows quantized per row, W_o as int8
+  const signed char* wo8;
+  const float* swo;
 };
+
+// [16][C + 4] f32 sums, then for the int8 form [16][C + 16] int8 rows and
+// their 16 scales
+__host__ __device__ inline size_t epi_smem(int C, bool q8) {
+  const size_t acc = align128((size_t)16 * (C + 4) * sizeof(float));
+  return q8 ? acc + align128((size_t)16 * (C + 16)) + 16 * sizeof(float) : acc;
+}
 
 __global__ void __launch_bounds__(kThreads) proj_epilogue_kernel(EpiParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -290,11 +348,36 @@ __global__ void __launch_bounds__(kThreads) proj_epilogue_kernel(EpiParams p) {
   const int ld = p.C + 4;
   const int row0 = blockIdx.x * 16;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int t = warp; t < p.C / 16; t += kWarps) {
-    FragAcc acc;
-    wmma::fill_fragment(acc, 0.f);
-    mma_bcol(acc, p.ctx + (size_t)row0 * p.C, p.C, p.wo + (size_t)t * 16 * p.C, p.C, p.C);
-    wmma::store_matrix_sync(acc_s + t * 16, acc, ld, wmma::mem_row_major);
+  if (p.qmode != kQuantOff) {
+    signed char* a8 = reinterpret_cast<signed char*>(smem + epi_smem(p.C, false));
+    float* rs = reinterpret_cast<float*>(a8 + align128((size_t)16 * (p.C + 16)));
+    const int lda8 = p.C + 16;
+    for (int lr = warp; lr < 16; lr += kWarps) {  // rows past M (pad) quantize to 0
+      const bool live = row0 + lr < p.M;
+      const bf16* src = p.ctx + (size_t)(row0 + lr) * p.C;
+      const float s = row_scale([&](int c) { return live ? to_f(src[c]) : 0.f; }, p.C, 0.f, 0.f);
+      for (int c = lane; c < p.C; c += 32)
+        a8[(size_t)lr * lda8 + c] = live ? quant1(to_f(src[c]), s, 0.f) : (signed char)0;
+      if (lane == 0) rs[lr] = s;
+    }
+    __syncthreads();
+    const int g = lane >> 2, t = lane & 3;
+    for (int n0 = warp * 8; n0 < p.C; n0 += kWarps * 8) {
+      int acc[4] = {0, 0, 0, 0};
+      mma_s8(acc, a8, lda8, p.wo8 + (size_t)n0 * p.C, p.C, p.C);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = g + (i >> 1) * 8, n = n0 + 2 * t + (i & 1);
+        acc_s[(size_t)r * ld + n] = dequant(acc[i], rs[r], p.swo[n], p.qmode);
+      }
+    }
+  } else {
+    for (int t = warp; t < p.C / 16; t += kWarps) {
+      FragAcc acc;
+      wmma::fill_fragment(acc, 0.f);
+      mma_bcol(acc, p.ctx + (size_t)row0 * p.C, p.C, p.wo + (size_t)t * 16 * p.C, p.C, p.C);
+      wmma::store_matrix_sync(acc_s + t * 16, acc, ld, wmma::mem_row_major);
+    }
   }
   __syncthreads();
   for (int lr = warp; lr < 16; lr += kWarps) {
@@ -339,7 +422,7 @@ inline cudaError_t launch_attention_d(const AttnParams& p, cudaStream_t stream) 
 // Head dims of the slice: 32 (every Swin stage), 64 (BERT), 128 (fusion, 1024 / 8).
 inline cudaError_t launch_attention(const AttnParams& p, cudaStream_t stream) {
   if (p.G < 1 || p.Nq < 1 || p.Nq > 64 || p.Nk < 1 || p.Nk > 64 || p.heads < 1 ||
-      p.C % p.heads || p.C % 16)
+      p.C % p.heads || p.C % 16 || (p.qmode != kQuantOff && p.C % 32))
     return cudaErrorInvalidValue;
   switch (p.C / p.heads) {
     case 32: return launch_attention_d<32>(p, stream);
@@ -350,8 +433,8 @@ inline cudaError_t launch_attention(const AttnParams& p, cudaStream_t stream) {
 }
 
 inline cudaError_t launch_epilogue(const EpiParams& p, cudaStream_t stream) {
-  if (p.M < 1 || p.C % 16) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)16 * (p.C + 4) * sizeof(float);
+  if (p.M < 1 || p.C % 16 || (p.qmode != kQuantOff && p.C % 32)) return cudaErrorInvalidValue;
+  const size_t smem = epi_smem(p.C, p.qmode != kQuantOff);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const cudaError_t e = allow_smem(proj_epilogue_kernel, smem);
   if (e != cudaSuccess) return e;

@@ -158,6 +158,107 @@ __device__ inline void mlp_hidden_chunks(const bf16* z, int ldz, float* acc, int
   }
 }
 
+// ---------------------------------------------------------------------------
+// W8A8: the int8 bodies of the TPU kernels (fused_attention.py:_qdot,
+// fused_swin_block.py:_static_gemm). Weights arrive quantized per output
+// channel (ops/quant.py), nn.Linear layout (N, K) int8 + f32 scales (N,);
+// activations are quantized here, per row or with a static scale, and the
+// products run on the int8 tensor cores (mma.sync m16n8k32, s32 sums: exact).
+
+// Host-side operands of one W8A8 launch (ops/_build.py::QuantArgs).
+struct QuantArgs {
+  int mode;          // kQuantOff, kQuantDyn or kQuantStatic
+  const void* w[4];  // int8 (N, K) weights in GEMM order
+  const void* s[4];  // f32 (N,) per-output-channel scales
+  float act[4];      // static activation scale sa per GEMM, 0 = per-row scales
+  float inv[4];      // f32(1 / sa), the reciprocal taken in f64 on the host
+};
+
+enum QuantMode { kQuantOff = 0, kQuantDyn = 1, kQuantStatic = 2 };
+
+// The dequantization of one int32 sum, in each TPU kernel's order:
+// _qdot computes acc * sx * sw, _static_gemm acc * sw * s. __fmul_rn is never
+// contracted into an FMA with the bias add that follows, so each product
+// rounds as the separate PyTorch ops of the plain versions do.
+__device__ __forceinline__ float dequant(int acc, float sx, float sw, int mode) {
+  const float a = __int2float_rn(acc);
+  return mode == kQuantDyn ? __fmul_rn(__fmul_rn(a, sx), sw) : __fmul_rn(__fmul_rn(a, sw), sx);
+}
+
+// One activation: rint (ties to even, as jnp.round) of x / s, or of x * inv
+// for a static scale, clipped to [-127, 127].
+__device__ __forceinline__ signed char quant1(float x, float s, float inv) {
+  const float q = inv > 0.f ? rintf(x * inv) : rintf(x / s);
+  return (signed char)__float2int_rn(fminf(fmaxf(q, -127.f), 127.f));
+}
+
+// The scale of a row held by one warp (per-row: max(amax, 1e-8) / 127, as
+// quant.py) or the static one; every lane returns it.
+template <typename Get>
+__device__ __forceinline__ float row_scale(Get get, int n, float sa, float inv) {
+  if (inv > 0.f) return sa;
+  const int lane = threadIdx.x & 31;
+  float m = 0.f;
+  for (int c = lane; c < n; c += 32) m = fmaxf(m, fabsf(get(c)));
+  return fmaxf(warp_max(m), 1e-8f) / 127.f;
+}
+
+// Quantize bf16 row[0, n) in place with scale s (or inv), one warp: int8
+// element c lands on byte c of the row, so the int8 row keeps the bf16 row's
+// start and a leading dimension of twice its bf16 one. Each step reads 32
+// elements and then writes 32 bytes, which cover bf16 elements the step or
+// an earlier one has read.
+__device__ inline void quantize_row_inplace(bf16* row, int n, float s, float inv) {
+  const int lane = threadIdx.x & 31;
+  signed char* q = reinterpret_cast<signed char*>(row);
+  for (int c0 = 0; c0 < n; c0 += 32) {
+    const int c = c0 + lane;
+    const float v = c < n ? to_f(row[c]) : 0.f;
+    __syncwarp();
+    if (c < n) q[c] = quant1(v, s, inv);
+    __syncwarp();
+  }
+}
+
+// Rows [0, rows) of a bf16 tile (ld elements) quantized in place, one warp
+// per row, their scales in rs; ends with __syncthreads.
+__device__ inline void quantize_rows(bf16* tile, int ld, int rows, int n, float sa, float inv,
+                                     float* rs) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < rows; r += kWarps) {
+    bf16* row = tile + (size_t)r * ld;
+    const float s = row_scale([&](int c) { return to_f(row[c]); }, n, sa, inv);
+    quantize_row_inplace(row, n, s, inv);
+    if (lane == 0) rs[r] = s;
+  }
+  __syncthreads();
+}
+
+// acc[16 x 8] (s32, mma fragment) += A[16 x K] . B[K x 8]: A int8 row-major
+// (lda bytes, 4-byte aligned rows), B the int8 nn.Linear rows n0..n0+7
+// ((k, n) at b[n * ldb + k]); K a multiple of 32. Fragment c_i of lane
+// (g = lane / 4, t = lane % 4) is element (g + 8 (i / 2), 2 t + i % 2).
+__device__ __forceinline__ void mma_s8(int acc[4], const signed char* a, int lda,
+                                       const signed char* b, int ldb, int K) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const signed char* a0 = a + (size_t)g * lda + 4 * t;
+  const signed char* a1 = a0 + (size_t)8 * lda;
+  const signed char* b0 = b + (size_t)g * ldb + 4 * t;
+  for (int k = 0; k < K; k += 32) {
+    const unsigned A0 = *reinterpret_cast<const unsigned*>(a0 + k);
+    const unsigned A1 = *reinterpret_cast<const unsigned*>(a1 + k);
+    const unsigned A2 = *reinterpret_cast<const unsigned*>(a0 + k + 16);
+    const unsigned A3 = *reinterpret_cast<const unsigned*>(a1 + k + 16);
+    const unsigned B0 = __ldg(reinterpret_cast<const unsigned*>(b0 + k));
+    const unsigned B1 = __ldg(reinterpret_cast<const unsigned*>(b0 + k + 16));
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3])
+        : "r"(A0), "r"(A1), "r"(A2), "r"(A3), "r"(B0), "r"(B1));
+  }
+}
+
 // Shared memory above 48 KB must be opted into per kernel.
 template <typename Kernel>
 __host__ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {

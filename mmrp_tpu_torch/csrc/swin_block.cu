@@ -1,11 +1,15 @@
 // Whole Swin block for Hopper (sm_90a): one kernel family for the four
 // flavors of the TPU whole-block kernel.
 //
-// Replaces
-//   mmrp_tpu/ops/fused_swin_block.py:670 fused_swin_block_windows  (windows in, windows out)
-//   mmrp_tpu/ops/fused_swin_block.py:545 fused_swin_block_raw      (map in, map out)
-//   mmrp_tpu/ops/fused_swin_pair.py:432  fused_swin_block_chain    (map in, rolled map out)
-//   mmrp_tpu/ops/fused_swin_pair.py:252  fused_swin_block_pair     (two chain steps)
+// Replaces (pallas_call lines)
+//   mmrp_tpu/ops/fused_swin_block.py:435 fused_swin_block_windows  (windows in, windows out)
+//   mmrp_tpu/ops/fused_swin_block.py:484 fused_swin_block_raw      (map in, map out)
+//   mmrp_tpu/ops/fused_swin_pair.py:384  fused_swin_block_chain    (map in, rolled map out)
+//   mmrp_tpu/ops/fused_swin_pair.py:197  fused_swin_block_pair     (two chain steps)
+// in bf16 and in their W8A8 forms (_block_body's quant: the dynamic _qdot of
+// windows and raw, the _static_gemm of windows, pair and chain): with a
+// QuantArgs the qkv GEMM runs int8 in attention_kernel on the LN0 rows it
+// holds, and block_mlp_q8_kernel (below) runs proj, FC1 and FC2 in int8.
 // which all compute, per ws x ws window of the (pre-rolled) map,
 //   y   = x + proj(softmax(q k^T * d^-1/2 + bias_full) v),  q/k/v = LN0(x) W_qkv + b_qkv
 //   out = y + W2 gelu_tanh(W1 LN1(y) + b1) + b2
@@ -68,6 +72,13 @@ struct BlockParams {
   int M, C, Hd, N, nW;
   int map_h, map_w, ws, roll_h, roll_w;  // map_h == 0: rows in window order, no roll
   float eps;
+  // W8A8 (block_mlp_q8_kernel): int8 weights + per-output-channel scales of
+  // proj / FC1 / FC2, and each GEMM's static activation scale (inv > 0) or
+  // per-row scales (act = inv = 0)
+  int qmode;
+  const signed char *wproj8, *w18, *w28;
+  const float *sproj, *s1, *s2;
+  float act[3], inv[3];
 };
 
 __device__ inline size_t block_row(const BlockParams& p, int r, bool dst) {
@@ -171,6 +182,192 @@ inline int cluster_size(int row_tiles, int C, int Hd) {
   return S;
 }
 
+// ---------------------------------------------------------------------------
+// The int8 epilogue: _block_body with quant (the dynamic _qdot, or
+// _static_gemm with static or per-row activation scales) on a 16-row tile.
+// The one real difference from the bf16 epilogue is FC2's input: a per-row
+// scale of gelu(FC1) needs the abs-max over the whole hidden row (Hd = 4C)
+// before any FC2 product, and no block holds that row. So each rank keeps
+// its bf16 hidden slice (16 x Hd / S) whole in shared memory, the ranks
+// exchange their partial row maxima through distributed shared memory, each
+// quantizes its slice in place, and each rank then computes FC2 for its own
+// output columns over all S slices, reading the other ranks' int8 slices
+// through distributed shared memory. The int32 sums are exact, so the order
+// of the slices does not matter; y stays f32 and the block rounds once.
+struct MlpQ8Smem {
+  size_t a8, acc, z, hs, rs, total;
+};
+
+// At C = 1024 the slice needs S >= 2 (S = 1: 246 KB).
+__host__ __device__ inline MlpQ8Smem mlp_q8_smem(int C, int span) {
+  MlpQ8Smem s;
+  size_t off = 0;
+  s.a8 = off;  // int8 context rows
+  off += align128((size_t)kRows * (C + 16));
+  s.acc = off;  // f32 y
+  off += align128((size_t)kRows * (C + 4) * sizeof(float));
+  s.z = off;  // bf16 LN1(y), then int8 in place
+  off += align128((size_t)kRows * (C + 8) * sizeof(bf16));
+  s.hs = off;  // bf16 gelu(FC1) slice, then int8 in place
+  off += align128((size_t)kRows * (span + 8) * sizeof(bf16));
+  s.rs = off;  // row scales: context, z, partial |h| max, h
+  off += 4 * kRows * sizeof(float);
+  s.total = off;
+  return s;
+}
+
+__global__ void __launch_bounds__(kThreads) block_mlp_q8_kernel(BlockParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int span = p.Hd / S, h0 = rank * span;  // this rank's hidden columns
+  const MlpQ8Smem L = mlp_q8_smem(p.C, span);
+  signed char* a8 = reinterpret_cast<signed char*>(smem + L.a8);
+  float* acc = reinterpret_cast<float*>(smem + L.acc);
+  bf16* z = reinterpret_cast<bf16*>(smem + L.z);
+  bf16* hs = reinterpret_cast<bf16*>(smem + L.hs);
+  float* rs = reinterpret_cast<float*>(smem + L.rs);
+  const int lda = p.C + 4, ldz = p.C + 8, ldh = span + 8, lda8 = p.C + 16;
+  const int row0 = (blockIdx.x / S) * kRows;
+  const int cols = p.C / S, c0 = rank * cols;  // this rank's proj and output columns
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+
+  // the context rows in int8 (rows past M quantize to 0)
+  for (int lr = warp; lr < kRows; lr += kWarps) {
+    const bool live = row0 + lr < p.M;
+    const bf16* src = p.ctx + (size_t)(row0 + lr) * p.C;
+    const float s = row_scale([&](int c) { return live ? to_f(src[c]) : 0.f; }, p.C,
+                              p.act[0], p.inv[0]);
+    for (int c = lane; c < p.C; c += 32)
+      a8[(size_t)lr * lda8 + c] = live ? quant1(to_f(src[c]), s, p.inv[0]) : (signed char)0;
+    if (lane == 0) rs[lr] = s;
+  }
+  __syncthreads();
+  // proj, this rank's columns, dequantized into acc
+  for (int n0 = c0 + warp * 8; n0 < c0 + cols; n0 += kWarps * 8) {
+    int d[4] = {0, 0, 0, 0};
+    mma_s8(d, a8, lda8, p.wproj8 + (size_t)n0 * p.C, p.C, p.C);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = g + (i >> 1) * 8, n = n0 + 2 * t + (i & 1);
+      acc[(size_t)r * lda + n] = dequant(d[i], rs[r], p.sproj[n], p.qmode);
+    }
+  }
+  if (S > 1) {  // the other ranks' columns, from their shared memory
+    cluster.sync();
+    for (int q = 1; q < S; ++q) {
+      const int src = (rank + q) % S;
+      const float* racc = cluster.map_shared_rank(acc, src);
+      for (int i = threadIdx.x; i < kRows * cols; i += kThreads) {
+        const size_t at = (size_t)(i / cols) * lda + src * cols + i % cols;
+        acc[at] = racc[at];
+      }
+    }
+    cluster.sync();
+  } else {
+    __syncthreads();
+  }
+
+  // y = x + (proj + b_proj) in f32; z = bf16(LN1(y)), then quantized in place
+  for (int lr = warp; lr < kRows; lr += kWarps) {
+    const int r = row0 + lr;
+    float* a = acc + (size_t)lr * lda;
+    bf16* zr = z + (size_t)lr * ldz;
+    if (r >= p.M) {
+      for (int c = lane; c < p.C; c += 32) {
+        a[c] = 0.f;
+        zr[c] = to_bf(0.f);
+      }
+    } else {
+      const bf16* xr = p.x + block_row(p, r, false) * p.C;
+      for (int c = lane; c < p.C; c += 32) a[c] = to_f(xr[c]) + (a[c] + to_f(p.bproj[c]));
+      float mean, rstd;
+      row_stats([&](int c) { return a[c]; }, p.C, p.eps, mean, rstd);
+      for (int c = lane; c < p.C; c += 32)
+        zr[c] = to_bf((a[c] - mean) * rstd * p.ln1_s[c] + p.ln1_b[c]);
+    }
+    __syncwarp();
+    const float s = row_scale([&](int c) { return to_f(zr[c]); }, p.C, p.act[1], p.inv[1]);
+    quantize_row_inplace(zr, p.C, s, p.inv[1]);
+    if (lane == 0) rs[kRows + lr] = s;
+  }
+  __syncthreads();
+
+  // FC1 on this rank's hidden columns: + b1, GELU in f32, bf16 into the slice
+  const signed char* z8 = reinterpret_cast<const signed char*>(z);
+  for (int j0 = warp * 8; j0 < span; j0 += kWarps * 8) {
+    int d[4] = {0, 0, 0, 0};
+    mma_s8(d, z8, 2 * ldz, p.w18 + (size_t)(h0 + j0) * p.C, p.C, p.C);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = g + (i >> 1) * 8, j = j0 + 2 * t + (i & 1), n = h0 + j;
+      hs[(size_t)r * ldh + j] =
+          to_bf(gelu_tanh(dequant(d[i], rs[kRows + r], p.s1[n], p.qmode) + to_f(p.b1[n])));
+    }
+  }
+  __syncthreads();
+
+  // the hidden rows' scales: static, or the abs-max over every rank's slice
+  float* hmax = rs + 2 * kRows;
+  float* hsc = rs + 3 * kRows;
+  if (p.inv[2] > 0.f) {
+    if (threadIdx.x < kRows) hsc[threadIdx.x] = p.act[2];
+  } else {
+    for (int lr = warp; lr < kRows; lr += kWarps) {
+      float m = 0.f;
+      for (int j = lane; j < span; j += 32) m = fmaxf(m, fabsf(to_f(hs[(size_t)lr * ldh + j])));
+      m = warp_max(m);
+      if (lane == 0) hmax[lr] = m;
+    }
+    if (S > 1) cluster.sync(); else __syncthreads();
+    if (threadIdx.x < kRows) {
+      float m = 0.f;
+      for (int q = 0; q < S; ++q)
+        m = fmaxf(m, (S > 1 ? cluster.map_shared_rank(hmax, q) : hmax)[threadIdx.x]);
+      hsc[threadIdx.x] = fmaxf(m, 1e-8f) / 127.f;
+    }
+  }
+  __syncthreads();
+  for (int lr = warp; lr < kRows; lr += kWarps)
+    quantize_row_inplace(hs + (size_t)lr * ldh, span, hsc[lr], p.inv[2]);
+  if (S > 1) cluster.sync(); else __syncthreads();  // every slice is int8 before FC2 reads it
+
+  // FC2 on this rank's output columns over the whole hidden row (rank q's
+  // slice holds hidden columns [q span, (q + 1) span)); out = bf16(y + (FC2 + b2))
+  for (int n0 = c0 + warp * 8; n0 < c0 + cols; n0 += kWarps * 8) {
+    int d[4] = {0, 0, 0, 0};
+    for (int q = 0; q < S; ++q) {
+      const bf16* hq = S > 1 ? cluster.map_shared_rank(hs, q) : hs;
+      mma_s8(d, reinterpret_cast<const signed char*>(hq), 2 * ldh,
+             p.w28 + (size_t)n0 * p.Hd + (size_t)q * span, p.Hd, span);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = g + (i >> 1) * 8, n = n0 + 2 * t + (i & 1);
+      if (row0 + r < p.M)
+        p.out[block_row(p, row0 + r, true) * p.C + n] =
+            to_bf(acc[(size_t)r * lda + n] +
+                  (dequant(d[i], hsc[r], p.s2[n], p.qmode) + to_f(p.b2[n])));
+    }
+  }
+  if (S > 1) cluster.sync();  // no rank leaves while another still reads its shared memory
+}
+
+// Blocks per row tile of the int8 epilogue: the fewest whose hidden slice
+// fits in shared memory, then more up to 8 as cluster_size grows them; each
+// rank's output columns a multiple of 8 and its slice of 32. 0: no fit.
+inline int cluster_size_q8(int row_tiles, int C, int Hd) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  auto ok = [&](int S) { return (C / 8) % S == 0 && (Hd / 32) % S == 0; };
+  int S = 1;
+  while (S <= 8 && (!ok(S) || mlp_q8_smem(C, Hd / S).total > kMaxSmem)) S *= 2;
+  if (S > 8) return 0;
+  while (S < 8 && row_tiles * 2 * S <= 4 * sms && ok(2 * S)) S *= 2;
+  return S;
+}
+
 }  // namespace
 }  // namespace mmrp
 
@@ -183,15 +380,21 @@ extern "C" {
 // with a map, out is the block's output rolled by (roll, roll). ln f32 (C);
 // w_qkv (3C, C), b_qkv (3C), w_proj (C, C), b_proj (C), w1 (Hd, C), b1 (Hd),
 // w2 (C, Hd), b2 (C) bf16; bias (nW, heads, N, N) f32; ctx (round16(B*nW*N), C)
-// bf16 scratch. out must not overlap x.
+// bf16 scratch. out must not overlap x. quant: null, or a QuantArgs
+// (common.cuh) whose w/s are the int8 qkv / proj / FC1 / FC2 weights and
+// their scales and whose act/inv are the four GEMMs' static activation
+// scales (0: per row); the bf16 weight pointers are then unused.
 int mmrp_swin_block(const void* x, const void* ln0_s, const void* ln0_b, const void* w_qkv,
                     const void* b_qkv, const void* w_proj, const void* b_proj, const void* ln1_s,
                     const void* ln1_b, const void* w1, const void* b1, const void* w2,
                     const void* b2, const void* bias, void* ctx, void* out, int B, int nW, int N,
                     int C, int heads, int Hd, int map_h, int map_w, int ws, int roll, float eps,
-                    void* stream) {
+                    const void* quant, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B < 1 || nW < 1 || heads < 1 || C % heads || C % 16 || Hd % kMlpChunk)
+  const QuantArgs* qa = static_cast<const QuantArgs*>(quant);
+  const int qmode = qa ? qa->mode : kQuantOff;
+  if (B < 1 || nW < 1 || heads < 1 || C % heads || C % 16 || Hd % kMlpChunk || qmode < 0 ||
+      qmode > kQuantStatic || (qmode && C % 32))
     return (int)cudaErrorInvalidValue;
   if (map_h && (ws < 1 || map_h % ws || map_w % ws || N != ws * ws ||
                 nW != (map_h / ws) * (map_w / ws)))
@@ -223,6 +426,19 @@ int mmrp_swin_block(const void* x, const void* ln0_s, const void* ln0_b, const v
   a.map_h = map_h;
   a.map_w = map_w;
   a.ws = ws;
+  a.qmode = qmode;
+  if (qmode) {
+    const signed char* w8 = static_cast<const signed char*>(qa->w[0]);
+    const float* s8 = static_cast<const float*>(qa->s[0]);
+    a.wq8 = w8;
+    a.wk8 = w8 + (size_t)C * C;
+    a.wv8 = w8 + (size_t)2 * C * C;
+    a.swq = s8;
+    a.swk = s8 + C;
+    a.swv = s8 + 2 * C;
+    a.act_s = qa->act[0];
+    a.act_inv = qa->inv[0];
+  }
   cudaError_t e = launch_attention(a, st);
   if (e != cudaSuccess) return (int)e;
 
@@ -251,12 +467,32 @@ int mmrp_swin_block(const void* x, const void* ln0_s, const void* ln0_b, const v
     p.roll_w = ((roll % map_w) + map_w) % map_w;
   }
   p.eps = eps;
-  const size_t smem = mlp_smem(C).total;
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  e = allow_smem(block_mlp_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
+  p.qmode = qmode;
   const int row_tiles = (p.M + kRows - 1) / kRows;
-  const int S = cluster_size(row_tiles, C, Hd);
+  int S;
+  size_t smem;
+  if (qmode) {
+    p.wproj8 = static_cast<const signed char*>(qa->w[1]);
+    p.w18 = static_cast<const signed char*>(qa->w[2]);
+    p.w28 = static_cast<const signed char*>(qa->w[3]);
+    p.sproj = static_cast<const float*>(qa->s[1]);
+    p.s1 = static_cast<const float*>(qa->s[2]);
+    p.s2 = static_cast<const float*>(qa->s[3]);
+    for (int i = 0; i < 3; ++i) {
+      p.act[i] = qa->act[i + 1];
+      p.inv[i] = qa->inv[i + 1];
+    }
+    S = cluster_size_q8(row_tiles, C, Hd);
+    if (!S) return (int)cudaErrorInvalidValue;
+    smem = mlp_q8_smem(C, Hd / S).total;
+    e = allow_smem(block_mlp_q8_kernel, smem);
+  } else {
+    smem = mlp_smem(C).total;
+    if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+    S = cluster_size(row_tiles, C, Hd);
+    e = allow_smem(block_mlp_kernel, smem);
+  }
+  if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(row_tiles * S);
   cfg.blockDim = dim3(kThreads);
@@ -269,7 +505,8 @@ int mmrp_swin_block(const void* x, const void* ln0_s, const void* ln0_b, const v
   cluster.val.clusterDim.z = 1;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, block_mlp_kernel, p);
+  e = qmode ? cudaLaunchKernelEx(&cfg, block_mlp_q8_kernel, p)
+            : cudaLaunchKernelEx(&cfg, block_mlp_kernel, p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -17,7 +17,9 @@ pads, which leaves the real rows unchanged.
 
 Training (``forward_train``) takes the JAX XLA branches (``fusion.py:130-163,
 216-241``): plain GEMMs, f32 scores and softmax, dropout on the attention
-probabilities.
+probabilities. ``quant=True`` serves through the same branches with every
+GEMM in W8A8 (``quant_dot_multi`` for q/k/v, ``quant_dot`` for the output;
+``ops/quant.py``) and no kernel, as the JAX modules do at ``quant=True``.
 """
 
 from __future__ import annotations
@@ -28,28 +30,51 @@ import torch
 from torch import nn
 
 from mmrp_tpu_torch.models.layers import LayerNorm, MhaParams, ln_f32
-from mmrp_tpu_torch.models.text_encoder import additive_key_mask, mha_train
+from mmrp_tpu_torch.models.text_encoder import (
+    additive_key_mask,
+    mha_train,
+    qlinear,
+    qlinear_multi,
+)
 from mmrp_tpu_torch.ops.fused_attention import fused_attention
+from mmrp_tpu_torch.ops.quant import attach_int8
+
+
+def plain_lins(x, lins):
+    """The XLA branch's GEMMs in the module dtype (``qlinear_multi``: W8A8)."""
+    return [lin(x) for lin in lins]
+
+
+def attach_int8_all(lins) -> None:
+    """Int8 caches for linears the XLA branch runs through ``quant_dot``,
+    which quantizes the f32 parameters."""
+    for lin in lins:
+        attach_int8(lin, from_master=True)
 
 
 class CrossAttention(nn.Module):
     """MHA with queries from ``q_in`` and keys/values from ``kv_in``."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32, device=None,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, quant: bool = False):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.num_heads = num_heads
         self.dropout = dropout
+        self.quant = quant
         self.q = nn.Linear(dim, dim, **kw)
         self.k = nn.Linear(dim, dim, **kw)
         self.v = nn.Linear(dim, dim, **kw)
         self.out = nn.Linear(dim, dim, **kw)
+        if quant:
+            attach_int8_all((self.q, self.k, self.v, self.out))
 
     def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor,
                 kv_mask: Optional[torch.Tensor] = None,
                 post_ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
         """``post_ln`` (scale, bias): return LayerNorm(q_in + attn_out)."""
+        if self.quant:
+            return self._xla(q_in, kv_in, kv_mask, post_ln, qlinear_multi, 0.0, None)
         ln_s, ln_b = post_ln if post_ln is not None else (None, None)
         return fused_attention(
             q_in, ln_s, ln_b, self.q.weight, self.q.bias, self.k.weight, self.k.bias,
@@ -61,10 +86,18 @@ class CrossAttention(nn.Module):
     def forward_train(self, q_in: torch.Tensor, kv_in: torch.Tensor,
                       kv_mask: Optional[torch.Tensor], post_ln: Tuple[torch.Tensor, torch.Tensor],
                       generator: torch.Generator) -> torch.Tensor:
-        ctx = mha_train(self.q(q_in), self.k(kv_in), self.v(kv_in), self.num_heads,
-                        None if kv_mask is None else additive_key_mask(kv_mask),
-                        self.dropout, generator)
-        return ln_f32(q_in + self.out(ctx), *post_ln, q_in.dtype, affine_in_f32=True)
+        return self._xla(q_in, kv_in, kv_mask, post_ln, plain_lins, self.dropout, generator)
+
+    def _xla(self, q_in, kv_in, kv_mask, post_ln, lins, rate, generator):
+        """The JAX XLA branch with ``lins`` (plain or W8A8) as its GEMMs."""
+        (q,) = lins(q_in, (self.q,))
+        k, v = lins(kv_in, (self.k, self.v))
+        ctx = mha_train(q, k, v, self.num_heads,
+                        None if kv_mask is None else additive_key_mask(kv_mask), rate, generator)
+        (out,) = lins(ctx, (self.out,))
+        if post_ln is None:
+            return out
+        return ln_f32(q_in + out, *post_ln, q_in.dtype, affine_in_f32=True)
 
 
 class PreFusionEnhancer(nn.Module):
@@ -72,15 +105,18 @@ class PreFusionEnhancer(nn.Module):
     alpha-scaled residual: out = x + alpha * MHA(LN(x + pos))."""
 
     def __init__(self, dim: int, num_heads: int, max_len: int, dtype=torch.float32,
-                 device=None, dropout: float = 0.0):
+                 device=None, dropout: float = 0.0, quant: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.max_len = max_len
         self.dropout = dropout
+        self.quant = quant
         self.pos_embed = nn.Parameter(torch.zeros(1, max_len, dim, dtype=dtype, device=device))
         self.alpha = nn.Parameter(torch.zeros((), dtype=torch.float32, device=device))
         self.LayerNorm_0 = LayerNorm(dim, dtype, device)
         self.attention = MhaParams(dim, dtype, device)
+        if quant:
+            attach_int8_all(self.attention.linears())
 
     def _pos(self, N: int) -> torch.Tensor:
         if N > self.max_len:
@@ -90,15 +126,22 @@ class PreFusionEnhancer(nn.Module):
 
     def forward_train(self, x: torch.Tensor, mask: Optional[torch.Tensor],
                       generator: torch.Generator) -> torch.Tensor:
+        return self._xla(x, mask, plain_lins, self.dropout, generator)
+
+    def _xla(self, x, mask, lins, rate, generator):
+        """The JAX XLA branch with ``lins`` (plain or W8A8) as its GEMMs."""
         y = ln_f32(x + self._pos(x.shape[1])[None].to(x.dtype), self.LayerNorm_0.weight,
                    self.LayerNorm_0.bias, x.dtype)
         a = self.attention
-        ctx = mha_train(a.query(y), a.key(y), a.value(y), self.num_heads,
-                        None if mask is None else additive_key_mask(mask), self.dropout,
-                        generator)
-        return x + self.alpha.to(x.dtype) * a.out(ctx)
+        q, k, v = lins(y, (a.query, a.key, a.value))
+        ctx = mha_train(q, k, v, self.num_heads,
+                        None if mask is None else additive_key_mask(mask), rate, generator)
+        (out,) = lins(ctx, (a.out,))
+        return x + self.alpha.to(x.dtype) * out
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.quant:
+            return self._xla(x, mask, qlinear_multi, 0.0, None)
         N = x.shape[1]
         pos = self._pos(N)
         return fused_attention(
@@ -113,14 +156,15 @@ class CrossModalFusion(nn.Module):
     and text mask (B, Lt) -> fused sequence [cls, patches, txt] (B, Np+2, D)."""
 
     def __init__(self, dim: int, num_heads: int, num_patches: int, max_text_len: int,
-                 dtype=torch.float32, device=None, dropout: float = 0.0):
+                 dtype=torch.float32, device=None, dropout: float = 0.0, quant: bool = False):
         super().__init__()
-        self.txt_enh = PreFusionEnhancer(dim, num_heads, max_text_len, dtype, device, dropout)
-        self.img_enh = PreFusionEnhancer(dim, num_heads, num_patches, dtype, device, dropout)
+        args = (dtype, device, dropout, quant)
+        self.txt_enh = PreFusionEnhancer(dim, num_heads, max_text_len, *args)
+        self.img_enh = PreFusionEnhancer(dim, num_heads, num_patches, *args)
         self.txt_norm = LayerNorm(dim, dtype, device)
         self.img_norm = LayerNorm(dim, dtype, device)
-        self.txt2img = CrossAttention(dim, num_heads, dtype, device, dropout)
-        self.img2txt = CrossAttention(dim, num_heads, dtype, device, dropout)
+        self.txt2img = CrossAttention(dim, num_heads, *args)
+        self.img2txt = CrossAttention(dim, num_heads, *args)
         self.cls_proj = nn.Linear(2 * dim, dim, dtype=dtype, device=device)
 
     def forward(self, img_patches: torch.Tensor, img_global: torch.Tensor,

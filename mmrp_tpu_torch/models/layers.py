@@ -77,10 +77,18 @@ class MhaParams(nn.Module):
         self.value = nn.Linear(dim, dim, **kw)
         self.out = nn.Linear(dim, dim, **kw)
 
-    def weights(self):
-        """(wq, bq, wk, bk, wv, bv, wo, bo) in the order the kernels take."""
-        return (self.query.weight, self.query.bias, self.key.weight, self.key.bias,
-                self.value.weight, self.value.bias, self.out.weight, self.out.bias)
+    def linears(self):
+        return (self.query, self.key, self.value, self.out)
+
+    def weights(self, int8: bool = False):
+        """(wq, bq, wk, bk, wv, bv, wo, bo) in the order the kernels take;
+        with ``int8`` the weights are the int8 caches (``ops/quant.py``)."""
+        return tuple(t for lin in self.linears()
+                     for t in (lin.weight_q if int8 else lin.weight, lin.bias))
+
+    def scales(self):
+        """The int8 caches' per-output-channel scales, q/k/v/out."""
+        return tuple(lin.weight_scale for lin in self.linears())
 
 
 class MlpParams(nn.Module):

@@ -11,6 +11,11 @@ JAX model, each fusion layer re-attends the same backbone features.
 ``forward(..., deterministic=False, generator=g)`` is the training route:
 every tower takes its JAX XLA branch with dropout and DropPath drawn from
 ``g`` (``multimodal.py:256, 299-341, 478, 495``), and no serving kernel runs.
+
+``MultiModalConfig.quant="int8"`` serves the fusion stack through the same
+XLA branch with every GEMM in W8A8 (``ops/quant.py``) and no kernel, as the
+JAX model does (``multimodal.py:231-241, 299-341``). ``from_config`` maps a
+``Config``'s ``serve_quant`` onto all three towers (``multimodal.py:66-131``).
 """
 
 from __future__ import annotations
@@ -21,8 +26,9 @@ from typing import Dict
 import torch
 from torch import nn
 
+from mmrp_tpu_torch.config import Config
 from mmrp_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from mmrp_tpu_torch.models.fusion import CrossModalFusion
+from mmrp_tpu_torch.models.fusion import CrossModalFusion, attach_int8_all, plain_lins
 from mmrp_tpu_torch.models.layers import (
     DropPath,
     LayerNorm,
@@ -34,7 +40,7 @@ from mmrp_tpu_torch.models.layers import (
     sinusoidal_positions,
 )
 from mmrp_tpu_torch.models.swin import SwinConfig, SwinEncoder
-from mmrp_tpu_torch.models.text_encoder import TextConfig, TextEncoder, mha_train
+from mmrp_tpu_torch.models.text_encoder import TextConfig, TextEncoder, mha_train, qlinear_multi
 from mmrp_tpu_torch.ops.fused_attention import fused_attention
 from mmrp_tpu_torch.ops.fused_mlp import fused_ln_mlp_residual
 
@@ -54,11 +60,43 @@ class MultiModalConfig:
     dropout: float = 0.1  # training only
     drop_path: float = 0.1  # training only: fusion layer i gets drop_path * i / (L - 1)
     max_text_len: int = 512
+    quant: str = "none"  # "int8": W8A8 GEMMs in the fusion stack (serving)
 
     @staticmethod
     def flagship(**kw) -> "MultiModalConfig":
         """Swin-B at 224 px + ClinicalBERT dims + 5 fusion layers at 1024."""
         return MultiModalConfig(swin=SwinConfig.base(), text=TextConfig.clinicalbert(), **kw)
+
+    @staticmethod
+    def from_config(cfg: Config, num_classes: int = 43,
+                    flagship: bool = False) -> "MultiModalConfig":
+        """The serving precision of the JAX ``MultiModalConfig.from_config``
+        on the flagship (``flagship=True``: Swin-B + ClinicalBERT dims) or the
+        micro preset (a one-stage Swin and a one-layer text tower).
+        ``serve_quant`` "int8" and "int8_static" run the text tower as
+        "int8_kernel" and the fusion stack as "int8"; "int8_static" also runs
+        the Swin whole-block stages in static int8, with ``act_amax`` from
+        ``swin_act_amax_path`` when one is given (else per-row activation
+        scales)."""
+        from mmrp_tpu_torch.models.quant_calib import load_act_amax
+
+        sq = cfg.serve_quant
+        if sq not in ("none", "int8", "int8_static"):
+            raise ValueError(f"serve_quant must be none, int8 or int8_static, got {sq!r}")
+        swin_kw = {}
+        if sq == "int8_static":
+            swin_kw["quant"] = "int8_static"
+            if cfg.swin_act_amax_path:
+                swin_kw["act_amax"] = load_act_amax(cfg.swin_act_amax_path)
+        tq = "int8_kernel" if sq != "none" else "none"
+        if flagship:
+            swin, text = SwinConfig.base(**swin_kw), TextConfig.clinicalbert(quant=tq)
+        else:
+            swin = SwinConfig.micro(**swin_kw)
+            text = TextConfig.small(hidden_dim=32, num_layers=1, num_heads=2,
+                                    intermediate_dim=64, quant=tq)
+        return MultiModalConfig(swin=swin, text=text, num_classes=num_classes,
+                                quant="int8" if sq != "none" else "none")
 
 
 class Backbones(nn.Module):
@@ -92,17 +130,21 @@ class Backbones(nn.Module):
 class FusionLayer(nn.Module):
     """Cross-modal fusion -> pos + LN + self-attention + residual (K3) ->
     LN + FFN + residual (K2) -> adapter -> LN; returns the mean over the
-    sequence."""
+    sequence. At ``quant="int8"`` the JAX XLA branch with W8A8 GEMMs."""
 
     def __init__(self, config: MultiModalConfig, num_patches: int, dtype=torch.float32,
                  device=None, drop_path: float = 0.0):
         super().__init__()
+        if config.quant not in ("none", "int8"):
+            raise ValueError(f"MultiModalConfig.quant must be none or int8, got {config.quant!r}")
         D = config.joint_dim
         self.num_heads = config.num_heads
         self.dropout = config.dropout
+        self.quant = config.quant == "int8"
         self.drop_path = DropPath(drop_path)
         self.fusion = CrossModalFusion(D, config.num_heads, num_patches,
-                                       config.max_text_len, dtype, device, config.dropout)
+                                       config.max_text_len, dtype, device, config.dropout,
+                                       self.quant)
         self.LayerNorm_0 = LayerNorm(D, dtype, device)
         self.attention = MhaParams(D, dtype, device)
         self.LayerNorm_1 = LayerNorm(D, dtype, device)
@@ -113,9 +155,13 @@ class FusionLayer(nn.Module):
         # sequence = [cls, patches, pooled text]
         sin = torch.from_numpy(sinusoidal_positions(num_patches + 2, D))
         self.register_buffer("sin_pos", sin.to(device=device, dtype=dtype), persistent=False)
+        if self.quant:
+            attach_int8_all((*self.attention.linears(), self.ffn.Dense_0, self.ffn.Dense_1))
 
     def forward(self, img_patches, img_global, txt_tokens, txt_mask) -> torch.Tensor:
         seq = self.fusion(img_patches, img_global, txt_tokens, txt_mask)
+        if self.quant:
+            return self._xla(seq, qlinear_multi, None)
         B, L, D = seq.shape
         seq = fused_attention(seq, self.LayerNorm_0.weight, self.LayerNorm_0.bias,
                               *self.attention.weights(), pos=self.sin_pos[:L],
@@ -129,20 +175,28 @@ class FusionLayer(nn.Module):
     def forward_train(self, img_patches, img_global, txt_tokens, txt_mask,
                       generator: torch.Generator) -> torch.Tensor:
         """The JAX XLA branch (``multimodal.py:256, 299-341``) with autograd."""
-        rate = self.dropout
         seq = self.fusion.forward_train(img_patches, img_global, txt_tokens, txt_mask,
                                         generator)
-        seq = dropout(seq, rate, generator)
+        return self._xla(dropout(seq, self.dropout, generator), plain_lins, generator)
+
+    def _xla(self, seq, lins, generator):
+        """The JAX XLA branch after the fusion with ``lins`` (plain or W8A8) as
+        its GEMMs; dropout and drop path drawn from ``generator``, or none."""
+        rate = self.dropout if generator is not None else 0.0
+
+        def branch(y):
+            return self.drop_path(y, generator) if generator is not None else y
+
         seq = seq + self.sin_pos[: seq.shape[1]][None]
         y = ln_f32(seq, self.LayerNorm_0.weight, self.LayerNorm_0.bias, seq.dtype)
         a = self.attention
-        ctx = mha_train(a.query(y), a.key(y), a.value(y), self.num_heads, None, rate,
-                        generator)
-        seq = seq + self.drop_path(a.out(ctx), generator)
+        q, k, v = lins(y, (a.query, a.key, a.value))
+        ctx = mha_train(q, k, v, self.num_heads, None, rate, generator)
+        seq = seq + branch(lins(ctx, (a.out,))[0])
         y = ln_f32(seq, self.LayerNorm_1.weight, self.LayerNorm_1.bias, seq.dtype)
-        y = dropout(gelu(self.ffn.Dense_0(y)), rate, generator)
-        y = dropout(self.ffn.Dense_1(y), rate, generator)
-        return self._adapter_pool(seq + self.drop_path(y, generator))
+        y = dropout(gelu(lins(y, (self.ffn.Dense_0,))[0]), rate, generator)
+        y = dropout(lins(y, (self.ffn.Dense_1,))[0], rate, generator)
+        return self._adapter_pool(seq + branch(y))
 
     def _adapter_pool(self, seq: torch.Tensor) -> torch.Tensor:
         a = self.adapter_up(gelu(self.adapter_down(seq)))

@@ -1,8 +1,8 @@
 """Swin Transformer vision encoder on the fused-kernel routes of the JAX model.
 
-Counterpart of ``mmrp_tpu/models/swin.py`` with ``quant="none"``. Each stage
-takes the route the JAX ``SwinEncoder`` takes with its default environment
-(:func:`swin_plan`, the conditions of ``swin.py:503-510, 718-765, 791-826``):
+Counterpart of ``mmrp_tpu/models/swin.py``. Each stage takes the route the
+JAX ``SwinEncoder`` takes with its default environment (:func:`swin_plan`,
+the conditions of ``swin.py:503-510, 718-765, 791-826``):
 
 - ``k1k2``: every block's attention half is the fused window-attention kernel
   (K1, ``ops/fused_window_attention.py``) between a roll + partition and a
@@ -17,6 +17,14 @@ takes the route the JAX ``SwinEncoder`` takes with its default environment
 - ``windows``: the whole-block kernel on the partitioned windows
   (``ops/fused_swin_block.py``) — Swin-B stage 4, where the chain's VMEM gate
   fails and the partition of a single window is a view.
+
+``SwinConfig.quant`` picks the serving precision of the whole-block routes:
+``"int8_static"`` runs pair, chain and windows in static W8A8 (int8 weights
+kept per block, ``act_amax`` the calibrated per-block activation abs-max of
+``models/quant_calib.py``, or None for per-row activation scales), with the
+pair and chain gates sized for 1-byte weights; ``"int8"`` turns pair and
+chain off and runs every whole-block stage on the windows kernel in dynamic
+W8A8. K1 + K2 stages stay bf16 under both, as in JAX.
 
 Training (``forward(x, deterministic=False, generator=...)``) takes the JAX
 XLA branch of every block whatever the plan says (``swin.py:289-401,
@@ -35,7 +43,7 @@ PatchMerging concatenating in ``reshape(B, H/2, 2, W/2, 2, C).transpose(0, 1,
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +64,7 @@ from mmrp_tpu_torch.ops.fused_window_attention import (
     build_bias_full,
     fused_window_attention_windows,
 )
+from mmrp_tpu_torch.ops.quant import attach_int8
 from mmrp_tpu_torch.ops.wattn_core import window_attention_core
 from mmrp_tpu_torch.ops.window_attention import (
     build_rel_bias,
@@ -91,6 +100,11 @@ class SwinConfig:
     pair: bool = True
     pair_max_c: int = 256
     chain: bool = True
+    # serving precision: "none" | "int8" (dynamic W8A8) | "int8_static"; and for
+    # "int8_static" the calibrated (qkv_in, proj_in, mlp1_in, mlp2_in) abs-max
+    # of every block in global order, or None for per-row activation scales
+    quant: str = "none"
+    act_amax: Optional[Tuple[Tuple[float, float, float, float], ...]] = None
 
     @property
     def num_features(self) -> int:
@@ -126,11 +140,13 @@ class SwinConfig:
 class Step(NamedTuple):
     """One call of a stage's route: ``route`` on block ``block`` (and, for a
     pair, ``block + 1``); ``roll_after`` is a chain step's roll into the next
-    block's frame."""
+    block's frame; ``quant`` the kernel's W8A8 form: False, True (dynamic)
+    or "static"."""
 
     route: str  # "k1k2" | "pair" | "chain" | "windows"
     block: int
     roll_after: int = 0
+    quant: object = False
 
 
 def stage_geometry(cfg: SwinConfig) -> List[Tuple[int, int, int]]:
@@ -152,29 +168,41 @@ def block_shift(blk: int, res: int, ws: int) -> int:
     return ws // 2 if blk % 2 and res > ws else 0
 
 
+QUANTS = ("none", "int8", "int8_static")
+
+
 def swin_plan(cfg: SwinConfig) -> List[List[Step]]:
     """The steps of every stage, with the JAX ``SwinEncoder``'s conditions
     (``swin.py:503-510, 718-765, 791-826``; the serving route: deterministic,
-    Pallas on, ``quant="none"``)."""
+    Pallas on): dynamic int8 turns pair and chain off, static int8 sizes
+    their VMEM gates for 1-byte weights."""
+    if cfg.quant not in QUANTS:
+        raise ValueError(f"SwinConfig.quant must be one of {QUANTS}, got {cfg.quant!r}")
+    wbytes = 1 if cfg.quant == "int8_static" else 2
+    flavor = {"none": False, "int8": True, "int8_static": "static"}[cfg.quant]
     plan = []
     for stage, (dim, res, ws) in enumerate(stage_geometry(cfg)):
         depth, heads = cfg.depths[stage], cfg.num_heads[stage]
         whole = cfg.whole_block and dim >= cfg.whole_min_c
-        use_pair = (cfg.pair and whole and dim <= cfg.pair_max_c and res > ws
-                    and pair_vmem_ok(dim, res, res, heads, ws, cfg.mlp_ratio))
-        use_chain = cfg.chain and whole and chain_vmem_ok(dim, res, res, heads, ws,
-                                                          cfg.mlp_ratio)
+        fused = whole and cfg.quant != "int8"
+        use_pair = (cfg.pair and fused and dim <= cfg.pair_max_c and res > ws
+                    and pair_vmem_ok(dim, res, res, heads, ws, cfg.mlp_ratio,
+                                     weight_bytes=wbytes))
+        use_chain = cfg.chain and fused and chain_vmem_ok(dim, res, res, heads, ws,
+                                                          cfg.mlp_ratio, weight_bytes=wbytes)
         steps, blk = [], 0
         while blk < depth:
             if use_pair and blk % 2 == 0 and blk + 1 < depth:
-                steps.append(Step("pair", blk))
+                steps.append(Step("pair", blk, quant=flavor))
                 blk += 2
                 continue
             if use_chain:
                 nxt = block_shift(blk + 1, res, ws) if blk + 1 < depth else 0
-                steps.append(Step("chain", blk, block_shift(blk, res, ws) - nxt))
+                steps.append(Step("chain", blk, block_shift(blk, res, ws) - nxt, flavor))
+            elif whole:
+                steps.append(Step("windows", blk, quant=flavor))
             else:
-                steps.append(Step("windows" if whole else "k1k2", blk))
+                steps.append(Step("k1k2", blk))
             blk += 1
         plan.append(steps)
     return plan
@@ -260,6 +288,19 @@ class SwinBlock(nn.Module):
                                     dtype, device)
         self.LayerNorm_1 = LayerNorm(dim, dtype, device)
         self.mlp = MlpParams(int(dim * mlp_ratio), dim, dtype, device)
+        # static W8A8: f32(sa) per GEMM (qkv, proj, FC1, FC2), None = per-row
+        self.act_scales = None
+
+    def gemm_linears(self):
+        return (self.attn.qkv, self.attn.proj, self.mlp.Dense_0, self.mlp.Dense_1)
+
+    def attach_int8(self, from_master: bool) -> None:
+        """Int8 caches of the four GEMM weights (``ops/quant.py``): the
+        counterpart of the JAX ``_static_qweights`` / ``build_quant_cache``
+        (``from_master``: quantized from f32 parameters), or of the dynamic
+        kernel's quantization of the weights it is given."""
+        for lin in self.gemm_linears():
+            attach_int8(lin, from_master)
 
     def forward_train(self, x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
         """The JAX XLA branch with autograd (``swin.py:289-401, 584-646``)."""
@@ -289,20 +330,34 @@ class SwinBlock(nn.Module):
         y = dropout(self.mlp.Dense_1(y), self.dropout, generator)
         return x + self.drop_path(y, generator)
 
-    def kernel_args(self) -> Tuple[torch.Tensor, ...]:
-        """The 12 weight tensors of the whole-block kernels, in JAX order."""
-        return (self.LayerNorm_0.weight, self.LayerNorm_0.bias,
-                self.attn.qkv.weight, self.attn.qkv.bias,
-                self.attn.proj.weight, self.attn.proj.bias,
-                self.LayerNorm_1.weight, self.LayerNorm_1.bias, *self.mlp.weights())
+    def kernel_args(self, quant=False) -> Tuple[torch.Tensor, ...]:
+        """The 12 weight tensors of the whole-block kernels, in JAX order;
+        with ``quant`` the GEMM weights are the int8 caches."""
+        q, p, d0, d1 = self.gemm_linears()
+        if quant:
+            return (self.LayerNorm_0.weight, self.LayerNorm_0.bias, q.weight_q, q.bias,
+                    p.weight_q, p.bias, self.LayerNorm_1.weight, self.LayerNorm_1.bias,
+                    d0.weight_q, d0.bias, d1.weight_q, d1.bias)
+        return (self.LayerNorm_0.weight, self.LayerNorm_0.bias, q.weight, q.bias,
+                p.weight, p.bias, self.LayerNorm_1.weight, self.LayerNorm_1.bias,
+                d0.weight, d0.bias, d1.weight, d1.bias)
 
-    def forward_windows(self, x: torch.Tensor) -> torch.Tensor:  # (B, H, W, C)
+    def quant_kwargs(self, quant) -> dict:
+        """``wscales`` (and for "static" ``act_scales``) of the W8A8 flavor."""
+        if not quant:
+            return {}
+        kw = {"wscales": tuple(lin.weight_scale for lin in self.gemm_linears())}
+        if quant == "static":
+            kw["act_scales"] = self.act_scales
+        return kw
+
+    def forward_windows(self, x: torch.Tensor, quant=False) -> torch.Tensor:  # (B, H, W, C)
         _, H, W, _ = x.shape
         ws, s = self.attn.window_size, self.attn.shift
         xs = torch.roll(x, shifts=(-s, -s), dims=(1, 2)) if s else x
         ow = fused_swin_block_windows(window_partition(xs, ws).contiguous(),
-                                      *self.kernel_args(), self.attn.bias_full,
-                                      self.num_heads)
+                                      *self.kernel_args(quant), self.attn.bias_full,
+                                      self.num_heads, quant=quant, **self.quant_kwargs(quant))
         out = window_reverse(ow, ws, H, W)
         return torch.roll(out, shifts=(s, s), dims=(1, 2)) if s else out
 
@@ -355,6 +410,11 @@ class SwinEncoder(nn.Module):
         super().__init__()
         device = resolve_device(device, "SwinEncoder")
         cfg = config
+        total = sum(cfg.depths)
+        if cfg.act_amax is not None and len(cfg.act_amax) != total:
+            raise ValueError(
+                f"act_amax has {len(cfg.act_amax)} entries, model has {total} blocks — "
+                "recalibrate (models/quant_calib.py) for this architecture")
         self.config = cfg
         self.plan = swin_plan(cfg)
         self.patch_embed = PatchEmbed(cfg.embed_dim, cfg.patch_size, cfg.in_chans, dtype,
@@ -371,6 +431,18 @@ class SwinEncoder(nn.Module):
             if stage < len(geometry) - 1:
                 self.add_module(f"merge{stage}", PatchMerging(dim, dtype, device))
         self.norm = LayerNorm(cfg.num_features, dtype, device)
+        # the int8 weights of the blocks a W8A8 step runs (static: quantized
+        # from the f32 parameters, as the JAX cache is), and the calibrated
+        # activation scales sa = amax / 127 in global block order
+        blocks = [self._modules[f"stage{s}_block{b}"]
+                  for s, depth in enumerate(cfg.depths) for b in range(depth)]
+        for i, blk in enumerate(blocks):
+            if cfg.act_amax is not None:
+                blk.act_scales = tuple(float(a) / 127.0 for a in cfg.act_amax[i])
+        for stage, steps in enumerate(self.plan):
+            for step in (st for st in steps if st.quant):
+                for b in range(step.block, step.block + (2 if step.route == "pair" else 1)):
+                    self._modules[f"stage{stage}_block{b}"].attach_int8(step.quant == "static")
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: torch.Generator = None) -> Dict[str, torch.Tensor]:
@@ -390,18 +462,23 @@ class SwinEncoder(nn.Module):
             for step in steps:
                 blk = self._modules[f"stage{stage}_block{step.block}"]
                 ws = blk.attn.window_size
+                q = step.quant
                 if step.route == "k1k2":
                     x = blk(x)
                 elif step.route == "windows":
-                    x = blk.forward_windows(x)
+                    x = blk.forward_windows(x, q)
                 elif step.route == "chain":
-                    x = fused_swin_block_chain(x, blk.kernel_args(), blk.attn.bias_full,
-                                               blk.num_heads, ws, step.roll_after)
+                    x = fused_swin_block_chain(x, blk.kernel_args(q), blk.attn.bias_full,
+                                               blk.num_heads, ws, step.roll_after, quant=q,
+                                               **blk.quant_kwargs(q))
                 else:
                     nxt = self._modules[f"stage{stage}_block{step.block + 1}"]
-                    x = fused_swin_block_pair(x, blk.kernel_args(), blk.attn.bias_full,
-                                              nxt.kernel_args(), nxt.attn.bias_full,
-                                              blk.num_heads, ws, nxt.attn.shift)
+                    kw0, kw1 = blk.quant_kwargs(q), nxt.quant_kwargs(q)
+                    x = fused_swin_block_pair(
+                        x, blk.kernel_args(q), blk.attn.bias_full, nxt.kernel_args(q),
+                        nxt.attn.bias_full, blk.num_heads, ws, nxt.attn.shift, quant=q,
+                        wscales0=kw0.get("wscales"), wscales1=kw1.get("wscales"),
+                        act_scales0=kw0.get("act_scales"), act_scales1=kw1.get("act_scales"))
             if f"merge{stage}" in self._modules:
                 x = self._modules[f"merge{stage}"](x)
         return self._pool(x)

@@ -7,6 +7,12 @@ whose FFN is plain GEMMs, as on the JAX serving route. Training
 (``deterministic=False``) takes the JAX XLA branch with dropout
 (``text_encoder.py:149-178, 210-214``): plain q/k/v GEMMs, f32 scores and
 softmax, dropout on the probabilities, after the output GEMM and after the FFN.
+
+``TextConfig.quant`` sets the serving precision, with the JAX meanings
+(``text_encoder.py:37-41, 115-178, 205-209``): "int8" runs every GEMM in
+W8A8 on the XLA branch (``ops/quant.py``); "int8_ffn" keeps the bf16 K3 and
+runs the FFN in W8A8; "int8_kernel" runs K3 with its in-kernel W8A8
+projections and the FFN in W8A8. Training stays full precision.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from torch import nn
 from mmrp_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mmrp_tpu_torch.models.layers import LayerNorm, MhaParams, dropout, gelu, ln_f32
 from mmrp_tpu_torch.ops.fused_attention import fused_attention
+from mmrp_tpu_torch.ops.quant import attach_int8, quant_dot, quant_dot_multi
 
 
 @dataclass(frozen=True)
@@ -32,6 +39,7 @@ class TextConfig:
     max_positions: int = 512
     dropout: float = 0.1  # training only
     type_vocab_size: int = 2
+    quant: str = "none"  # serving: none | int8 | int8_ffn | int8_kernel (module docstring)
 
     @staticmethod
     def clinicalbert(**kw) -> "TextConfig":
@@ -43,6 +51,20 @@ class TextConfig:
                         intermediate_dim=1024, max_positions=512)
         defaults.update(kw)
         return TextConfig(**defaults)
+
+
+QUANTS = ("none", "int8", "int8_ffn", "int8_kernel")
+
+
+def qlinear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """``lin`` as a W8A8 GEMM on its int8 cache (``ops/quant.quant_dot``)."""
+    return quant_dot(x, lin.weight_q, lin.bias, wscale=lin.weight_scale)
+
+
+def qlinear_multi(x: torch.Tensor, lins) -> list:
+    """Several cached linears on one activation tensor, quantized once."""
+    return quant_dot_multi(x, [(lin.weight_q, lin.bias) for lin in lins],
+                           wscales=[lin.weight_scale for lin in lins])
 
 
 def additive_key_mask(mask: torch.Tensor) -> torch.Tensor:
@@ -84,24 +106,48 @@ class BertEmbeddings(nn.Module):
 
 
 class BertLayer(nn.Module):
-    """LN(x + attn(x)) through K3, then LN(x + FFN(x))."""
+    """LN(x + attn(x)) through K3, then LN(x + FFN(x)); ``config.quant``
+    picks the W8A8 GEMMs (module docstring)."""
 
     def __init__(self, config: TextConfig, dtype=torch.float32, device=None):
         super().__init__()
+        if config.quant not in QUANTS:
+            raise ValueError(f"TextConfig.quant must be one of {QUANTS}, got {config.quant!r}")
         D = config.hidden_dim
         self.num_heads = config.num_heads
+        self.quant = config.quant
         self.attention = MhaParams(D, dtype, device)
         self.attn_norm = LayerNorm(D, dtype, device)
         self.ffn_in = nn.Linear(D, config.intermediate_dim, dtype=dtype, device=device)
         self.ffn_out = nn.Linear(config.intermediate_dim, D, dtype=dtype, device=device)
         self.ffn_norm = LayerNorm(D, dtype, device)
+        # int8 caches: the XLA branch's quant_dot quantizes the f32 parameters
+        # (from_master); K3's in-kernel _qdot the weights it is given
+        if config.quant != "none":
+            for lin in (self.ffn_in, self.ffn_out):
+                attach_int8(lin, from_master=True)
+        if config.quant in ("int8", "int8_kernel"):
+            for lin in self.attention.linears():
+                attach_int8(lin, from_master=config.quant == "int8")
 
     def forward(self, x: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
         """x: (B, L, D); key_mask: (B, L) additive f32 (0 valid / -1e9 pad)."""
-        x = fused_attention(x, self.attn_norm.weight, self.attn_norm.bias,
-                            *self.attention.weights(), key_mask=key_mask,
-                            num_heads=self.num_heads, ln_mode="post")
-        y = self.ffn_out(gelu(self.ffn_in(x)))
+        if self.quant == "int8":
+            a = self.attention
+            q, k, v = qlinear_multi(x, (a.query, a.key, a.value))
+            ctx = mha_train(q, k, v, self.num_heads, key_mask, 0.0, None)
+            x = ln_f32(x + qlinear(ctx, a.out), self.attn_norm.weight, self.attn_norm.bias,
+                       x.dtype)
+        else:
+            q8 = self.quant == "int8_kernel"
+            x = fused_attention(x, self.attn_norm.weight, self.attn_norm.bias,
+                                *self.attention.weights(q8), key_mask=key_mask,
+                                num_heads=self.num_heads, ln_mode="post", quant=q8,
+                                wscales=self.attention.scales() if q8 else None)
+        if self.quant == "none":
+            y = self.ffn_out(gelu(self.ffn_in(x)))
+        else:
+            y = qlinear(gelu(qlinear(x, self.ffn_in)), self.ffn_out)
         return ln_f32(x + y, self.ffn_norm.weight, self.ffn_norm.bias, x.dtype)
 
     def forward_train(self, x: torch.Tensor, key_mask: torch.Tensor, rate: float,

@@ -40,8 +40,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "mmrp_window_attention": [_P] * 10 + [_I] * 6 + [_F, _P],
     "mmrp_ln_mlp": [_P] * 8 + [_I] * 5 + [_F, _P],
-    "mmrp_seq_attention": [_P] * 17 + [_I] * 8 + [_F, _P],
-    "mmrp_swin_block": [_P] * 16 + [_I] * 10 + [_F, _P],
+    "mmrp_seq_attention": [_P] * 17 + [_I] * 8 + [_F, _P, _P],
+    "mmrp_swin_block": [_P] * 16 + [_I] * 10 + [_F, _P, _P],
     "mmrp_wattn_core_fwd": [_P] * 3 + [_I] * 7 + [_F, _P],
     "mmrp_wattn_core_bwd": [_P] * 6 + [_I] * 8 + [_F, _P],
     "mmrp_window_attention_heads": [_P] * 5 + [_I] * 4 + [_F, _P],
@@ -173,3 +173,32 @@ def check_cuda_inputs(op: str, device: torch.device,
 
 def round16(n: int) -> int:
     return (n + 15) // 16 * 16
+
+
+class QuantArgs(ctypes.Structure):
+    """The C ``QuantArgs`` of ``csrc/common.cuh``: the W8A8 operands of one
+    launch, read on the host before it. ``mode`` 1 is the JAX ``_qdot``
+    (dequantized ``acc * sx * sw``), 2 its ``_static_gemm`` (``acc * sw *
+    s``); ``w``/``s`` the int8 weights and their f32 scales in GEMM order;
+    ``act``/``inv`` a static activation scale and its reciprocal per GEMM,
+    0 for per-row scales."""
+    _fields_ = [("mode", ctypes.c_int), ("w", ctypes.c_void_p * 4), ("s", ctypes.c_void_p * 4),
+                ("act", ctypes.c_float * 4), ("inv", ctypes.c_float * 4)]
+
+
+def quant_args(mode: int, w8: Sequence[tuple], act_scales=None) -> QuantArgs:
+    """QuantArgs of ``w8`` [(int8 weight, scale)] and optional static
+    activation scales (one Python float ``sa`` per GEMM): the kernel quantizes with
+    ``f32(1 / sa)``, the reciprocal taken in f64 as the JAX kernel's Python
+    constant is, and dequantizes with ``f32(sa)``."""
+    qa = QuantArgs()
+    qa.mode = mode
+    for i, (w, s) in enumerate(w8):
+        qa.w[i], qa.s[i] = w.data_ptr(), s.data_ptr()
+    for i, sa in enumerate(act_scales or ()):
+        qa.act[i], qa.inv[i] = float(sa), 1.0 / float(sa)
+    return qa
+
+
+def addr(qa: Optional[QuantArgs]) -> Optional[int]:
+    return None if qa is None else ctypes.addressof(qa)

@@ -1,18 +1,25 @@
 """K3: fused sequence attention — [LN] + q/k/v + masked softmax + proj [+ res] [+ LN].
 
-Counterpart of ``mmrp_tpu/ops/fused_attention.py`` (bf16 form; the in-kernel
-W8A8 ``quant`` option is not ported yet). Forms, selected by ``ln_mode``:
+Counterpart of ``mmrp_tpu/ops/fused_attention.py``. Forms, selected by ``ln_mode``:
   "pre":  y = [x +] alpha * proj(attn(LN(x + pos)))      (fusion self-attn, enhancers)
   "post": y = LN(x + pos + alpha * proj(attn(x + pos)))  (BERT layer, cross-attn)
   "none": y = [x +] alpha * proj(attn(x + pos))
 with optional cross input ``kv``, additive (B, Nk) f32 ``key_mask`` and the
 residual from raw x (``residual_from_raw``) instead of x + pos.
 
+``quant=True`` runs the four projections as W8A8, the JAX ``_qdot``: int8
+weights per output channel, the bf16 GEMM inputs (``qin``, ``kin``, the
+context) quantized per row, int32 accumulation dequantized as ``acc * sx *
+sw``, then the bias in f32. The weights are the float ones, quantized here as
+the TPU kernel quantizes them per program, or their int8 copies with
+``wscales`` (``ops/quant.py``'s caches), which hold the same numbers.
+
 On a CUDA tensor :func:`fused_attention` launches the hand-written kernel in
 ``csrc/seq_attention.cu``; on a CPU tensor it runs :func:`attention_plain`,
 the same function in plain PyTorch with the dtype discipline of the JAX
-``xla_equivalent``. Token counts need no padding (the TPU kernel wanted
-multiples of 8); the CUDA kernel takes up to 64 per sequence.
+``xla_equivalent`` (and of ``_qdot`` with ``quant``). Token counts need no
+padding (the TPU kernel wanted multiples of 8); the CUDA kernel takes up to
+64 per sequence.
 
 Weights use the nn.Linear layout: each of wq/wk/wv/wo is (C_out, C_in).
 """
@@ -25,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from mmrp_tpu_torch.ops import _build
+from mmrp_tpu_torch.ops.quant import int8_weights, quant_dot
 
 _LN_MODES = {"none": 0, "pre": 1, "post": 2}
 
@@ -45,7 +53,8 @@ def _check_form(ln_mode: str, kv) -> None:
 def attention_plain(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
                     kv=None, key_mask=None, pos=None, alpha=None, *, num_heads: int,
                     ln_mode: str = "pre", include_residual: bool = True,
-                    residual_from_raw: bool = False, eps: float = 1e-6) -> torch.Tensor:
+                    residual_from_raw: bool = False, eps: float = 1e-6,
+                    quant: bool = False, wscales=None) -> torch.Tensor:
     """The kernel's function in plain PyTorch (the reference it is held to)."""
     _check_form(ln_mode, kv)
     B, Nq, C = x.shape
@@ -56,20 +65,30 @@ def attention_plain(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
     base = basef.to(dt)
     qin = _ln(base.float(), ln_scale, ln_bias, eps).to(dt) if ln_mode == "pre" else base
     kin = qin if kv is None else kv
+    if quant:
+        (wq8, wk8, wv8, wo8) = int8_weights((wq, wk, wv, wo), wscales)
+
+        def gemm(t, w8):
+            return quant_dot(t, w8[0], out_dtype=torch.float32, wscale=w8[1])
+    else:
+        wq8, wk8, wv8, wo8 = wq, wk, wv, wo
+
+        def gemm(t, w):
+            return t.float() @ w.float().t()
 
     def lin(t, w, b):
-        return (t.float() @ w.float().t() + b.float()).to(dt)
+        return (gemm(t, w) + b.float()).to(dt)
 
-    q = lin(qin, wq, bq).reshape(B, Nq, h, d)
-    k = lin(kin, wk, bk).reshape(B, -1, h, d)
-    v = lin(kin, wv, bv).reshape(B, -1, h, d)
+    q = lin(qin, wq8, bq).reshape(B, Nq, h, d)
+    k = lin(kin, wk8, bk).reshape(B, -1, h, d)
+    v = lin(kin, wv8, bv).reshape(B, -1, h, d)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * d**-0.5
     if key_mask is not None:
         scores = scores + key_mask.float()[:, None, None, :]
     e = torch.exp(scores - scores.amax(-1, keepdim=True))
     p = (e / e.sum(-1, keepdim=True)).to(dt)
     attn = torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float()).to(dt).reshape(B, Nq, C)
-    proj = attn.float() @ wo.float().t() + bo.float()
+    proj = gemm(attn, wo8) + bo.float()
     if alpha is not None:
         proj = proj * alpha.float().reshape(())
     if ln_mode == "post":
@@ -87,15 +106,18 @@ def fused_attention(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
                     pos: Optional[torch.Tensor] = None,
                     alpha: Optional[torch.Tensor] = None, *, num_heads: int,
                     ln_mode: str = "pre", include_residual: bool = True,
-                    residual_from_raw: bool = False, eps: float = 1e-6) -> torch.Tensor:
+                    residual_from_raw: bool = False, eps: float = 1e-6,
+                    quant: bool = False, wscales=None) -> torch.Tensor:
     """One fused attention block over x (B, Nq, C). ``ln_scale``/``ln_bias``
-    may be None in ln_mode 'none'."""
+    may be None in ln_mode 'none'. ``quant``: W8A8 projections (module
+    docstring). Launches are counted per flavor: ``launches`` (bf16) and
+    ``launches_int8``."""
     if x.device.type == "cpu":
         return attention_plain(
             x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, kv, key_mask, pos,
             alpha, num_heads=num_heads, ln_mode=ln_mode,
             include_residual=include_residual, residual_from_raw=residual_from_raw,
-            eps=eps)
+            eps=eps, quant=quant, wscales=wscales)
     if x.device.type != "cuda":
         raise ValueError(f"fused_attention: no kernel for {x.device}")
     _check_form(ln_mode, kv)
@@ -105,19 +127,30 @@ def fused_attention(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
         raise ValueError(
             "fused_attention: the kernel takes head dims 32/64/128 and at most 64 "
             f"tokens, got C={C}, heads={num_heads}, Nq={Nq}, Nk={Nk}")
+    if quant and C % 32:
+        raise ValueError(f"fused_attention: the int8 kernel takes C % 32 == 0, got C={C}")
     if ln_mode != "none" and (ln_scale is None or ln_bias is None):
         raise ValueError(f"fused_attention: ln_mode={ln_mode!r} needs ln_scale and ln_bias")
     bf16, f32 = torch.bfloat16, torch.float32
+    weights = [("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)]
+    qa = None
+    if quant:
+        w8 = int8_weights([w for _, w in weights], wscales)
+        qa = _build.quant_args(1, w8)
+        wspecs = [spec for (n, _), (w, s) in zip(weights, w8)
+                  for spec in ((n, w, torch.int8, (C, C)), (f"{n} scale", s, f32, (C,)))]
+        weights = [(n, None) for n, _ in weights]  # the kernel reads the int8 copies
+    else:
+        wspecs = [(n, w, bf16, (C, C)) for n, w in weights]
     _build.check_cuda_inputs("fused_attention", x.device, [
         ("x", x, bf16, (B, Nq, C)), ("kv", kv, bf16, (B, Nk, C)),
         ("key_mask", key_mask, f32, (B, Nk)), ("pos", pos, bf16, (Nq, C)),
         ("alpha", alpha, f32, ()),
         ("ln_scale", ln_scale, f32, (C,)), ("ln_bias", ln_bias, f32, (C,)),
-        ("wq", wq, bf16, (C, C)), ("bq", bq, bf16, (C,)),
-        ("wk", wk, bf16, (C, C)), ("bk", bk, bf16, (C,)),
-        ("wv", wv, bf16, (C, C)), ("bv", bv, bf16, (C,)),
-        ("wo", wo, bf16, (C, C)), ("bo", bo, bf16, (C,)),
+        *wspecs, ("bq", bq, bf16, (C,)), ("bk", bk, bf16, (C,)), ("bv", bv, bf16, (C,)),
+        ("bo", bo, bf16, (C,)),
     ])
+    (_, wq), (_, wk), (_, wv), (_, wo) = weights
     ctx = torch.empty((_build.round16(B * Nq), C), dtype=bf16, device=x.device)
     out = torch.empty_like(x)
     _build.launch(
@@ -125,9 +158,13 @@ def fused_attention(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
         *map(_build.ptr, (x, kv, key_mask, pos, alpha, ln_scale, ln_bias, wq, bq, wk,
                           bk, wv, bv, wo, bo, ctx, out)),
         B, Nq, Nk, C, num_heads, _LN_MODES[ln_mode], int(include_residual),
-        int(residual_from_raw), float(eps), _build.stream_of(x))
-    fused_attention.launches += 1
+        int(residual_from_raw), float(eps), _build.addr(qa), _build.stream_of(x))
+    if quant:
+        fused_attention.launches_int8 += 1
+    else:
+        fused_attention.launches += 1
     return out
 
 
 fused_attention.launches = 0
+fused_attention.launches_int8 = 0

@@ -1,7 +1,9 @@
 """Whole Swin blocks on the raw map: the roll-chain step and the shifted pair.
 
-Counterpart of ``mmrp_tpu/ops/fused_swin_pair.py`` (bf16 form; the static
-W8A8 option is not ported yet):
+Counterpart of ``mmrp_tpu/ops/fused_swin_pair.py``, in bf16 and in its static
+W8A8 form (``quant="static"``: the blocks' GEMM weights as int8 with
+``wscales`` and optional calibrated ``act_scales``, as
+:mod:`mmrp_tpu_torch.ops.fused_swin_block` describes):
 
 - :func:`fused_swin_block_chain`: one block on the map ``x`` (B, H, W, C),
   already in this block's (rolled) frame, then the roll by ``roll_after``
@@ -30,7 +32,7 @@ from typing import Sequence
 
 import torch
 
-from mmrp_tpu_torch.ops.fused_swin_block import launch_block, raw_plain
+from mmrp_tpu_torch.ops.fused_swin_block import count_launch, launch_block, raw_plain
 
 
 def pair_vmem_ok(C: int, H: int, W: int, num_heads: int, ws: int,
@@ -69,48 +71,72 @@ def chain_vmem_ok(C: int, H: int, W: int, num_heads: int, ws: int,
     return wbytes + bias + xmap + inter <= budget_bytes
 
 
+def _static(quant):
+    if quant not in (False, "static"):
+        raise ValueError(f"quant must be False or 'static', got {quant!r}")
+    return quant
+
+
 def chain_plain(x, blk: Sequence[torch.Tensor], bias, num_heads: int, ws: int,
-                roll_after: int, ln_eps: float = 1e-6) -> torch.Tensor:
+                roll_after: int, ln_eps: float = 1e-6, quant=False, wscales=None,
+                act_scales=None) -> torch.Tensor:
     """The chain step in plain PyTorch (``_xla_chain``)."""
-    y = raw_plain(x, *blk, bias, num_heads=num_heads, ws=ws, ln_eps=ln_eps)
+    y = raw_plain(x, *blk, bias, num_heads=num_heads, ws=ws, ln_eps=ln_eps,
+                  quant=_static(quant), wscales=wscales, act_scales=act_scales)
     return torch.roll(y, shifts=(roll_after, roll_after), dims=(1, 2)) if roll_after else y
 
 
 def pair_plain(x, blk0, bias0, blk1, bias1, num_heads: int, ws: int, shift: int,
-               ln_eps: float = 1e-6) -> torch.Tensor:
+               ln_eps: float = 1e-6, quant=False, wscales0=None, wscales1=None,
+               act_scales0=None, act_scales1=None) -> torch.Tensor:
     """The pair in plain PyTorch (``_xla_pair``)."""
-    y = chain_plain(x, blk0, bias0, num_heads, ws, -shift, ln_eps)
-    return chain_plain(y, blk1, bias1, num_heads, ws, shift, ln_eps)
+    y = chain_plain(x, blk0, bias0, num_heads, ws, -shift, ln_eps, quant, wscales0,
+                    act_scales0)
+    return chain_plain(y, blk1, bias1, num_heads, ws, shift, ln_eps, quant, wscales1,
+                       act_scales1)
 
 
 def fused_swin_block_chain(x, blk: Sequence[torch.Tensor], bias, num_heads: int, ws: int,
-                           roll_after: int, ln_eps: float = 1e-6) -> torch.Tensor:
+                           roll_after: int, ln_eps: float = 1e-6, *, quant=False,
+                           wscales=None, act_scales=None) -> torch.Tensor:
     """One whole block on the map ``x`` (B, H, W, C), pre-rolled for this
     block's frame (``bias`` is this block's (nW, h, N, N) bias_full), then
-    the roll by ``roll_after = this_shift - next_shift``."""
+    the roll by ``roll_after = this_shift - next_shift``. Launches are
+    counted as ``launches`` (bf16) and ``launches_static``."""
     if x.device.type == "cpu":
-        return chain_plain(x, blk, bias, num_heads, ws, roll_after, ln_eps)
+        return chain_plain(x, blk, bias, num_heads, ws, roll_after, ln_eps, quant, wscales,
+                           act_scales)
     out = launch_block("fused_swin_block_chain", x, blk, bias, num_heads, ln_eps,
-                       map_ws=ws, roll=roll_after)
-    fused_swin_block_chain.launches += 1
+                       map_ws=ws, roll=roll_after, quant=_static(quant), wscales=wscales,
+                       act_scales=act_scales)
+    count_launch(fused_swin_block_chain, quant)
     return out
 
 
 fused_swin_block_chain.launches = 0
+fused_swin_block_chain.launches_static = 0
 
 
 def fused_swin_block_pair(x, blk0: Sequence[torch.Tensor], bias0,
                           blk1: Sequence[torch.Tensor], bias1, num_heads: int, ws: int,
-                          shift: int, ln_eps: float = 1e-6) -> torch.Tensor:
+                          shift: int, ln_eps: float = 1e-6, *, quant=False, wscales0=None,
+                          wscales1=None, act_scales0=None, act_scales1=None) -> torch.Tensor:
     """A block (bias0, no shift) and its shifted partner (bias1, ``shift``)
-    on the map ``x`` (B, H, W, C); returns the map in the unshifted frame."""
+    on the map ``x`` (B, H, W, C); returns the map in the unshifted frame.
+    Launches are counted per pair as ``launches`` (bf16) and
+    ``launches_static``."""
     if x.device.type == "cpu":
-        return pair_plain(x, blk0, bias0, blk1, bias1, num_heads, ws, shift, ln_eps)
+        return pair_plain(x, blk0, bias0, blk1, bias1, num_heads, ws, shift, ln_eps, quant,
+                          wscales0, wscales1, act_scales0, act_scales1)
     op = "fused_swin_block_pair"
-    y = launch_block(op, x, blk0, bias0, num_heads, ln_eps, map_ws=ws, roll=-shift)
-    out = launch_block(op, y, blk1, bias1, num_heads, ln_eps, map_ws=ws, roll=shift)
-    fused_swin_block_pair.launches += 1
+    quant = _static(quant)
+    y = launch_block(op, x, blk0, bias0, num_heads, ln_eps, map_ws=ws, roll=-shift,
+                     quant=quant, wscales=wscales0, act_scales=act_scales0)
+    out = launch_block(op, y, blk1, bias1, num_heads, ln_eps, map_ws=ws, roll=shift,
+                       quant=quant, wscales=wscales1, act_scales=act_scales1)
+    count_launch(fused_swin_block_pair, quant)
     return out
 
 
 fused_swin_block_pair.launches = 0
+fused_swin_block_pair.launches_static = 0

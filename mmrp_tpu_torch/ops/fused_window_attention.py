@@ -32,25 +32,30 @@ def window_attention_plain(xw, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
                               bias_full, num_heads, ln_eps, include_residual).to(xw.dtype)
 
 
+def _gemm(x, w, b):
+    return x.float() @ w.float().t() + b.float()
+
+
 def attention_half_f32(xw, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias_full,
                        num_heads: int, ln_eps: float = 1e-6,
-                       include_residual: bool = True) -> torch.Tensor:
+                       include_residual: bool = True, gemms=(_gemm, _gemm)) -> torch.Tensor:
     """[x +] proj(attention(LN(x))) in f32, before the final cast: K1's
     function, and the first half of the whole Swin block, which keeps it in
-    f32 (``ops/fused_swin_block.py``)."""
+    f32 (``ops/fused_swin_block.py``, whose int8 forms pass their qkv and
+    proj GEMMs as ``gemms``: (x, w, b) -> f32 x w^T + b)."""
     B, nW, N, C = xw.shape
     h, d = num_heads, C // num_heads
     dt = xw.dtype
     xf = xw.float()
     xn = _ln(xf, ln_scale, ln_bias, ln_eps).to(dt)
-    qkv = (xn.float() @ w_qkv.float().t() + b_qkv.float()).to(dt)
+    qkv = gemms[0](xn, w_qkv, b_qkv).to(dt)
     q, k, v = qkv.reshape(B, nW, N, 3, h, d).unbind(3)
     scores = torch.einsum("bwqhd,bwkhd->bwhqk", q.float(), k.float())
     scores = scores * d**-0.5 + bias_full.float()[None]
     e = torch.exp(scores - scores.amax(-1, keepdim=True))
     p = (e / e.sum(-1, keepdim=True)).to(dt)
     attn = torch.einsum("bwhqk,bwkhd->bwqhd", p.float(), v.float()).to(dt)
-    proj = attn.reshape(B, nW, N, C).float() @ w_proj.float().t() + b_proj.float()
+    proj = gemms[1](attn.reshape(B, nW, N, C), w_proj, b_proj)
     return xf + proj if include_residual else proj
 
 

@@ -4,16 +4,20 @@
     python -m mmrp_tpu_torch.profile_forward --train [--batch 64] [--out FILE]
 
 On one CUDA device: builds the flagship model (Swin-B 224 px, ClinicalBERT
-dims, 5 fusion layers at 1024) in bf16 from a seeded init, once on the
-default Swin route and once on the K1 + K2 route (``whole_block=False``) with
-the same weights. For each route and batch (text length 64) it prints the
+dims, 5 fusion layers at 1024) in bf16 from a seeded init, on each route with
+the same weights: the default Swin route (``whole``), the
+K1 + K2 route (``k1k2``, ``whole_block=False``) and the int8 serving mixes
+(``int8_static``, with act_amax calibrated on 8 seeded images by the plain
+f32 Swin forward, and ``int8``; ``MultiModalConfig.from_config``). For each
+route and batch (text length 64) it prints the
 forward time without the profiler (median of 10 CUDA-event timings), then
 profiles 5 forwards after 3 warm-ups with ``torch.profiler`` and sums the
 device time of every kernel by kind: the attention phase of the Swin blocks
 (``attention_kernel<32>``, head dim 32) and of BERT / fusion (other head
 dims), the K1 / K3 projection epilogue, K2, the whole-block MLP epilogue,
 library GEMMs of the plain layers, and everything else (copies, casts,
-elementwise). Device busy is the sum over kernels; the idle share is set
+elementwise), the int8 forms of the whole-block epilogue counted apart.
+Device busy is the sum over kernels; the idle share is set
 against the unprofiled forward time, since the profiler's own host cost
 stretches the profiled wall time. A kind whose launch count is not a whole
 multiple of the forwards marks a trace that lost events (``complete`` false).
@@ -52,6 +56,7 @@ KINDS = (  # (kind, test on the kernel name), first match wins
     ("K1/K3 projection epilogue", lambda n: "proj_epilogue_kernel" in n),
     ("K2 ln_mlp", lambda n: "ln_mlp_kernel" in n),
     ("whole-block MLP epilogue", lambda n: "block_mlp_kernel" in n),
+    ("whole-block MLP epilogue, int8", lambda n: "block_mlp_q8_kernel" in n),
     ("library GEMMs", lambda n: any(k in n.lower() for k in ("gemm", "cutlass", "xmma",
                                                              "nvjet", "sm90_", "cublas"))),
     ("other (copies, casts, elementwise)", lambda n: True),
@@ -116,15 +121,40 @@ def report(rec: dict, ms: float) -> str:
     return line
 
 
-def forward_lines(card: str, batches, dev: torch.device) -> list:
-    """One record per (route, batch) for the serving forward."""
+ROUTES = ("whole", "k1k2", "int8_static", "int8")
+
+
+def route_models(dev: torch.device) -> dict:
+    """route -> the flagship model on it, all with the default route's weights."""
+    from mmrp_tpu_torch.config import Config
+    from mmrp_tpu_torch.models.quant_calib import calibrate_swin_act_amax
+
     cfg = MultiModalConfig.flagship()
     whole = MultiModalRetrievalModel(cfg, dtype=torch.bfloat16, device=dev).eval()
     init_params(whole, seed=0)
-    k1k2 = MultiModalRetrievalModel(
-        dataclasses.replace(cfg, swin=dataclasses.replace(cfg.swin, whole_block=False)),
-        dtype=torch.bfloat16, device=dev).eval()
-    k1k2.load_state_dict(whole.state_dict())
+    cfgs = {"k1k2": dataclasses.replace(cfg, swin=dataclasses.replace(cfg.swin,
+                                                                      whole_block=False)),
+            "int8": MultiModalConfig.from_config(Config(serve_quant="int8"), flagship=True)}
+    images = np.random.default_rng(0).random((8, 224, 224, 3), dtype=np.float32)
+    amax = calibrate_swin_act_amax(whole.backbones.swin, images)
+    static = MultiModalConfig.from_config(Config(serve_quant="int8_static"), flagship=True)
+    cfgs["int8_static"] = dataclasses.replace(
+        static, swin=dataclasses.replace(static.swin, act_amax=amax))
+    models = {}
+    for route in ROUTES:
+        if route == "whole":
+            models[route] = whole
+            continue
+        models[route] = MultiModalRetrievalModel(cfgs[route], dtype=torch.bfloat16,
+                                                 device=dev).eval()
+        models[route].load_state_dict(whole.state_dict())
+    return models
+
+
+def forward_lines(card: str, batches, dev: torch.device) -> list:
+    """One record per (route, batch) for the serving forward."""
+    cfg = MultiModalConfig.flagship()
+    models = route_models(dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     lines = []
     for batch in batches:
@@ -132,7 +162,7 @@ def forward_lines(card: str, batches, dev: torch.device) -> list:
                   torch.randint(0, cfg.text.vocab_size, (batch, 64), generator=gen,
                                 device=dev),
                   torch.ones((batch, 64), dtype=torch.int64, device=dev))
-        for route, model in (("whole", whole), ("k1k2", k1k2)):
+        for route, model in models.items():
             fwd = serving_forward(model)
             ms = forward_ms(fwd, inputs)
             rec = {"card": card, "route": route, "batch": batch, "forward_ms": ms,

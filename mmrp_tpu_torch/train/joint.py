@@ -25,6 +25,7 @@ import torch
 from mmrp_tpu_torch.config import Config
 from mmrp_tpu_torch.models.multimodal import MultiModalRetrievalModel
 from mmrp_tpu_torch.models.swin import WindowAttention
+from mmrp_tpu_torch.ops.quant import int8_linears, refresh_int8
 from mmrp_tpu_torch.train import losses as L
 from mmrp_tpu_torch.train.state import TrainState, make_optimizer
 
@@ -107,6 +108,7 @@ def make_train_step(model: MultiModalRetrievalModel, cfg: Config,
                                                          device=device)
     named = dict(model.named_parameters())
     windows = [m for m in model.modules() if isinstance(m, WindowAttention)]
+    int8 = [lin for _, lin in int8_linears(model)]
 
     def step(state: TrainState, batch: Batch):
         generator = state.step_generator(device)
@@ -133,6 +135,8 @@ def make_train_step(model: MultiModalRetrievalModel, cfg: Config,
                 torch._foreach_copy_([p for p, _ in pairs], [m for _, m in pairs])
             for m in windows:
                 m.refresh_bias()
+            for lin in int8:  # serving's int8 weight caches follow the weights
+                refresh_int8(lin)
         return state, metrics
 
     return step

@@ -19,6 +19,15 @@ in both packages; leaves change as follows:
   (joint_dim, kg_dim), which is no model parameter: :func:`load_flax_params`
   returns it for the train state (``train/state.py``).
 
+Int8 weight caches (``ops/quant.py``): the JAX package quantizes the f32
+parameters for its static Swin cache and its ``quant_dot`` GEMMs, so after a
+load the caches marked ``from_master`` are rebuilt from the tree's f32 arrays
+before the cast to the module's dtype can round them (a bf16-rounded weight
+can move an int8 value by one step). The caches of the kernels that, in JAX,
+quantize the bf16-cast weights they are given (``_qdot`` in K3, dynamic Swin)
+keep the module's weight. After :func:`init_params` both are the module's
+weights, bf16 in a bf16 model.
+
 The module reads numpy arrays only; it needs no JAX.
 """
 
@@ -31,6 +40,7 @@ import torch
 from torch import nn
 
 from mmrp_tpu_torch.models.layers import LayerNorm
+from mmrp_tpu_torch.models.quant_calib import build_quant_cache
 from mmrp_tpu_torch.models.swin import WindowAttention
 
 
@@ -77,7 +87,8 @@ def flax_to_state_dict(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 def load_flax_params(model: nn.Module, tree_or_npz) -> Dict[str, torch.Tensor]:
     """Load a Flax tree, or the path of a ``save_param_tree`` npz, into
     ``model`` (strict: every parameter must be covered, nothing left over but
-    ``kg_proj``). Values are cast to each parameter's dtype. Returns
+    ``kg_proj``). Values are cast to each parameter's dtype; the int8 caches
+    that quantize f32 parameters take the tree's (module docstring). Returns
     ``{"kg_proj": f32 tensor}`` when the tree is a train state's, else {}."""
     if isinstance(tree_or_npz, Mapping):
         tree = tree_or_npz
@@ -87,6 +98,7 @@ def load_flax_params(model: nn.Module, tree_or_npz) -> Dict[str, torch.Tensor]:
     state = flax_to_state_dict(tree)
     extra = {k: state.pop(k) for k in ("kg_proj",) if k in state}
     model.load_state_dict(state, strict=True)
+    build_quant_cache(model, master=state, stale_only=True)
     return extra
 
 
@@ -101,6 +113,9 @@ def init_params(model: nn.Module, seed: int = 0) -> None:
     - ``alpha`` U(0.25, 0.75);
     - everything else (embeddings, positional tables, relative-position
       tables, null tokens) N(0, 0.02^2).
+
+    The window biases and the int8 weight caches are rebuilt from the new
+    weights.
     """
     device = next(model.parameters()).device
     gen = torch.Generator(device=device)
@@ -121,3 +136,4 @@ def init_params(model: nn.Module, seed: int = 0) -> None:
                 normal(p, 0.02)
         if isinstance(module, WindowAttention):
             module.refresh_bias()
+    build_quant_cache(model, stale_only=True)

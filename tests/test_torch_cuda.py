@@ -265,3 +265,129 @@ def test_kernels_refuse_wrong_dtype(dev):
     with pytest.raises(TypeError, match="dtype"):
         tfm.fused_ln_mlp_residual(x, x[0], x[0], x.new_zeros(512, C), x.new_zeros(512),
                                   x.new_zeros(C, 512), x[0])
+
+
+# -- the int8 (W8A8) forms ---------------------------------------------------------
+
+# int8 kernel against its plain version: the same int8 products (exact int32
+# sums), but a bf16 GEMM input that rounds one ulp apart (LN, attention,
+# GELU summed in another order) can land one int8 step away, or move its
+# row's scale; bound 8 bf16 ulps of the output, twice the bf16 kernels'
+INT8_TOL = dict(atol=2.0 ** -4, rtol=2.0 ** -4)
+# the pair is two blocks deep: the map between them is rounded to bf16 at
+# magnitudes up to ~8 (one ulp 2^-4), and the second block's residual carries
+# such a difference to outputs of any size: twice the bound
+INT8_PAIR_TOL = dict(atol=2.0 ** -3, rtol=2.0 ** -3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ln_mode,cross,B,Nq,Nk,C,heads", [
+    ("post", False, 2, 64, 64, 768, 12),
+    ("pre", False, 2, 51, 51, 1024, 8),
+    ("none", True, 3, 49, 64, 128, 4),
+])
+def test_seq_attention_int8_kernel(dev, ln_mode, cross, B, Nq, Nk, C, heads):
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = _rand(gen, (B, Nq, C), dev)
+    kv = _rand(gen, (B, Nk, C), dev) if cross else None
+    mask = torch.where(torch.rand((B, Nk), generator=gen, device=dev) < 0.3, -1e9, 0.0)
+    mask[:, 0] = 0.0
+    pos = _rand(gen, (Nq, C), dev, 0.5) if ln_mode == "pre" else None
+    alpha = torch.tensor(0.37, device=dev) if ln_mode == "pre" else None
+    w = []
+    for _ in range(4):
+        w += [_rand(gen, (C, C), dev, C ** -0.5), _rand(gen, (C,), dev, 0.1)]
+    ln = (1 + _rand(gen, (C,), dev, 0.1, torch.float32), _rand(gen, (C,), dev, 0.1, torch.float32))
+    kw = dict(kv=kv, key_mask=mask, pos=pos, alpha=alpha, num_heads=heads, ln_mode=ln_mode,
+              include_residual=True, residual_from_raw=ln_mode == "pre", quant=True)
+    before = tfa.fused_attention.launches_int8
+    with torch.no_grad():
+        got = tfa.fused_attention(x, *ln, *w, **kw)
+        want = tfa.attention_plain(x, *ln, *w, **kw)
+    torch.cuda.synchronize()
+    assert tfa.fused_attention.launches_int8 == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **INT8_TOL)
+
+
+def _int8_block(blk):
+    """The block with int8 GEMM weights, and their scales."""
+    from mmrp_tpu_torch.ops.quant import quantize_weight
+
+    blk, scales = list(blk), []
+    for i in tsb.GEMM_WEIGHTS:
+        blk[i], s = quantize_weight(blk[i])
+        scales.append(s)
+    return blk, tuple(scales)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flavor,C,heads,H,roll", [
+    ("windows_static", 1024, 32, 7, 0), ("windows_per_row", 1024, 32, 7, 0),
+    ("windows_dynamic", 256, 8, 14, 0), ("windows_dynamic", 1024, 32, 7, 0),
+    ("raw_dynamic", 512, 16, 14, 0), ("chain_static", 512, 16, 14, 3),
+    ("chain_static", 256, 8, 28, -3)])
+def test_swin_block_int8_kernel(dev, flavor, C, heads, H, roll):
+    gen = torch.Generator(device=dev).manual_seed(9)
+    blk, bias = _swin_block(gen, dev, C, heads, H, 3 if roll > 0 else 0)
+    x = _rand(gen, (2, H, H, C), dev)
+    xw = x.reshape(2, H // 7, 7, H // 7, 7, C).permute(0, 1, 3, 2, 4, 5) \
+        .reshape(2, (H // 7) ** 2, 49, C).contiguous()
+    q8, scales = _int8_block(blk)
+    acts = (4.5 / 127, 3.0 / 127, 5.0 / 127, 2.5 / 127)
+    with torch.no_grad():
+        if flavor == "windows_dynamic":
+            fn, counter = tsb.fused_swin_block_windows, "launches_dynamic"
+            kw = dict(quant=True)
+            before = getattr(fn, counter)
+            got, want = fn(xw, *blk, bias, heads, **kw), tsb.swin_block_plain(xw, *blk, bias,
+                                                                              heads, **kw)
+        elif flavor.startswith("windows"):
+            fn, counter = tsb.fused_swin_block_windows, "launches_static"
+            kw = dict(quant="static", wscales=scales,
+                      act_scales=acts if flavor == "windows_static" else None)
+            before = getattr(fn, counter)
+            got, want = fn(xw, *q8, bias, heads, **kw), tsb.swin_block_plain(xw, *q8, bias,
+                                                                             heads, **kw)
+        elif flavor == "raw_dynamic":
+            fn, counter = tsb.fused_swin_block_raw, "launches_dynamic"
+            before = getattr(fn, counter)
+            got = fn(x, *blk, bias, heads, 7, quant=True)
+            want = tsb.raw_plain(x, *blk, bias, num_heads=heads, ws=7, quant=True)
+        else:
+            fn, counter = tsp.fused_swin_block_chain, "launches_static"
+            before = getattr(fn, counter)
+            kw = dict(quant="static", wscales=scales, act_scales=acts)
+            got = fn(x, q8, bias, heads, 7, roll, **kw)
+            want = tsp.chain_plain(x, q8, bias, heads, 7, roll, **kw)
+    torch.cuda.synchronize()
+    assert getattr(fn, counter) == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **INT8_TOL)
+
+
+@pytest.mark.cuda
+def test_swin_pair_static_kernel(dev):
+    gen = torch.Generator(device=dev).manual_seed(10)
+    C, heads, H = 256, 8, 28
+    (blk0, bias0), (blk1, bias1) = (_swin_block(gen, dev, C, heads, H, s) for s in (0, 3))
+    (q0, s0), (q1, s1) = _int8_block(blk0), _int8_block(blk1)
+    x = _rand(gen, (2, H, H, C), dev)
+    kw = dict(quant="static", wscales0=s0, wscales1=s1, act_scales1=(4.5 / 127,) * 4)
+    before = tsp.fused_swin_block_pair.launches_static
+    with torch.no_grad():
+        got = tsp.fused_swin_block_pair(x, q0, bias0, q1, bias1, heads, 7, 3, **kw)
+        want = tsp.pair_plain(x, q0, bias0, q1, bias1, heads, 7, 3, **kw)
+    torch.cuda.synchronize()
+    assert tsp.fused_swin_block_pair.launches_static == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **INT8_PAIR_TOL)
+
+
+@pytest.mark.cuda
+def test_int_mm_matches_exact_product(dev):
+    """quant_dot's cuBLASLt int8 product, rows padded past 16, is exact."""
+    from mmrp_tpu_torch.ops.quant import exact_int_matmul, int_mm
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for M in (8, 392, 512):
+        xq = torch.randint(-127, 128, (M, 3072), generator=gen, device=dev).to(torch.int8)
+        wq = torch.randint(-127, 128, (768, 3072), generator=gen, device=dev).to(torch.int8)
+        assert torch.equal(int_mm(xq, wq), exact_int_matmul(xq, wq))
