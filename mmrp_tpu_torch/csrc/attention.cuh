@@ -1,24 +1,22 @@
-// Attention phase and projection epilogue shared by K1 (window_attention.cu)
-// and K3 (seq_attention.cu).
+// Attention phase and projection epilogue of K1 (window_attention.cu); the
+// whole-block Swin kernel (swin_block.cu) runs the same attention phase.
 //
-// Both TPU kernels compute, per group of rows (a 7x7 Swin window, or one
-// sequence of a batch):  [LN](x [+ pos]) -> q/k/v -> softmax(q k^T * s + add) v
-// -> out projection -> [* alpha] [+ residual] [post-LN].  Here that is two
-// launches of hand-written device code:
+// The TPU kernel computes, per 7x7 Swin window: LN(x) -> q/k/v ->
+// softmax(q k^T * s + bias) v -> out projection [+ residual]. Here that is
+// two launches of hand-written device code:
 //
-//   attention_kernel   one block per (group, head). The group's rows (at most
-//                      64) are staged in shared memory, LayerNorm'ed there,
-//                      and this head's q/k/v (64 x D each), the scores and
-//                      the probabilities never leave shared memory. It writes
-//                      the C-wide per-head context to device memory once:
-//                      the one intermediate of this design.
-//   proj_epilogue      one block per 16 rows: context @ W_o^T + b_o, then
-//                      alpha, residual and post-LN in f32 over the whole row.
+//   attention_kernel   one block per (window, head). The window's rows (at
+//                      most 64) are staged in shared memory, LayerNorm'ed
+//                      there, and this head's q/k/v (64 x D each), the scores
+//                      and the probabilities never leave shared memory. It
+//                      writes the C-wide per-head context to device memory
+//                      once: the one intermediate of this design.
+//   proj_epilogue      one block per 16 rows: context @ W_o^T + b_o [+ x] in
+//                      f32.
 //
-// Ragged token counts (49-token windows, 51-token fusion sequences, 13/9 in
-// tests) are handled in the kernel: rows past the count are zero-filled,
-// keys past the count get probability exactly 0, and pad query rows are
-// never stored.
+// Ragged token counts (49-token windows, 9 in tests) are handled in the
+// kernel: rows past the count are zero-filled, keys past the count get
+// probability exactly 0, and pad query rows are never stored.
 //
 // The whole-block Swin kernel (swin_block.cu) runs the same attention phase on
 // the raw (B, H, W, C) map: AttnParams.map_h > 0 makes group g window g % nW of
@@ -32,10 +30,8 @@ namespace mmrp {
 namespace {  // internal linkage: each translation unit instantiates its own copy
 
 struct AttnParams {
-  const bf16* x;         // (G * Nq, C) query-side rows
-  const bf16* kv;        // (G * Nk, C) key/value rows; null = self-attention on the query rows
-  const bf16* pos;       // (Nq, C) added to x before anything else, or null
-  const float* ln_s;     // (C,) pre-LN affine, read when ln_pre
+  const bf16* x;         // (G * N, C) rows
+  const float* ln_s;     // (C,) pre-LN affine
   const float* ln_b;
   const bf16* wq;        // (C, C) nn.Linear weights: rows [h*D, h*D + D) are head h
   const bf16* wk;
@@ -43,13 +39,11 @@ struct AttnParams {
   const bf16* bq;
   const bf16* bk;
   const bf16* bv;
-  const float* key_mask; // (G, Nk) additive (0 / -1e9), or null
-  const float* bias;     // (nW, heads, Nq, Nk) additive, window = g % nW, or null
-  bf16* ctx;             // (G * Nq, C): head h writes columns [h*D, h*D + D)
-  int G, Nq, Nk, C, heads, nW;
+  const float* bias;     // (nW, heads, N, N) additive, window = g % nW
+  bf16* ctx;             // (G * N, C): head h writes columns [h*D, h*D + D)
+  int G, N, C, heads, nW;
   float scale, eps;
-  int ln_pre;
-  int map_h, map_w, ws;  // map_h > 0: query rows gathered from a (B, map_h, map_w, C) map
+  int map_h, map_w, ws;  // map_h > 0: rows gathered from a (B, map_h, map_w, C) map
   // W8A8 (qmode != kQuantOff): int8 (C, C) weights and (C,) scales replace
   // wq/wk/wv; the staged rows are quantized per row, or with the static
   // scale act_s (act_inv = f32(1 / act_s) > 0)
@@ -80,8 +74,8 @@ struct AttnSmem {
 
 // Shared-memory layout of attention_kernel; the host sizes the launch with it.
 template <int D>
-__host__ __device__ inline AttnSmem attn_smem(int Nq, int Nk, int C) {
-  const int npq = round16(Nq), npk = round16(Nk), npm = npq > npk ? npq : npk;
+__host__ __device__ inline AttnSmem attn_smem(int N, int C) {
+  const int npq = round16(N), npk = npq, npm = npq;
   AttnSmem s;
   size_t off = 0;
   s.buf = off;  // staged rows (bf16); later reused as the f32 P.V output
@@ -105,12 +99,11 @@ __host__ __device__ inline AttnSmem attn_smem(int Nq, int Nk, int C) {
   return s;
 }
 
-// buf rows [0, rows) <- bf16(row r [+ pos row]), row r at src(r), LayerNorm'ed
-// in f32 when `ln`; rows [rows, rows_pad) <- 0. One warp per row.
+// buf rows [0, rows) <- bf16(LN(row r)) in f32, row r at src(r); rows
+// [rows, rows_pad) <- 0. One warp per row.
 template <typename RowSrc>
-__device__ inline void load_rows(bf16* buf, int ldb, RowSrc src, const bf16* pos, int rows,
-                                 int rows_pad, int C, const float* ln_s, const float* ln_b,
-                                 float eps, bool ln) {
+__device__ inline void load_rows(bf16* buf, int ldb, RowSrc src, int rows, int rows_pad, int C,
+                                 const float* ln_s, const float* ln_b, float eps) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < rows_pad; r += kWarps) {
     bf16* dst = buf + (size_t)r * ldb;
@@ -119,18 +112,11 @@ __device__ inline void load_rows(bf16* buf, int ldb, RowSrc src, const bf16* pos
       continue;
     }
     const bf16* s = src(r);
-    const bf16* p = pos ? pos + (size_t)r * C : nullptr;
-    for (int c = lane; c < C; c += 32) {
-      float v = to_f(s[c]);
-      if (p) v += to_f(p[c]);
-      dst[c] = to_bf(v);  // the JAX reference casts x + pos to the activation dtype here
-    }
-    if (ln) {
-      float mean, rstd;
-      row_stats([&](int c) { return to_f(dst[c]); }, C, eps, mean, rstd);
-      for (int c = lane; c < C; c += 32)
-        dst[c] = to_bf((to_f(dst[c]) - mean) * rstd * ln_s[c] + ln_b[c]);
-    }
+    for (int c = lane; c < C; c += 32) dst[c] = s[c];
+    float mean, rstd;
+    row_stats([&](int c) { return to_f(dst[c]); }, C, eps, mean, rstd);
+    for (int c = lane; c < C; c += 32)
+      dst[c] = to_bf((to_f(dst[c]) - mean) * rstd * ln_s[c] + ln_b[c]);
   }
 }
 
@@ -187,8 +173,8 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int g = blockIdx.x, head = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int npq = round16(p.Nq), npk = round16(p.Nk);
-  const AttnSmem L = attn_smem<D>(p.Nq, p.Nk, p.C);
+  const int npq = round16(p.N), npk = npq;
+  const AttnSmem L = attn_smem<D>(p.N, p.C);
   bf16* buf = reinterpret_cast<bf16*>(smem + L.buf);
   float* ostage = reinterpret_cast<float*>(smem + L.buf);
   bf16* qs = reinterpret_cast<bf16*>(smem + L.q);
@@ -204,34 +190,23 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnParams p) {
   const signed char* buf8 = reinterpret_cast<const signed char*>(buf);
   float* rs = reinterpret_cast<float*>(smem + L.rs);
 
-  // q from the (LayerNorm'ed) query rows
-  const bf16* xg = p.x + (size_t)g * p.Nq * p.C;
+  // q, k, v from the LayerNorm'ed rows
+  const bf16* xg = p.x + (size_t)g * p.N * p.C;
   load_rows(
       buf, ldb,
       [&](int r) {
         return p.map_h ? p.x + map_row(g, r, p.nW, p.map_h, p.map_w, p.ws, 0, 0) * p.C
                        : xg + (size_t)r * p.C;
       },
-      p.pos, p.Nq, npq, p.C, p.ln_s, p.ln_b, p.eps, p.ln_pre != 0);
+      p.N, npq, p.C, p.ln_s, p.ln_b, p.eps);
   __syncthreads();
   if (q8) {
     quantize_rows(buf, ldb, npq, p.C, p.act_s, p.act_inv, rs);
     project_head_q8<D>(qs, buf8, 2 * ldb, npq, p.wq8, p.swq, p.bq, p.C, head, rs, p.qmode);
-  } else {
-    project_head<D>(qs, buf, ldb, npq, p.wq, p.bq, p.C, head, scratch);
-  }
-  // k, v from the cross input (raw), or from the same staged rows
-  if (p.kv) {
-    const bf16* kvg = p.kv + (size_t)g * p.Nk * p.C;
-    load_rows(buf, ldb, [&](int r) { return kvg + (size_t)r * p.C; }, nullptr, p.Nk, npk, p.C,
-              nullptr, nullptr, 0.f, false);
-    __syncthreads();
-    if (q8) quantize_rows(buf, ldb, npk, p.C, p.act_s, p.act_inv, rs);
-  }
-  if (q8) {
     project_head_q8<D>(ks, buf8, 2 * ldb, npk, p.wk8, p.swk, p.bk, p.C, head, rs, p.qmode);
     project_head_q8<D>(vs, buf8, 2 * ldb, npk, p.wv8, p.swv, p.bv, p.C, head, rs, p.qmode);
   } else {
+    project_head<D>(qs, buf, ldb, npq, p.wq, p.bq, p.C, head, scratch);
     project_head<D>(ks, buf, ldb, npk, p.wk, p.bk, p.C, head, scratch);
     project_head<D>(vs, buf, ldb, npk, p.wv, p.bv, p.C, head, scratch);
   }
@@ -254,12 +229,10 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnParams p) {
 
   // softmax in f32, one warp per query row; pad keys get exactly 0
   {
-    const float* mrow = p.key_mask ? p.key_mask + (size_t)g * p.Nk : nullptr;
-    const float* bmat =
-        p.bias ? p.bias + ((size_t)(g % p.nW) * p.heads + head) * p.Nq * p.Nk : nullptr;
+    const float* bmat = p.bias + ((size_t)(g % p.nW) * p.heads + head) * p.N * p.N;
     for (int r = warp; r < npq; r += kWarps) {
       bf16* prow = ps + (size_t)r * (npk + 8);
-      if (r >= p.Nq) {
+      if (r >= p.N) {
         for (int c = lane; c < npk; c += 32) prow[c] = to_bf(0.f);
         continue;
       }
@@ -269,11 +242,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnParams p) {
       for (int i = 0; i < 2; ++i) {
         const int c = lane + 32 * i;
         float s = -INFINITY;
-        if (c < p.Nk) {
-          s = ss[(size_t)r * (npk + 4) + c] * p.scale;
-          if (mrow) s += mrow[c];
-          if (bmat) s += bmat[(size_t)r * p.Nk + c];
-        }
+        if (c < p.N) s = ss[(size_t)r * (npk + 4) + c] * p.scale + bmat[(size_t)r * p.N + c];
         v[i] = s;
         m = fmaxf(m, s);
       }
@@ -282,7 +251,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnParams p) {
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int c = lane + 32 * i;
-        v[i] = c < p.Nk ? expf(v[i] - m) : 0.f;
+        v[i] = c < p.N ? expf(v[i] - m) : 0.f;
         sum += v[i];
       }
       sum = warp_sum(sum);
@@ -309,37 +278,24 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnParams p) {
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < p.Nq * D; i += kThreads) {
+  for (int i = threadIdx.x; i < p.N * D; i += kThreads) {
     const int r = i / D, c = i % D;
-    p.ctx[((size_t)g * p.Nq + r) * p.C + head * D + c] = to_bf(ostage[(size_t)r * (D + 4) + c]);
+    p.ctx[((size_t)g * p.N + r) * p.C + head * D + c] = to_bf(ostage[(size_t)r * (D + 4) + c]);
   }
 }
-
-enum EpiMode { kProjOnly = 0, kResidualBase = 1, kResidualRaw = 2, kPostLN = 3 };
 
 struct EpiParams {
   const bf16* ctx;     // (round16(M), C); rows >= M only feed rows that are never stored
   const bf16* wo;      // (C, C) nn.Linear weight
   const bf16* bo;      // (C,)
-  const bf16* x;       // (M, C) residual source
-  const bf16* pos;     // (Nq, C) or null: base = x + pos[r % Nq]
-  const float* alpha;  // device scalar, or null
-  const float* ln_s;   // (C,) post-LN affine
-  const float* ln_b;
+  const bf16* x;       // (M, C) residual
   bf16* out;           // (M, C)
-  int M, C, Nq;
-  float eps;
-  int mode;            // EpiMode
-  int qmode;           // kQuantDyn: the context rows quantized per row, W_o as int8
-  const signed char* wo8;
-  const float* swo;
+  int M, C, residual;
 };
 
-// [16][C + 4] f32 sums, then for the int8 form [16][C + 16] int8 rows and
-// their 16 scales
-__host__ __device__ inline size_t epi_smem(int C, bool q8) {
-  const size_t acc = align128((size_t)16 * (C + 4) * sizeof(float));
-  return q8 ? acc + align128((size_t)16 * (C + 16)) + 16 * sizeof(float) : acc;
+// [16][C + 4] f32 sums
+__host__ __device__ inline size_t epi_smem(int C) {
+  return align128((size_t)16 * (C + 4) * sizeof(float));
 }
 
 __global__ void __launch_bounds__(kThreads) proj_epilogue_kernel(EpiParams p) {
@@ -348,70 +304,29 @@ __global__ void __launch_bounds__(kThreads) proj_epilogue_kernel(EpiParams p) {
   const int ld = p.C + 4;
   const int row0 = blockIdx.x * 16;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (p.qmode != kQuantOff) {
-    signed char* a8 = reinterpret_cast<signed char*>(smem + epi_smem(p.C, false));
-    float* rs = reinterpret_cast<float*>(a8 + align128((size_t)16 * (p.C + 16)));
-    const int lda8 = p.C + 16;
-    for (int lr = warp; lr < 16; lr += kWarps) {  // rows past M (pad) quantize to 0
-      const bool live = row0 + lr < p.M;
-      const bf16* src = p.ctx + (size_t)(row0 + lr) * p.C;
-      const float s = row_scale([&](int c) { return live ? to_f(src[c]) : 0.f; }, p.C, 0.f, 0.f);
-      for (int c = lane; c < p.C; c += 32)
-        a8[(size_t)lr * lda8 + c] = live ? quant1(to_f(src[c]), s, 0.f) : (signed char)0;
-      if (lane == 0) rs[lr] = s;
-    }
-    __syncthreads();
-    const int g = lane >> 2, t = lane & 3;
-    for (int n0 = warp * 8; n0 < p.C; n0 += kWarps * 8) {
-      int acc[4] = {0, 0, 0, 0};
-      mma_s8(acc, a8, lda8, p.wo8 + (size_t)n0 * p.C, p.C, p.C);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = g + (i >> 1) * 8, n = n0 + 2 * t + (i & 1);
-        acc_s[(size_t)r * ld + n] = dequant(acc[i], rs[r], p.swo[n], p.qmode);
-      }
-    }
-  } else {
-    for (int t = warp; t < p.C / 16; t += kWarps) {
-      FragAcc acc;
-      wmma::fill_fragment(acc, 0.f);
-      mma_bcol(acc, p.ctx + (size_t)row0 * p.C, p.C, p.wo + (size_t)t * 16 * p.C, p.C, p.C);
-      wmma::store_matrix_sync(acc_s + t * 16, acc, ld, wmma::mem_row_major);
-    }
+  for (int t = warp; t < p.C / 16; t += kWarps) {
+    FragAcc acc;
+    wmma::fill_fragment(acc, 0.f);
+    mma_bcol(acc, p.ctx + (size_t)row0 * p.C, p.C, p.wo + (size_t)t * 16 * p.C, p.C, p.C);
+    wmma::store_matrix_sync(acc_s + t * 16, acc, ld, wmma::mem_row_major);
   }
   __syncthreads();
   for (int lr = warp; lr < 16; lr += kWarps) {
     const int r = row0 + lr;
     if (r >= p.M) continue;
-    float* a = acc_s + (size_t)lr * ld;
+    const float* a = acc_s + (size_t)lr * ld;
     const bf16* xr = p.x + (size_t)r * p.C;
-    const bf16* pr = p.pos ? p.pos + (size_t)(r % p.Nq) * p.C : nullptr;
     bf16* o = p.out + (size_t)r * p.C;
     for (int c = lane; c < p.C; c += 32) {
-      float y = a[c] + to_f(p.bo[c]);
-      if (p.alpha) y *= *p.alpha;
-      const float raw = to_f(xr[c]);
-      if (p.mode == kResidualBase || p.mode == kPostLN) {
-        y = (pr ? raw + to_f(pr[c]) : raw) + y;
-      } else if (p.mode == kResidualRaw) {
-        y = raw + y;
-      }
-      a[c] = y;
-    }
-    if (p.mode == kPostLN) {
-      float mean, rstd;
-      row_stats([&](int c) { return a[c]; }, p.C, p.eps, mean, rstd);
-      for (int c = lane; c < p.C; c += 32)
-        o[c] = to_bf((a[c] - mean) * rstd * p.ln_s[c] + p.ln_b[c]);
-    } else {
-      for (int c = lane; c < p.C; c += 32) o[c] = to_bf(a[c]);
+      const float y = a[c] + to_f(p.bo[c]);
+      o[c] = to_bf(p.residual ? to_f(xr[c]) + y : y);
     }
   }
 }
 
 template <int D>
 inline cudaError_t launch_attention_d(const AttnParams& p, cudaStream_t stream) {
-  const size_t smem = attn_smem<D>(p.Nq, p.Nk, p.C).total;
+  const size_t smem = attn_smem<D>(p.N, p.C).total;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const cudaError_t e = allow_smem(attention_kernel<D>, smem);
   if (e != cudaSuccess) return e;
@@ -419,10 +334,10 @@ inline cudaError_t launch_attention_d(const AttnParams& p, cudaStream_t stream) 
   return cudaGetLastError();
 }
 
-// Head dims of the slice: 32 (every Swin stage), 64 (BERT), 128 (fusion, 1024 / 8).
+// Head dims 32 (every Swin-B stage), 64 and 128.
 inline cudaError_t launch_attention(const AttnParams& p, cudaStream_t stream) {
-  if (p.G < 1 || p.Nq < 1 || p.Nq > 64 || p.Nk < 1 || p.Nk > 64 || p.heads < 1 ||
-      p.C % p.heads || p.C % 16 || (p.qmode != kQuantOff && p.C % 32))
+  if (p.G < 1 || p.N < 1 || p.N > 64 || p.heads < 1 || p.C % p.heads || p.C % 16 ||
+      (p.qmode != kQuantOff && p.C % 32))
     return cudaErrorInvalidValue;
   switch (p.C / p.heads) {
     case 32: return launch_attention_d<32>(p, stream);
@@ -433,8 +348,8 @@ inline cudaError_t launch_attention(const AttnParams& p, cudaStream_t stream) {
 }
 
 inline cudaError_t launch_epilogue(const EpiParams& p, cudaStream_t stream) {
-  if (p.M < 1 || p.C % 16 || (p.qmode != kQuantOff && p.C % 32)) return cudaErrorInvalidValue;
-  const size_t smem = epi_smem(p.C, p.qmode != kQuantOff);
+  if (p.M < 1 || p.C % 16) return cudaErrorInvalidValue;
+  const size_t smem = epi_smem(p.C);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const cudaError_t e = allow_smem(proj_epilogue_kernel, smem);
   if (e != cudaSuccess) return e;

@@ -19,6 +19,7 @@
 #include <math.h>
 #include <mma.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace mmrp {
 
@@ -257,6 +258,22 @@ __device__ __forceinline__ void mma_s8(int acc[4], const signed char* a, int lda
         : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3])
         : "r"(A0), "r"(A1), "r"(A2), "r"(A3), "r"(B0), "r"(B1));
   }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy global -> shared (cp.async), in groups.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Shared memory above 48 KB must be opted into per kernel.

@@ -9,112 +9,471 @@
 // additive (B, Nk) key mask, and the residual taken from x + pos or from raw x.
 // It carries the 12 BERT layers (post) and every attention of the fusion
 // stack: the enhancers (pre + pos + alpha + raw residual), the cross
-// attentions (post, cross kv) and the self-attention (pre + pos).
+// attentions (post, cross kv) and the self-attention (pre + pos), at any
+// token count up to the model's 512 positions.
 //
-// What bounds it on the H100: the four C x C projections (C = 768 / 1024) at
-// 49..64 tokens per sequence; attention itself is <= 64 x 64 per head. The TPU
-// kernel kept q/k/v, scores and the projection input in VMEM; here one block
-// per (sequence, head) keeps the staged rows, this head's q/k/v, the scores
-// and the probabilities in shared memory (about 213 KB at C = 1024, d = 128),
-// writes the C-wide context once, and proj_epilogue (attention.cuh) applies
-// projection, alpha, residual and post-LN in f32. Token counts up to 64 are
-// taken as they come (51, 49, 13, 9): no padding to 8 as the TPU needed.
-//
+// What bounds it on the H100: the four C x C projections (8 C^2 FLOPs per
+// token, C = 768 / 1024) against 4 Nk C FLOPs per token of attention: the
+// tensor cores at every text length. The TPU kernel kept a sequence's rows,
+// q/k/v and scores in VMEM; a block's 227 KB holds neither a 512-token
+// sequence's q/k/v nor its 512 x 512 scores, so the work is three launches
+// whose intermediates (q/k/v and the context, bf16) stay in L2 at serving
+// sizes:
+//   qkv_kernel   per 64 rows and 1-4 tiles of 128 output columns: the rows
+//                staged once in shared memory (x + pos, LayerNorm'ed for
+//                "pre"; for W8A8 quantized per row there), each tile's weight
+//                rows streamed through a cp.async ring into wgmma
+//                (gemm_sm90.cuh); + bias in f32, rounded to bf16, written
+//                head-major (B, heads, N, d);
+//   attn_kernel  per (64 queries, head, sequence): attn_tile.cuh, key tiles
+//                of 64 double-buffered by cp.async, online softmax in
+//                registers; the context written (B * Nq, C), bf16;
+//   out_kernel   per 64 rows x 128 columns of the output projection, on the
+//                same GEMM: + bias, * alpha, + residual in f32, and for
+//                "post" the LayerNorm, whose row statistics a cluster of
+//                C / 128 blocks (one per column slice) sums through
+//                distributed shared memory; rounded to bf16 once.
 // W8A8 (quant->mode == kQuantDyn, the JAX quant=True): the four projections
 // take int8 weights per output channel (quantized once per weight by the
-// caller, which computes what the TPU kernel's per-program quantization
-// computes) and quantize their bf16 inputs per row in the kernel: the staged
-// (LN'ed) rows in attention_kernel's shared memory, in place, and the context
-// rows in proj_epilogue. The products run on the int8 tensor cores
-// (mma.sync m16n8k32, s32 sums) and are dequantized as acc * sx * sw in f32,
-// as _qdot does. At BERT widths that halves the weight bytes; the attention
-// phase and the per-row scales are unchanged work.
-#include "attention.cuh"
+// caller, the numbers the TPU kernel's per-program quantization gives) and
+// quantize their bf16 inputs per row as they are staged; the products are
+// wgmma s8 with s32 sums, dequantized as acc * sx * sw in f32 (_qdot's
+// order), then the bias. The attention tile is the bf16 one.
+#include <cooperative_groups.h>
+
+#include <type_traits>
+
+#include "attn_tile.cuh"
+#include "gemm_sm90.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace mmrp {
+namespace {
+
+enum EpiMode { kProjOnly = 0, kResidualBase = 1, kResidualRaw = 2, kPostLN = 3 };
+constexpr int kMaxTokens = 512;
+
+struct QkvParams {
+  const bf16* x;       // (B * Nq, C)
+  const bf16* kv;      // (B * Nk, C) or null: k and v from x
+  const bf16* pos;     // (Nq, C) or null
+  const float* ln_s;   // (C,) pre-LN, read when ln_pre
+  const float* ln_b;
+  const unsigned char* w[3];  // q, k, v weights (C, C): bf16, or int8 (the Q8 kernel)
+  const float* sw[3];         // int8 per-output-channel scales
+  const bf16* b[3];           // (C,) biases
+  bf16* dst[3];               // q (B, heads, Nq, d), k and v (B, heads, Nk, d)
+  int B, Nq, Nk, C, heads, ln_pre;
+  int jobs0, groups0, groups1;  // x-side blocks; column groups of the x side and of kv
+  int tiles0, tiles1, per;      // column tiles of each side; tiles a group walks
+  float eps;
+};
+
+// One block per (64 rows, a group of up to p.per 128-column tiles of q | k |
+// v): the rows are staged once and the group's tiles walked over them.
+template <bool Q8>
+__global__ void __launch_bounds__(kGemmThreads) qkv_kernel(QkvParams p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* a = align1024(smem_raw);
+  const int esize = Q8 ? 1 : 2, kchunks = p.C * esize / 128;
+  unsigned char* ring = a + (size_t)p.C * 2 / 128 * kChunkA;
+  float* rs = reinterpret_cast<float*>(ring + kStages * kChunkW);
+
+  int job = blockIdx.x, tile0, tiles, M;
+  const bool xside = job < p.jobs0;
+  if (xside) {
+    tile0 = (job % p.groups0) * p.per;
+    tiles = p.tiles0;
+    job /= p.groups0;
+    M = p.B * p.Nq;
+  } else {
+    job -= p.jobs0;
+    tile0 = (job % p.groups1) * p.per;
+    tiles = p.tiles1;
+    job /= p.groups1;
+    M = p.B * p.Nk;
+  }
+  const int tile_end = min(tiles, tile0 + p.per);
+  const int col_base = xside ? 0 : p.C;  // kv's tiles are k's and v's columns
+  const int row0 = job * kTileM;
+  const size_t ldw = (size_t)p.C * esize;
+  auto weights = [&](int tile) {
+    const int col0 = col_base + tile * kTileN;
+    return p.w[col0 / p.C] + (size_t)(col0 % p.C) * ldw;
+  };
+
+  const int rows = min(kTileM, M - row0);
+  const bf16* src = xside ? p.x : p.kv;
+  stage_a<Q8>(
+      a, ring, rs, rows, p.C, [&](int r) { return src + (size_t)(row0 + r) * p.C; },
+      [&](int r) { return p.pos + (size_t)((row0 + r) % p.Nq) * p.C; }, xside && p.pos,
+      p.ln_s, p.ln_b, p.eps, xside && p.ln_pre, weights(tile0), ldw, kchunks);
+
+  using Acc = typename std::conditional<Q8, int, float>::type;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int D = p.C / p.heads;
+  for (int tile = tile0; tile < tile_end; ++tile) {
+    const int col0 = col_base + tile * kTileN, which = col0 / p.C, n0 = col0 % p.C;
+    const unsigned char* w = weights(tile);
+    if (tile > tile0) gemm_prologue(smem_u32(ring), w, ldw, kchunks);
+    Acc acc[64];
+    gemm_mainloop(acc, smem_u32(a), smem_u32(ring), w, ldw, kchunks);
+    const int N = which ? p.Nk : p.Nq;
+    const bf16* bias = p.b[which];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rl = warp * 16 + g + 8 * h, r = row0 + rl;
+      if (r >= M) continue;
+      const int bb = r / N, tok = r % N;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = n0 + j * 8 + 2 * t, head = c / D, d = c % D;
+        float v0, v1;
+        if (Q8) {
+          v0 = dequant((int)acc[4 * j + 2 * h], rs[rl], p.sw[which][c], kQuantDyn);
+          v1 = dequant((int)acc[4 * j + 2 * h + 1], rs[rl], p.sw[which][c + 1], kQuantDyn);
+        } else {
+          v0 = (float)acc[4 * j + 2 * h];
+          v1 = (float)acc[4 * j + 2 * h + 1];
+        }
+        v0 += to_f(bias[c]);
+        v1 += to_f(bias[c + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(
+            p.dst[which] + (((size_t)bb * p.heads + head) * N + tok) * D + d) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+    }
+  }
+}
+
+struct AttnTileParams {
+  const bf16* q;         // (B, heads, Nq, D)
+  const bf16* k;         // (B, heads, Nk, D)
+  const bf16* v;
+  const float* key_mask; // (B, Nk) additive, or null
+  bf16* ctx;             // (B * Nq, C), head h in columns [h D, h D + D)
+  int heads, Nq, Nk, C;
+  float scale;
+};
+
+// One block per (64 queries, head, sequence); key tiles double-buffered.
+template <int D>
+__global__ void __launch_bounds__(128) attn_kernel(AttnTileParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using L = TileLd<D>;
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* kbuf = reinterpret_cast<bf16*>(smem + L::kBytes);
+  bf16* vbuf = reinterpret_cast<bf16*>(smem + 3 * L::kBytes);
+  constexpr int kTileElems = kTileRows * L::kLd;
+  const int q0 = blockIdx.x * kTileRows, head = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * p.heads + head;
+  const bf16* qg = p.q + (bh * p.Nq + q0) * D;
+  const bf16* kg = p.k + bh * p.Nk * D;
+  const bf16* vg = p.v + bh * p.Nk * D;
+  const float* mrow = p.key_mask ? p.key_mask + (size_t)b * p.Nk : nullptr;
+  const int tiles = (p.Nk + kTileRows - 1) / kTileRows;
+
+  auto load_kv = [&](int j) {
+    const int k0 = j * kTileRows, n = min(kTileRows, p.Nk - k0);
+    tile_rows_async<D>(kbuf + (j & 1) * kTileElems, n,
+                       [&](int r) { return kg + (size_t)(k0 + r) * D; });
+    tile_rows_async<D>(vbuf + (j & 1) * kTileElems, n,
+                       [&](int r) { return vg + (size_t)(k0 + r) * D; });
+  };
+  tile_rows_async<D>(qs, min(kTileRows, p.Nq - q0), [&](int r) { return qg + (size_t)r * D; });
+  load_kv(0);
+  cp_async_commit();
+
+  TileState<D> st;
+  for (int j = 0; j < tiles; ++j) {
+    if (j + 1 < tiles) {
+      load_kv(j + 1);  // into the buffer that tile j - 1 freed
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (j == 0) tile_begin(st, qs);
+    tile_step(st, kbuf + (j & 1) * kTileElems, vbuf + (j & 1) * kTileElems, j * kTileRows, p.Nk,
+              p.scale, [&](int, int key) { return mrow ? mrow[key] : 0.f; });
+    __syncthreads();
+  }
+  tile_finish(st, [&](int r, int c, float v0, float v1) {
+    if (q0 + r < p.Nq)
+      *reinterpret_cast<__nv_bfloat162*>(p.ctx + ((size_t)b * p.Nq + q0 + r) * p.C + head * D + c) =
+          __floats2bfloat162_rn(v0, v1);
+  });
+}
+
+struct OutParams {
+  const bf16* ctx;     // (M, C)
+  const unsigned char* wo;  // (C, C): bf16, or int8 (the Q8 kernel)
+  const float* swo;
+  const bf16* bo;      // (C,)
+  const bf16* x;       // (M, C) residual source
+  const bf16* pos;     // (Nq, C) or null: base = x + pos[r % Nq]
+  const float* alpha;  // device scalar, or null
+  const float* ln_s;   // (C,) post-LN
+  const float* ln_b;
+  bf16* out;           // (M, C)
+  int M, C, Nq, mode;
+  float eps;
+};
+
+// One block per (128 output columns, 64 rows); for kPostLN the C / 128
+// column blocks of a row block form a cluster.
+template <bool Q8>
+__global__ void __launch_bounds__(kGemmThreads) out_kernel(OutParams p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* a = align1024(smem_raw);
+  const int esize = Q8 ? 1 : 2, kchunks = p.C * esize / 128;
+  unsigned char* ring = a + (size_t)p.C * 2 / 128 * kChunkA;
+  float* rs = reinterpret_cast<float*>(ring + kStages * kChunkW);
+  float* red = rs + kTileM;  // [2][64] per-row partial sums of this column slice
+
+  const int n0 = blockIdx.x * kTileN, row0 = blockIdx.y * kTileM;
+  const size_t ldw = (size_t)p.C * esize;
+  const unsigned char* w = p.wo + (size_t)n0 * ldw;
+  stage_a<Q8>(
+      a, ring, rs, min(kTileM, p.M - row0), p.C,
+      [&](int r) { return p.ctx + (size_t)(row0 + r) * p.C; },
+      [](int) -> const bf16* { return nullptr; }, false, nullptr, nullptr, 0.f, false, w, ldw,
+      kchunks);
+  using Acc = typename std::conditional<Q8, int, float>::type;
+  Acc acc[64];
+  gemm_mainloop(acc, smem_u32(a), smem_u32(ring), w, ldw, kchunks);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float alpha = p.alpha ? *p.alpha : 1.f;
+  float y[2][32];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rl = warp * 16 + g + 8 * h, r = row0 + rl;
+    const bool live = r < p.M;
+    const bf16* xr = p.x + (size_t)(live ? r : 0) * p.C;
+    const bf16* pr = p.pos ? p.pos + (size_t)((live ? r : 0) % p.Nq) * p.C : nullptr;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = n0 + j * 8 + 2 * t + e;
+        float v = Q8 ? dequant((int)acc[4 * j + 2 * h + e], rs[rl], p.swo[c], kQuantDyn)
+                     : (float)acc[4 * j + 2 * h + e];
+        v = (v + to_f(p.bo[c])) * alpha;
+        if (live) {
+          const float raw = to_f(xr[c]);
+          if (p.mode == kResidualBase || p.mode == kPostLN) {
+            v = (pr ? raw + to_f(pr[c]) : raw) + v;
+          } else if (p.mode == kResidualRaw) {
+            v = raw + v;
+          }
+        } else {
+          v = 0.f;
+        }
+        y[h][2 * j + e] = v;
+      }
+    }
+  }
+
+  if (p.mode == kPostLN) {
+    // row statistics over all C columns: each block sums its 128, the quad
+    // of lanes holding a row reduces them, and the cluster's blocks add
+    // their partial sums through distributed shared memory (two passes)
+    cg::cluster_group cluster = cg::this_cluster();
+    const int S = (int)cluster.num_blocks();
+    float mean[2], rstd[2];
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float s = 0.f;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const float v = pass ? y[h][i] - mean[h] : y[h][i];
+          s += pass ? v * v : v;
+        }
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        if (t == 0) red[pass * kTileM + warp * 16 + g + 8 * h] = s;
+      }
+      cluster.sync();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rl = pass * kTileM + warp * 16 + g + 8 * h;
+        float s = 0.f;
+        for (int q = 0; q < S; ++q) s += cluster.map_shared_rank(red, q)[rl];
+        if (pass)
+          rstd[h] = rsqrtf(s / (float)p.C + p.eps);
+        else
+          mean[h] = s / (float)p.C;
+      }
+    }
+    cluster.sync();  // no block leaves while another still reads its shared memory
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int c = n0 + (i >> 1) * 8 + 2 * t + (i & 1);
+        y[h][i] = (y[h][i] - mean[h]) * rstd[h] * p.ln_s[c] + p.ln_b[c];
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + warp * 16 + g + 8 * h;
+    if (r >= p.M) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(p.out + (size_t)r * p.C + n0 + j * 8 + 2 * t) =
+          __floats2bfloat162_rn(y[h][2 * j], y[h][2 * j + 1]);
+  }
+}
+
+template <int D>
+cudaError_t launch_attn(const AttnTileParams& p, int B, cudaStream_t st) {
+  const size_t smem = 5 * TileLd<D>::kBytes;
+  cudaError_t e = allow_smem(attn_kernel<D>, smem);
+  if (e != cudaSuccess) return e;
+  attn_kernel<D><<<dim3((p.Nq + kTileRows - 1) / kTileRows, p.heads, B), 128, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <bool Q8>
+cudaError_t launch_proj(const QkvParams& q, int blocks, cudaStream_t st) {
+  const size_t smem = gemm_smem(q.C, 0);
+  cudaError_t e = allow_smem(qkv_kernel<Q8>, smem);
+  if (e != cudaSuccess) return e;
+  qkv_kernel<Q8><<<blocks, kGemmThreads, smem, st>>>(q);
+  return cudaGetLastError();
+}
+
+template <bool Q8>
+cudaError_t launch_out(const OutParams& o, cudaStream_t st) {
+  const size_t smem = gemm_smem(o.C, 2 * kTileM * sizeof(float));
+  cudaError_t e = allow_smem(out_kernel<Q8>, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(o.C / kTileN, (o.M + kTileM - 1) / kTileM);
+  cfg.blockDim = dim3(kGemmThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = o.mode == kPostLN ? o.C / kTileN : 1;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, out_kernel<Q8>, o);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace mmrp
 
 using namespace mmrp;
 
 extern "C" {
 
 // x (B, Nq, C) bf16; kv (B, Nk, C) or null; key_mask (B, Nk) f32 or null;
-// pos (Nq, C) or null; alpha f32 scalar or null; ln (C) f32;
-// w* (C, C) bf16 nn.Linear weights, b* (C); ctx (round16(B*Nq), C) scratch;
-// out like x. ln_mode: 0 none, 1 pre, 2 post. quant: null, or a QuantArgs
-// (common.cuh) whose w/s are the int8 wq, wk, wv, wo and their scales (the
-// bf16 weight pointers are then unused).
+// pos (Nq, C) or null; alpha f32 scalar or null; ln (C) f32; w* (C, C) bf16
+// nn.Linear weights, b* (C); qkv a bf16 scratch of B (Nq + 2 Nk) C elements
+// (q, then k, then v, head-major); ctx a (B Nq, C) bf16 scratch; out like x.
+// ln_mode: 0 none, 1 pre, 2 post. quant: null, or a QuantArgs (common.cuh)
+// whose w/s are the int8 wq, wk, wv, wo and their scales (the bf16 weight
+// pointers are then unused). C % 128 == 0, C <= 1024, head dim 32 / 64 /
+// 128, 1 <= Nq, Nk <= 512.
 int mmrp_seq_attention(const void* x, const void* kv, const void* key_mask, const void* pos,
                        const void* alpha, const void* ln_s, const void* ln_b, const void* wq,
                        const void* bq, const void* wk, const void* bk, const void* wv,
-                       const void* bv, const void* wo, const void* bo, void* ctx, void* out,
-                       int B, int Nq, int Nk, int C, int heads, int ln_mode,
+                       const void* bv, const void* wo, const void* bo, void* qkv, void* ctx,
+                       void* out, int B, int Nq, int Nk, int C, int heads, int ln_mode,
                        int include_residual, int residual_from_raw, float eps,
                        const void* quant, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (heads < 1 || C % heads || ln_mode < 0 || ln_mode > 2) return (int)cudaErrorInvalidValue;
+  const int D = heads > 0 ? C / heads : 0;
+  if (B < 1 || heads < 1 || C % heads || C % kTileN || C > 8 * kTileN || ln_mode < 0 ||
+      ln_mode > 2 || Nq < 1 || Nq > kMaxTokens || Nk < 1 || Nk > kMaxTokens ||
+      (D != 32 && D != 64 && D != 128))
+    return (int)cudaErrorInvalidValue;
   const QuantArgs* qa = static_cast<const QuantArgs*>(quant);
   if (qa && qa->mode != kQuantOff && qa->mode != kQuantDyn) return (int)cudaErrorInvalidValue;
-  const int qmode = qa ? qa->mode : kQuantOff;
+  const bool q8 = qa && qa->mode == kQuantDyn;
 
-  AttnParams a{};
-  a.x = static_cast<const bf16*>(x);
-  a.kv = static_cast<const bf16*>(kv);
-  a.pos = static_cast<const bf16*>(pos);
-  a.ln_s = static_cast<const float*>(ln_s);
-  a.ln_b = static_cast<const float*>(ln_b);
-  a.wq = static_cast<const bf16*>(wq);
-  a.wk = static_cast<const bf16*>(wk);
-  a.wv = static_cast<const bf16*>(wv);
-  a.bq = static_cast<const bf16*>(bq);
-  a.bk = static_cast<const bf16*>(bk);
-  a.bv = static_cast<const bf16*>(bv);
-  a.key_mask = static_cast<const float*>(key_mask);
-  a.ctx = static_cast<bf16*>(ctx);
-  a.G = B;
-  a.Nq = Nq;
-  a.Nk = Nk;
-  a.C = C;
-  a.heads = heads;
-  a.nW = 1;
-  a.scale = (float)(1.0 / sqrt((double)(C / heads)));
-  a.eps = eps;
-  a.ln_pre = ln_mode == 1;
-  a.qmode = qmode;
-  if (qmode) {
-    a.wq8 = static_cast<const signed char*>(qa->w[0]);
-    a.wk8 = static_cast<const signed char*>(qa->w[1]);
-    a.wv8 = static_cast<const signed char*>(qa->w[2]);
-    a.swq = static_cast<const float*>(qa->s[0]);
-    a.swk = static_cast<const float*>(qa->s[1]);
-    a.swv = static_cast<const float*>(qa->s[2]);
+  QkvParams q{};
+  q.x = static_cast<const bf16*>(x);
+  q.kv = static_cast<const bf16*>(kv);
+  q.pos = static_cast<const bf16*>(pos);
+  q.ln_s = static_cast<const float*>(ln_s);
+  q.ln_b = static_cast<const float*>(ln_b);
+  const void* w3[3] = {wq, wk, wv};
+  const void* b3[3] = {bq, bk, bv};
+  for (int i = 0; i < 3; ++i) {
+    q.w[i] = static_cast<const unsigned char*>(q8 ? qa->w[i] : w3[i]);
+    q.sw[i] = q8 ? static_cast<const float*>(qa->s[i]) : nullptr;
+    q.b[i] = static_cast<const bf16*>(b3[i]);
   }
-  cudaError_t e = launch_attention(a, st);
-  if (e != cudaSuccess) return (int)e;
-
-  EpiParams q{};
-  q.ctx = a.ctx;
-  q.wo = static_cast<const bf16*>(wo);
-  q.bo = static_cast<const bf16*>(bo);
-  q.x = a.x;
-  q.pos = a.pos;
-  q.alpha = static_cast<const float*>(alpha);
-  q.ln_s = a.ln_s;
-  q.ln_b = a.ln_b;
-  q.out = static_cast<bf16*>(out);
-  q.M = B * Nq;
-  q.C = C;
-  q.Nq = Nq;
+  bf16* scratch = static_cast<bf16*>(qkv);
+  q.dst[0] = scratch;
+  q.dst[1] = scratch + (size_t)B * Nq * C;
+  q.dst[2] = q.dst[1] + (size_t)B * Nk * C;
+  q.B = B, q.Nq = Nq, q.Nk = Nk, q.C = C, q.heads = heads;
+  q.ln_pre = ln_mode == 1;
   q.eps = eps;
-  q.mode = ln_mode == 2          ? kPostLN
+  // column tiles per block: one while the blocks are few, more (reusing the
+  // staged rows) once there are over two waves of 132 SMs at one tile each
+  const int tiles = C / kTileN, rb0 = (B * Nq + kTileM - 1) / kTileM;
+  const int rb1 = kv ? (B * Nk + kTileM - 1) / kTileM : 0;
+  q.tiles0 = kv ? tiles : 3 * tiles;
+  q.tiles1 = 2 * tiles;
+  q.per = max(1, min(4, (rb0 * q.tiles0 + rb1 * q.tiles1) / 264));
+  q.groups0 = (q.tiles0 + q.per - 1) / q.per;
+  q.groups1 = (q.tiles1 + q.per - 1) / q.per;
+  q.jobs0 = rb0 * q.groups0;
+  const int jobs = q.jobs0 + rb1 * q.groups1;
+
+  OutParams o{};
+  o.ctx = static_cast<const bf16*>(ctx);
+  o.wo = static_cast<const unsigned char*>(q8 ? qa->w[3] : wo);
+  o.swo = q8 ? static_cast<const float*>(qa->s[3]) : nullptr;
+  o.bo = static_cast<const bf16*>(bo);
+  o.x = q.x;
+  o.pos = q.pos;
+  o.alpha = static_cast<const float*>(alpha);
+  o.ln_s = q.ln_s;
+  o.ln_b = q.ln_b;
+  o.out = static_cast<bf16*>(out);
+  o.M = B * Nq;
+  o.C = C;
+  o.Nq = Nq;
+  o.eps = eps;
+  o.mode = ln_mode == 2          ? kPostLN
            : !include_residual   ? kProjOnly
            : residual_from_raw   ? kResidualRaw
                                  : kResidualBase;
-  q.qmode = qmode;
-  if (qmode) {
-    q.wo8 = static_cast<const signed char*>(qa->w[3]);
-    q.swo = static_cast<const float*>(qa->s[3]);
-  }
-  e = launch_epilogue(q, st);
+
+  cudaError_t e = q8 ? launch_proj<true>(q, jobs, st) : launch_proj<false>(q, jobs, st);
   if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+
+  AttnTileParams t{};
+  t.q = q.dst[0];
+  t.k = q.dst[1];
+  t.v = q.dst[2];
+  t.key_mask = static_cast<const float*>(key_mask);
+  t.ctx = static_cast<bf16*>(ctx);
+  t.heads = heads, t.Nq = Nq, t.Nk = Nk, t.C = C;
+  t.scale = (float)(1.0 / sqrt((double)D));
+  switch (D) {
+    case 32: e = launch_attn<32>(t, B, st); break;
+    case 64: e = launch_attn<64>(t, B, st); break;
+    default: e = launch_attn<128>(t, B, st); break;
+  }
+  if (e != cudaSuccess) return (int)e;
+  e = q8 ? launch_out<true>(o, st) : launch_out<false>(o, st);
+  return (int)e;
 }
 
 }  // extern "C"

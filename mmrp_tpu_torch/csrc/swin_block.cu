@@ -415,14 +415,12 @@ int mmrp_swin_block(const void* x, const void* ln0_s, const void* ln0_b, const v
   a.bias = static_cast<const float*>(bias);
   a.ctx = static_cast<bf16*>(ctx);
   a.G = B * nW;
-  a.Nq = N;
-  a.Nk = N;
+  a.N = N;
   a.C = C;
   a.heads = heads;
   a.nW = nW;
   a.scale = (float)(1.0 / sqrt((double)(C / heads)));
   a.eps = eps;
-  a.ln_pre = 1;
   a.map_h = map_h;
   a.map_w = map_w;
   a.ws = ws;

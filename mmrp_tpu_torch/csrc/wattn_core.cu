@@ -9,7 +9,8 @@
 // dbias[w, h] = sum over images of dS (unscaled, f32). W replaces
 // mmrp_tpu/ops/window_attention.py:_wattn_kernel (window_attention_pallas): the
 // same per-window softmax attention on head-major (B, G, N, d) q/k/v with a
-// (G, N, N) additive bias.
+// (G, N, N) additive bias, on K3's attention tile (attn_tile.cuh: scores and
+// softmax in registers, the bias tile read once per head-window).
 //
 // What bounds them on the H100: bytes. Per window and head the work is two (or,
 // backward, five) 64 x 64 x d products at d = 32, so against each byte read
@@ -37,6 +38,7 @@
 #include <type_traits>
 
 #include "attention.cuh"
+#include "attn_tile.cuh"
 
 namespace mmrp {
 // the same anonymous namespace as attention.cuh's: a second one at global
@@ -312,22 +314,61 @@ struct HeadsParams {
   const bf16* v;
   const float* bias;  // (G, N, N)
   bf16* out;          // (B, G, N, D)
-  int G, N;
+  int B, G, N;
   float scale;
 };
 
-// W: one block per (b, g).
-template <int D>
-__global__ void __launch_bounds__(kThreads) heads_kernel(HeadsParams p) {
+constexpr int kLdBias = kTileRows + 8;  // f32 bias tile rows
+constexpr size_t kHeadsSmem =
+    (size_t)kTileRows * kLdBias * sizeof(float) + 6 * TileLd<kD>::kBytes;
+
+// W: one block per head-window g, on the attention tile (attn_tile.cuh). Its
+// (N x N) bias is read into shared memory once, and the block walks the
+// images b over it; image b + 1's q/k/v are in flight (cp.async) while b's
+// are attended. (Splitting the images into runs, more blocks that each read
+// the bias, measured no faster on an H100.)
+__global__ void __launch_bounds__(128) heads_kernel(HeadsParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const size_t base = (size_t)blockIdx.x * p.N * D;
-  const float* bmat = p.bias + (size_t)(blockIdx.x % p.G) * p.N * p.N;
-  attend<D>(
-      smem, p.N, p.scale, [&](int t) { return p.q + base + (size_t)t * D; },
-      [&](int t) { return p.k + base + (size_t)t * D; },
-      [&](int t) { return p.v + base + (size_t)t * D; },
-      [&](int r, int c) { return bmat[r * p.N + c]; },
-      [&](int t) { return p.out + base + (size_t)t * D; });
+  using L = TileLd<kD>;
+  constexpr int kTileElems = kTileRows * L::kLd;
+  float* bias = reinterpret_cast<float*>(smem);
+  bf16* buf = reinterpret_cast<bf16*>(smem + (size_t)kTileRows * kLdBias * sizeof(float));
+  const int g = blockIdx.x, N = p.N;
+  auto load = [&](int b) {
+    const size_t base = ((size_t)b * p.G + g) * N * kD;
+    const bf16* src[3] = {p.q + base, p.k + base, p.v + base};
+    for (int i = 0; i < 3; ++i)
+      tile_rows_async<kD>(buf + ((b & 1) * 3 + i) * kTileElems, N,
+                          [&](int r) { return src[i] + (size_t)r * kD; });
+  };
+  load(0);
+  cp_async_commit();
+  const float* bg = p.bias + (size_t)g * N * N;
+  for (int i = threadIdx.x; i < kTileRows * kTileRows; i += blockDim.x) {
+    const int r = i / kTileRows, c = i % kTileRows;
+    bias[r * kLdBias + c] = r < N && c < N ? bg[r * N + c] : 0.f;
+  }
+  for (int b = 0; b < p.B; ++b) {
+    if (b + 1 < p.B) {
+      load(b + 1);  // into the buffers image b - 1 freed
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* tiles = buf + (b & 1) * 3 * kTileElems;
+    TileState<kD> st;
+    tile_begin(st, tiles);
+    tile_step(st, tiles + kTileElems, tiles + 2 * kTileElems, 0, N, p.scale,
+              [&](int r, int c) { return bias[r * kLdBias + c]; });
+    bf16* og = p.out + ((size_t)b * p.G + g) * N * kD;
+    tile_finish(st, [&](int r, int c, float v0, float v1) {
+      if (r < N)
+        *reinterpret_cast<__nv_bfloat162*>(og + (size_t)r * kD + c) = __floats2bfloat162_rn(v0, v1);
+    });
+    __syncthreads();
+  }
 }
 
 template <typename Kernel, typename Params>
@@ -408,10 +449,12 @@ int mmrp_window_attention_heads(const void* q, const void* k, const void* v, con
   p.v = static_cast<const bf16*>(v);
   p.bias = static_cast<const float*>(bias2);
   p.out = static_cast<bf16*>(out);
-  p.G = G, p.N = N, p.scale = scale;
-  const dim3 grid(B * G);
+  p.B = B, p.G = G, p.N = N, p.scale = scale;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)launch(heads_kernel<kD>, grid, Smem<kD>::fwd, st, p);
+  const cudaError_t e = allow_smem(heads_kernel, kHeadsSmem);
+  if (e != cudaSuccess) return (int)e;
+  heads_kernel<<<G, 128, kHeadsSmem, st>>>(p);  // one warpgroup: the tile's 4 x 16 rows
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

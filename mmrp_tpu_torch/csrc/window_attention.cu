@@ -50,14 +50,12 @@ int mmrp_window_attention(const void* xw, const void* ln_s, const void* ln_b, co
   a.bias = static_cast<const float*>(bias_full);
   a.ctx = static_cast<bf16*>(ctx);
   a.G = B * nW;
-  a.Nq = N;
-  a.Nk = N;
+  a.N = N;
   a.C = C;
   a.heads = heads;
   a.nW = nW;
   a.scale = (float)(1.0 / sqrt((double)(C / heads)));
   a.eps = eps;
-  a.ln_pre = 1;
   cudaError_t e = launch_attention(a, st);
   if (e != cudaSuccess) return (int)e;
 
@@ -69,9 +67,7 @@ int mmrp_window_attention(const void* xw, const void* ln_s, const void* ln_b, co
   q.out = static_cast<bf16*>(out);
   q.M = B * nW * N;
   q.C = C;
-  q.Nq = N;
-  q.eps = eps;
-  q.mode = include_residual ? kResidualRaw : kProjOnly;
+  q.residual = include_residual;
   e = launch_epilogue(q, st);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

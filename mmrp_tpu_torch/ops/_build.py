@@ -40,7 +40,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "mmrp_window_attention": [_P] * 10 + [_I] * 6 + [_F, _P],
     "mmrp_ln_mlp": [_P] * 8 + [_I] * 5 + [_F, _P],
-    "mmrp_seq_attention": [_P] * 17 + [_I] * 8 + [_F, _P, _P],
+    "mmrp_seq_attention": [_P] * 18 + [_I] * 8 + [_F, _P, _P],
     "mmrp_swin_block": [_P] * 16 + [_I] * 10 + [_F, _P, _P],
     "mmrp_wattn_core_fwd": [_P] * 3 + [_I] * 7 + [_F, _P],
     "mmrp_wattn_core_bwd": [_P] * 6 + [_I] * 8 + [_F, _P],

@@ -14,12 +14,15 @@ sw``, then the bias in f32. The weights are the float ones, quantized here as
 the TPU kernel quantizes them per program, or their int8 copies with
 ``wscales`` (``ops/quant.py``'s caches), which hold the same numbers.
 
-On a CUDA tensor :func:`fused_attention` launches the hand-written kernel in
-``csrc/seq_attention.cu``; on a CPU tensor it runs :func:`attention_plain`,
-the same function in plain PyTorch with the dtype discipline of the JAX
-``xla_equivalent`` (and of ``_qdot`` with ``quant``). Token counts need no
-padding (the TPU kernel wanted multiples of 8); the CUDA kernel takes up to
-64 per sequence.
+On a CUDA tensor :func:`fused_attention` launches the hand-written kernels in
+``csrc/seq_attention.cu`` (the projections on ``csrc/gemm_sm90.cuh``, the
+attention on ``csrc/attn_tile.cuh``); on a CPU tensor it runs
+:func:`attention_plain`, the same function in plain PyTorch with the dtype
+discipline of the JAX ``xla_equivalent`` (and of ``_qdot`` with ``quant``).
+Token counts need no padding (the TPU kernel wanted multiples of 8): the CUDA
+kernels take 1 to 512 per sequence, the model's positions.
+:func:`tile_walk_plain` is the CUDA attention tile's walk over 64-key tiles,
+with its rounding points, in plain PyTorch.
 
 Weights use the nn.Linear layout: each of wq/wk/wv/wo is (C_out, C_in).
 """
@@ -35,6 +38,8 @@ from mmrp_tpu_torch.ops import _build
 from mmrp_tpu_torch.ops.quant import int8_weights, quant_dot
 
 _LN_MODES = {"none": 0, "pre": 1, "post": 2}
+MAX_TOKENS = 512  # tokens per sequence the CUDA kernels take: the model's positions
+TILE = 64  # queries per attention tile, and keys per key tile
 
 
 def _ln(xf, scale, bias, eps):
@@ -100,6 +105,31 @@ def attention_plain(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
     return out.to(dt)
 
 
+def tile_walk_plain(q, k, v, key_mask=None) -> torch.Tensor:
+    """softmax(q k^T d^-1/2 + key_mask) v as the CUDA attention tile walks it
+    (``csrc/attn_tile.cuh``): q, k, v (B, h, N, d), key_mask (B, Nk) additive
+    or None. Key tiles of ``TILE`` in order with a running max and sum in f32;
+    keys past Nk do not exist (they are excluded, not masked); the unnormalized
+    p is rounded to q's dtype for P.V, the sum is of the f32 p, and o / l is
+    rounded once. Returns (B, h, Nq, d) in q's dtype."""
+    B, h, Nq, d = q.shape
+    qf = q.float()
+    m = torch.full((B, h, Nq, 1), -torch.inf)
+    l = torch.zeros((B, h, Nq, 1))
+    o = torch.zeros((B, h, Nq, d))
+    for k0 in range(0, k.shape[2], TILE):
+        s = qf @ k[:, :, k0:k0 + TILE].float().transpose(-1, -2) * d ** -0.5
+        if key_mask is not None:
+            s = s + key_mask.float()[:, None, None, k0:k0 + TILE]
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        o = o * corr + p.to(q.dtype).float() @ v[:, :, k0:k0 + TILE].float()
+        m = m_new
+    return (o / l).to(q.dtype)
+
+
 def fused_attention(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
                     kv: Optional[torch.Tensor] = None,
                     key_mask: Optional[torch.Tensor] = None,
@@ -123,12 +153,12 @@ def fused_attention(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
     _check_form(ln_mode, kv)
     B, Nq, C = x.shape
     Nk = Nq if kv is None else kv.shape[1]
-    if C % num_heads or C // num_heads not in (32, 64, 128) or Nq > 64 or Nk > 64:
+    if C % num_heads or C // num_heads not in (32, 64, 128) or C % 128 or C > 1024 \
+            or not (1 <= Nq <= MAX_TOKENS and 1 <= Nk <= MAX_TOKENS):
         raise ValueError(
-            "fused_attention: the kernel takes head dims 32/64/128 and at most 64 "
-            f"tokens, got C={C}, heads={num_heads}, Nq={Nq}, Nk={Nk}")
-    if quant and C % 32:
-        raise ValueError(f"fused_attention: the int8 kernel takes C % 32 == 0, got C={C}")
+            "fused_attention: the kernel takes head dims 32/64/128, C a multiple of 128 up "
+            f"to 1024 and 1 to {MAX_TOKENS} tokens, got C={C}, heads={num_heads}, Nq={Nq}, "
+            f"Nk={Nk}")
     if ln_mode != "none" and (ln_scale is None or ln_bias is None):
         raise ValueError(f"fused_attention: ln_mode={ln_mode!r} needs ln_scale and ln_bias")
     bf16, f32 = torch.bfloat16, torch.float32
@@ -151,12 +181,15 @@ def fused_attention(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
         ("bo", bo, bf16, (C,)),
     ])
     (_, wq), (_, wk), (_, wv), (_, wo) = weights
-    ctx = torch.empty((_build.round16(B * Nq), C), dtype=bf16, device=x.device)
+    # head-major q, k, v and the (B * Nq, C) context: bf16 intermediates of
+    # the three launches
+    qkv = torch.empty(B * (Nq + 2 * Nk) * C, dtype=bf16, device=x.device)
+    ctx = torch.empty((B * Nq, C), dtype=bf16, device=x.device)
     out = torch.empty_like(x)
     _build.launch(
         "mmrp_seq_attention", x.device,
         *map(_build.ptr, (x, kv, key_mask, pos, alpha, ln_scale, ln_bias, wq, bq, wk,
-                          bk, wv, bv, wo, bo, ctx, out)),
+                          bk, wv, bv, wo, bo, qkv, ctx, out)),
         B, Nq, Nk, C, num_heads, _LN_MODES[ln_mode], int(include_residual),
         int(residual_from_raw), float(eps), _build.addr(qa), _build.stream_of(x))
     if quant:

@@ -1,6 +1,6 @@
 """Where the device time of one flagship forward, or train step, goes.
 
-    python -m mmrp_tpu_torch.profile_forward [--batch 8 64] [--out FILE]
+    python -m mmrp_tpu_torch.profile_forward [--batch 8 64] [--text-len 64 512] [--out FILE]
     python -m mmrp_tpu_torch.profile_forward --train [--batch 64] [--out FILE]
 
 On one CUDA device: builds the flagship model (Swin-B 224 px, ClinicalBERT
@@ -9,12 +9,13 @@ the same weights: the default Swin route (``whole``), the
 K1 + K2 route (``k1k2``, ``whole_block=False``) and the int8 serving mixes
 (``int8_static``, with act_amax calibrated on 8 seeded images by the plain
 f32 Swin forward, and ``int8``; ``MultiModalConfig.from_config``). For each
-route and batch (text length 64) it prints the
+text length (default 64), batch and route it prints the
 forward time without the profiler (median of 10 CUDA-event timings), then
 profiles 5 forwards after 3 warm-ups with ``torch.profiler`` and sums the
 device time of every kernel by kind: the attention phase of the Swin blocks
-(``attention_kernel<32>``, head dim 32) and of BERT / fusion (other head
-dims), the K1 / K3 projection epilogue, K2, the whole-block MLP epilogue,
+(K1's and the whole-block kernel's ``attention_kernel``), K3's three
+launches (the q/k/v GEMM, the attention tile, the output GEMM and its
+epilogue), K1's projection epilogue, K2, the whole-block MLP epilogue,
 library GEMMs of the plain layers, and everything else (copies, casts,
 elementwise), the int8 forms of the whole-block epilogue counted apart.
 Device busy is the sum over kernels; the idle share is set
@@ -51,9 +52,11 @@ from mmrp_tpu_torch.utils.convert import init_params
 KINDS = (  # (kind, test on the kernel name), first match wins
     ("wattn core forward (C-F)", lambda n: "core_fwd_kernel" in n),
     ("wattn core backward (C-B)", lambda n: "core_bwd_kernel" in n or "sum_chunks_kernel" in n),
-    ("swin attention phase", lambda n: "attention_kernel<32>" in n),
-    ("bert/fusion attention phase", lambda n: "attention_kernel" in n),
-    ("K1/K3 projection epilogue", lambda n: "proj_epilogue_kernel" in n),
+    ("swin attention phase", lambda n: "attention_kernel" in n),
+    ("K3 q/k/v GEMM", lambda n: "qkv_kernel<" in n),
+    ("K3 attention tile", lambda n: "attn_kernel<" in n),
+    ("K3 output GEMM + epilogue", lambda n: "out_kernel<" in n),
+    ("K1 projection epilogue", lambda n: "proj_epilogue_kernel" in n),
     ("K2 ln_mlp", lambda n: "ln_mlp_kernel" in n),
     ("whole-block MLP epilogue", lambda n: "block_mlp_kernel" in n),
     ("whole-block MLP epilogue, int8", lambda n: "block_mlp_q8_kernel" in n),
@@ -110,7 +113,8 @@ def profile(fwd, args, reps: int = 5) -> dict:
 def report(rec: dict, ms: float) -> str:
     """Print one record's breakdown; return it as a JSON line."""
     rec["idle_share_vs_unprofiled"] = 1.0 - rec["busy_ms"] / ms
-    print(f"route {rec['route']} batch {rec['batch']}: {ms:.3f} ms, busy "
+    print(f"route {rec['route']} batch {rec['batch']} L{rec.get('text_len', 64)}: {ms:.3f} "
+          f"ms, busy "
           f"{rec['busy_ms']:.3f} ms, profiled span {rec['profiled_span_ms']:.3f} ms"
           + ("" if rec["complete"] else " (the trace lost events)"), flush=True)
     for kind, v in rec["kinds"].items():
@@ -151,23 +155,24 @@ def route_models(dev: torch.device) -> dict:
     return models
 
 
-def forward_lines(card: str, batches, dev: torch.device) -> list:
-    """One record per (route, batch) for the serving forward."""
+def forward_lines(card: str, batches, lengths, dev: torch.device) -> list:
+    """One record per (text length, batch, route) for the serving forward."""
     cfg = MultiModalConfig.flagship()
     models = route_models(dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     lines = []
-    for batch in batches:
-        inputs = (torch.rand((batch, 224, 224, 3), generator=gen, device=dev),
-                  torch.randint(0, cfg.text.vocab_size, (batch, 64), generator=gen,
-                                device=dev),
-                  torch.ones((batch, 64), dtype=torch.int64, device=dev))
-        for route, model in models.items():
-            fwd = serving_forward(model)
-            ms = forward_ms(fwd, inputs)
-            rec = {"card": card, "route": route, "batch": batch, "forward_ms": ms,
-                   **profile(fwd, inputs)}
-            lines.append(report(rec, ms))
+    for L in lengths:
+        for batch in batches:
+            inputs = (torch.rand((batch, 224, 224, 3), generator=gen, device=dev),
+                      torch.randint(0, cfg.text.vocab_size, (batch, L), generator=gen,
+                                    device=dev),
+                      torch.ones((batch, L), dtype=torch.int64, device=dev))
+            for route, model in models.items():
+                fwd = serving_forward(model)
+                ms = forward_ms(fwd, inputs)
+                rec = {"card": card, "route": route, "batch": batch, "text_len": L,
+                       "forward_ms": ms, **profile(fwd, inputs)}
+                lines.append(report(rec, ms))
     return lines
 
 
@@ -207,6 +212,8 @@ def train_lines(card: str, batches, dev: torch.device) -> list:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, nargs="+", default=None)
+    ap.add_argument("--text-len", type=int, nargs="+", default=[64],
+                    help="text lengths of the serving forward (up to 512)")
     ap.add_argument("--train", action="store_true",
                     help="profile the flagship train step (default batch 64)")
     ap.add_argument("--out", type=Path, default=None)
@@ -221,7 +228,7 @@ def main(argv=None) -> None:
     if args.train:
         lines = train_lines(card, args.batch or [64], dev)
     else:
-        lines = forward_lines(card, args.batch or [8, 64], dev)
+        lines = forward_lines(card, args.batch or [8, 64], args.text_len, dev)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text("\n".join(lines) + "\n")

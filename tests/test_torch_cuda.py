@@ -107,6 +107,103 @@ def test_seq_attention_kernel(dev, ln_mode, cross, B, Nq, Nk, C, heads):
     torch.testing.assert_close(got.float(), want.float(), atol=ATOL, rtol=0)
 
 
+def _k3_inputs(gen, dev, ln_mode, cross, B, Nq, Nk, C, heads, full_mask=False):
+    """K3's inputs at one shape: a key mask with 30% of keys masked (key 0 kept),
+    or with sequence 0 masked entirely; pos and alpha for the pre form."""
+    x = _rand(gen, (B, Nq, C), dev)
+    kv = _rand(gen, (B, Nk, C), dev) if cross else None
+    mask = torch.where(torch.rand((B, Nk), generator=gen, device=dev) < 0.3, -1e9, 0.0)
+    mask[:, 0] = 0.0
+    if full_mask:
+        mask[0] = -1e9
+    pos = _rand(gen, (Nq, C), dev, 0.5) if ln_mode == "pre" else None
+    alpha = torch.tensor(0.37, device=dev) if ln_mode == "pre" else None
+    w = []
+    for _ in range(4):
+        w += [_rand(gen, (C, C), dev, C ** -0.5), _rand(gen, (C,), dev, 0.1)]
+    ln = (1 + _rand(gen, (C,), dev, 0.1, torch.float32), _rand(gen, (C,), dev, 0.1, torch.float32))
+    kw = dict(kv=kv, key_mask=mask, pos=pos, alpha=alpha, num_heads=heads, ln_mode=ln_mode,
+              include_residual=not cross, residual_from_raw=ln_mode == "pre")
+    return (x, *ln, *w), kw
+
+
+# token counts around the 64-wide attention tiles, up to the model's 512
+# positions: one tile, one past it (a one-key last tile), two, ragged, eight
+LONG = [64, 65, 128, 136, 512]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("ln_mode,cross,C,heads,Nq,Nk", [
+    *[("post", False, 768, 12, n, n) for n in LONG],     # BERT self-attention
+    ("pre", False, 1024, 8, 136, 136),                   # text enhancer
+    ("post", True, 1024, 8, 512, 49),                    # text -> image cross
+    ("post", True, 1024, 8, 49, 512),                    # image -> text cross, masked
+    ("none", True, 256, 4, 65, 136),
+])
+def test_seq_attention_long_kernel(dev, quant, ln_mode, cross, C, heads, Nq, Nk):
+    """K3 past the old 64-token limit, with sequence 0 fully masked: its rows
+    average exactly its Nk values (keys past Nk in the last tile excluded)."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    args, kw = _k3_inputs(gen, dev, ln_mode, cross, 2, Nq, Nk, C, heads, full_mask=True)
+    kw = dict(kw, quant=quant)
+    counter = "launches_int8" if quant else "launches"
+    before = getattr(tfa.fused_attention, counter)
+    with torch.no_grad():
+        got = tfa.fused_attention(*args, **kw)
+        want = tfa.attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert getattr(tfa.fused_attention, counter) == before + 1
+    tol = INT8_TOL if quant else SWIN_TOL
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_seq_attention_refuses_past_the_positions(dev):
+    gen = torch.Generator(device=dev).manual_seed(13)
+    args, kw = _k3_inputs(gen, dev, "post", False, 1, 513, 513, 128, 2)
+    with pytest.raises(ValueError, match="512"):
+        tfa.fused_attention(*args, **kw)
+
+
+@pytest.mark.cuda
+def test_predict_at_128_tokens(dev):
+    """MMRPredictor.predict on a small model whose widths the kernels take,
+    at text length 128 (K3 refused more than 64 tokens before): the card's
+    bf16 output against the same weights in f32 on the CPU."""
+    import numpy as np
+
+    from mmrp_tpu_torch.api import MMRPredictor, serving_forward
+    from mmrp_tpu_torch.models.multimodal import MultiModalConfig, MultiModalRetrievalModel
+    from mmrp_tpu_torch.models.swin import SwinConfig
+    from mmrp_tpu_torch.models.text_encoder import TextConfig
+    from mmrp_tpu_torch.utils.convert import init_params
+
+    L, B = 128, 2
+    cfg = MultiModalConfig(
+        swin=SwinConfig(img_size=56, embed_dim=64, depths=(2,), num_heads=(2,)),
+        text=TextConfig.small(hidden_dim=256, num_layers=1, num_heads=4, intermediate_dim=512),
+        joint_dim=128, num_fusion_layers=1, num_heads=4, num_classes=5, max_text_len=L)
+    model = MultiModalRetrievalModel(cfg, dtype=torch.bfloat16, device=dev).eval()
+    init_params(model, seed=0)
+    rng = np.random.default_rng(0)
+    img = rng.random((B, 56, 56, 3), dtype=np.float32)
+    ids = rng.integers(0, cfg.text.vocab_size, (B, L)).astype(np.int64)
+    mask = (np.arange(L)[None, :] < np.array([[L], [97]])).astype(np.int64)
+    before = tfa.fused_attention.launches
+    pred = MMRPredictor(model, [f"c{i}" for i in range(5)]).predict(img, ids, mask)
+    torch.cuda.synchronize()
+    assert tfa.fused_attention.launches - before == 1 + 5 * cfg.num_fusion_layers
+    ref = MultiModalRetrievalModel(cfg, device="cpu").eval()
+    ref.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+    want = serving_forward(ref)(torch.from_numpy(img), torch.from_numpy(ids),
+                                torch.from_numpy(mask))
+    got, wj = pred["joint_emb"], want["joint_emb"].numpy()
+    cos = (got * wj).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(wj, axis=1))
+    assert cos.min() > 0.999
+    assert np.abs(pred["probs"] - want["probs"].numpy()).max() < 1e-2
+
+
 def _swin_block(gen, dev, C, heads, H, shift):
     """12 block tensors (nn.Linear layout) and the (nW, h, 49, 49) bias_full."""
     ws, Hd = 7, 4 * C
@@ -231,13 +328,15 @@ def test_core_function_matches_autograd_of_the_plain_version(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shift", [0, 3])
-def test_window_attention_heads_kernel(dev, shift):
+@pytest.mark.parametrize("shift,n_pad,B", [(0, 64, 2), (3, 64, 2), (3, 49, 5)])
+def test_window_attention_heads_kernel(dev, shift, n_pad, B):
+    """W walks the images of each head-window over one bias tile; 5 images
+    take the double buffer through an odd count, 49 tokens a ragged tile."""
     gen = torch.Generator(device=dev).manual_seed(7)
-    B, heads, d, res = 2, 4, 32, 28
+    heads, d, res = 4, 32, 28
     table = _rand(gen, (169, heads), dev, 0.5, torch.float32)
-    bias2 = twa.build_combined_bias(table, 7, res, res, shift, 64)
-    q, k, v = (_rand(gen, (B, bias2.shape[0], 64, d), dev) for _ in range(3))
+    bias2 = twa.build_combined_bias(table, 7, res, res, shift, n_pad)
+    q, k, v = (_rand(gen, (B, bias2.shape[0], n_pad, d), dev) for _ in range(3))
     before = twa.window_attention_heads.launches
     with torch.no_grad():
         got = twa.window_attention_heads(q, k, v, bias2, d ** -0.5)
