@@ -15,7 +15,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    and windows, the pair and windows with calibrated and with per-row
    activation scales; its dynamic windows at stages 2-4 and raw at stage 3),
    then the median CUDA-event time of each and its bound (bytes over 3.35
-   TB/s, or bf16 FLOPs over 989 TFLOP/s plus int8 ops over 1,979 TOPS). Each
+   TB/s, or bf16 FLOPs over 989 TFLOP/s plus int8 ops over 1,979 TOPS), and
+   the device time of one call (the profiler's; the CUDA-event time also holds
+   the host's launch time where the card waits), and for each whole-block
+   flavor the device time of its MLP launch beside that launch's own bound. Each
    int8 case also computes planted faults with its plain version (bf16
    activations; the other kind of activation scale), each of which must break
    the case's limits, and the static pair's difference is split by block;
@@ -27,7 +30,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    route (``whole_block=False``) with the same weights: launch counts per
    predict on each, each request's own id at rank 1, and agreement with the
    plain path (the same weights in f32 on the CPU, where every wrapper runs
-   its plain version). Then the default route again at text length 128 and
+   its plain version). Every route's plan must have no plain route (a call
+   site no kernel takes), and no predict may count a plain call. Then the
+   default route again at text length 128 and
    512 (the JAX serving default): launch counts, rank 1 and the same
    agreement with the plain path.
 4b. int8 serving: ``act_amax`` calibrated on 8 seeded images by the plain
@@ -38,7 +43,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    each request's own id at rank 1 of a gallery that holds its int8
    embedding, and joint_emb cosine > 0.995 against the f32 unquantized plain
    path, and ``int8_static`` again at text length 512. Then one Swin-B
-   forward at ``SwinConfig(quant="int8")``: 22 dynamic whole-block launches.
+   forward at ``SwinConfig(quant="int8")``: 22 dynamic whole-block launches,
+   and one Swin-T forward (C 96 / 192 / 384 / 768: K1 + K2 at widths that
+   are not multiples of 128) with every step on a kernel, its launches
+   counted and its pooled features against its plain route (cosine).
    Embed pairs/s of every route at batch 8 and 64 (the default route and
    ``int8_static`` also at text length 128 and 512) and the top-10 latency
    over the gallery, for information.
@@ -155,6 +163,9 @@ EXPECTED = {
              "fused_swin_block_chain": 18, "fused_swin_block_windows": 2},
     "swin_int8": {**ZERO, "fused_window_attention": 2, "fused_ln_mlp": 2,
                   "fused_swin_block_windows_dynamic": 22},
+    # Swin-T: K1 + K2 at stages 1-2 (C 96, 192), 6 chain steps, 2 windows
+    "swin_tiny": {"fused_window_attention": 4, "fused_ln_mlp": 4, "fused_swin_block_chain": 6,
+                  "fused_swin_block_windows": 2},
 }
 # the same paths at longer text: every launch count is the text length's own
 for _L in TEXT_LENGTHS[1:]:
@@ -277,6 +288,36 @@ def cuda_launches(torch, fn):
     n = sum(e.count for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA)
     return n or None
+
+
+def device_ms_by_kernel(torch, fn, reps: int = 5) -> dict:
+    """Device ms per call of fn by CUDA kernel name (the profiler's sums over
+    ``reps`` calls after one warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+            out[e.key] = out.get(e.key, 0.0) + us / 1e3 / reps
+    return out
+
+
+def mlp_launch_work(M: int, C: int, blocks: int, int8: bool):
+    """(bf16 FLOPs, int8 ops, bytes) of the whole-block call's MLP launch(es)
+    (``block_mlp_kernel`` / ``block_mlp_q8_kernel``) over M rows of width C:
+    proj, FC1 and FC2, 18 M C^2 operations a block; the context and the
+    residual read once, the weights read once (int8: one byte each), the
+    output written once."""
+    ops = 18 * M * C * C * blocks
+    nbytes = blocks * (3 * M * C * 2 + 9 * C * C * (1 if int8 else 2))
+    return (0, ops, nbytes) if int8 else (ops, 0, nbytes)
 
 
 def attn_flops(M: int, Nk: int, C: int, kv_rows: int) -> int:
@@ -461,6 +502,16 @@ def main() -> int:
         """(bf16 attention FLOPs, int8 GEMM ops) of one W8A8 block."""
         return 4 * M * ws * ws * C, 24 * M * C * C
 
+    def block_work(M, C, blocks=1):
+        """(bf16 FLOPs, int8 ops, the MLP launch's work) of a whole-block
+        call over `blocks` bf16 blocks of M rows."""
+        return blocks * block_flops(M, C), 0, mlp_launch_work(M, C, blocks, False)
+
+    def block_work8(M, C, blocks=1):
+        """The same for W8A8 blocks."""
+        flops, ops8 = block_ops8(M, C)
+        return blocks * flops, blocks * ops8, mlp_launch_work(M, C, blocks, True)
+
     def int8_block(blk):
         """The block with its GEMM weights as int8 caches, and their scales."""
         blk, scales = list(blk), []
@@ -487,7 +538,7 @@ def main() -> int:
     pair_args = (x, blk0, bias0, blk1, bias1, heads, ws, 3)
     cases.append(("fused_swin_block_pair", f"map({B},{res},{res},{C}) h{heads}", (1, 0),
                   lambda a=pair_args: SP.fused_swin_block_pair(*a),
-                  lambda a=pair_args: SP.pair_plain(*a), (2 * block_flops(B * res * res, C), 0)))
+                  lambda a=pair_args: SP.pair_plain(*a), block_work(B * res * res, C, 2)))
     (q0, s0), (q1, s1) = int8_block(blk0), int8_block(blk1)
     pair8 = (x, q0, bias0, q1, bias1, heads, ws, 3)
     pairf = (x, float_block(q0, s0), bias0, float_block(q1, s1), bias1, heads, ws, 3)
@@ -500,7 +551,7 @@ def main() -> int:
                       f"{label}", (n, 0),
                       lambda a=pair8, k=kw8: SP.fused_swin_block_pair(*a, **k),
                       lambda a=pair8, k=kw8: SP.pair_plain(*a, **k),
-                      tuple(2 * v for v in block_ops8(B * res * res, C)),
+                      block_work8(B * res * res, C, 2),
                       {"bf16 activations": lambda a=pairf: SP.pair_plain(*a),
                        "other activation scales": lambda a=pair8, k=other: SP.pair_plain(*a, **k)}))
     # where the static pair's difference arises: its first launch is the
@@ -533,7 +584,7 @@ def main() -> int:
         cases.append(("fused_swin_block_windows_dynamic", f"xw({B},{nW},49,{C}) h{heads}",
                       (n, 0), lambda a=args, k=kw8: SB.fused_swin_block_windows(*a, **k),
                       lambda a=args, k=kw8: SB.swin_block_plain(*a, **k),
-                      block_ops8(B * nW * ws * ws, C),
+                      block_work8(B * nW * ws * ws, C),
                       {"bf16 activations": lambda a=argsf: SB.swin_block_plain(*a)}))
     # stage 3: 18 chain steps, rolling into the shifted frame and back
     C, heads, res = 512, 16, 14
@@ -543,7 +594,7 @@ def main() -> int:
         cases.append(("fused_swin_block_chain", f"map({B},{res},{res},{C}) h{heads} "
                       f"roll {roll:+d}", (9, 0),
                       lambda a=args: SP.fused_swin_block_chain(*a),
-                      lambda a=args: SP.chain_plain(*a), (block_flops(B * res * res, C), 0)))
+                      lambda a=args: SP.chain_plain(*a), block_work(B * res * res, C)))
         q8, sc = int8_block(blk)
         argsf = (args[0], float_block(q8, sc), *args[2:])
         args = (args[0], q8, bias, heads, ws, roll)
@@ -551,7 +602,7 @@ def main() -> int:
         cases.append(("fused_swin_block_chain_static", f"map({B},{res},{res},{C}) h{heads} "
                       f"roll {roll:+d}", (9, 0),
                       lambda a=args, k=kw8: SP.fused_swin_block_chain(*a, **k),
-                      lambda a=args, k=kw8: SP.chain_plain(*a, **k), block_ops8(B * res * res, C),
+                      lambda a=args, k=kw8: SP.chain_plain(*a, **k), block_work8(B * res * res, C),
                       {"bf16 activations": lambda a=argsf: SP.chain_plain(*a),
                        "per-row scales": lambda a=args, k=dict(kw8, act_scales=None):
                        SP.chain_plain(*a, **k)}))
@@ -561,14 +612,14 @@ def main() -> int:
     cases.append(("fused_swin_block_raw", f"map({B},{res},{res},{C}) h{heads}", (0, 0),
                   lambda a=args: SB.fused_swin_block_raw(*a),
                   lambda a=args: SB.raw_plain(*a[:-2], num_heads=a[-2], ws=a[-1]),
-                  (block_flops(B * res * res, C), 0)))
+                  block_work(B * res * res, C)))
     args = (x3, *q8, bias, heads, ws)
     argsf = (x3, *float_block(q8, sc), bias)
     kw8 = dict(quant=True, wscales=sc)
     cases.append(("fused_swin_block_raw_dynamic", f"map({B},{res},{res},{C}) h{heads}", (0, 0),
                   lambda a=args, k=kw8: SB.fused_swin_block_raw(*a, **k),
                   lambda a=args, k=kw8: SB.raw_plain(*a[:-2], num_heads=a[-2], ws=a[-1], **k),
-                  block_ops8(B * res * res, C),
+                  block_work8(B * res * res, C),
                   {"bf16 activations": lambda a=argsf, h=heads: SB.raw_plain(*a, num_heads=h,
                                                                              ws=ws)}))
     # stage 4: the window is the whole 7 x 7 map, so no shift and no roll
@@ -577,7 +628,7 @@ def main() -> int:
     args = (rnd((B, 1, 49, C)), *blk, bias, heads)
     cases.append(("fused_swin_block_windows", f"xw({B},1,49,{C}) h{heads}", (2, 0),
                   lambda a=args: SB.fused_swin_block_windows(*a),
-                  lambda a=args: SB.swin_block_plain(*a), (block_flops(B * 49, C), 0)))
+                  lambda a=args: SB.swin_block_plain(*a), block_work(B * 49, C)))
     q8, sc = int8_block(blk)
     argsf = (args[0], *float_block(q8, sc), bias, heads)
     args = (args[0], *q8, bias, heads)
@@ -588,14 +639,14 @@ def main() -> int:
         other = dict(kw8, act_scales=None if a8 else acts)
         cases.append(("fused_swin_block_windows_static", f"xw({B},1,49,{C}) h{heads} {label}",
                       (n, 0), lambda a=args, k=kw8: SB.fused_swin_block_windows(*a, **k),
-                      lambda a=args, k=kw8: SB.swin_block_plain(*a, **k), block_ops8(B * 49, C),
+                      lambda a=args, k=kw8: SB.swin_block_plain(*a, **k), block_work8(B * 49, C),
                       {"bf16 activations": lambda a=argsf: SB.swin_block_plain(*a),
                        "other activation scales": lambda a=args, k=other:
                        SB.swin_block_plain(*a, **k)}))
 
     per_kernel, problems = {}, []
     with torch.inference_mode():
-        for name, label, (calls, calls_k1k2, *by_len), kern, plain, (flops, ops8), *faults \
+        for name, label, (calls, calls_k1k2, *by_len), kern, plain, (flops, ops8, *mlp), *faults \
                 in cases:
             by_len = by_len[0] if by_len else {}
             got = kern()
@@ -632,6 +683,18 @@ def main() -> int:
                 n_cuda = cuda_launches(torch, kern)
                 k3_launches[f"{name} {label}"] = n_cuda
                 per_call = f"  CUDA launches per call {n_cuda}"
+            # device time of one call by CUDA kernel (the profiler's): the CUDA-event
+            # time above also holds the host's launch time where the card waits
+            split = device_ms_by_kernel(torch, kern)
+            extra = dict(device_ms=sum(split.values()))
+            per_call += f"  device {extra['device_ms']:.4f} ms"
+            if mlp:  # a whole-block call: its MLP launch on its own
+                (m_flops, m_ops8, m_bytes), = mlp
+                extra.update(mlp_ms=sum(v for k, v in split.items() if "block_mlp" in k),
+                             mlp_bound_ms=max((m_flops / PEAK_FLOPS + m_ops8 / PEAK_INT8),
+                                              m_bytes / PEAK_BYTES) * 1e3)
+                per_call += (f", MLP launch {extra['mlp_ms']:.4f} ms (its bound "
+                             f"{extra['mlp_bound_ms']:.4f} ms)")
             log(f"kernel {name:24s} {label:36s} max_abs_err {err:.3e} max_rel_err "
                 f"{rel:.3e} (tol {tol:.3e})" + (f" share > {sharp:g} {share:.3e} (max "
                                                f"{share_max:g})" if ops8 else "") +
@@ -655,8 +718,9 @@ def main() -> int:
             # (raw) is recorded per call
             n = calls if PATH_OF[name] else 1
             for key, val in (("ms", ms), ("plain_ms", plain_ms), ("flop_ms", flop_ms),
-                             ("byte_ms", byte_ms), ("bound_ms", max(flop_ms, byte_ms))):
-                agg[key] += n * val
+                             ("byte_ms", byte_ms), ("bound_ms", max(flop_ms, byte_ms)),
+                             *extra.items()):
+                agg[key] = agg.get(key, 0.0) + n * val
                 for length, c in by_len.items():  # K3: per predict at each text length
                     at = agg.setdefault("by_text_length", {}).setdefault(length, {})
                     at[key] = at.get(key, 0.0) + c * val
@@ -680,6 +744,20 @@ def main() -> int:
     model_k1k2.load_state_dict(model.state_dict())
     routes = {"whole": model, "k1k2": model_k1k2}
     log(f"K1 + K2 route: Swin stage routes {stage_routes(cfg_k1k2.swin)}")
+
+    def no_plain_route(route, m):
+        """The flagship's plan on this route: every kernel call site on a
+        kernel (or a JAX W8A8 XLA) route, none on a plain one."""
+        counts = {}
+        for r in m.routes.values():
+            counts[r] = counts.get(r, 0) + 1
+        log(f"{route} route: call sites by route {counts}")
+        plain = [site for site, r in m.routes.items() if r == "plain"]
+        if plain:
+            fail(f"{route} route: call sites on a plain route: {plain}")
+
+    for route, m in routes.items():
+        no_plain_route(route, m)
 
     import numpy as np
 
@@ -712,11 +790,20 @@ def main() -> int:
         "fused_swin_block_pair_static": (SP.fused_swin_block_pair, "launches_static"),
     }
 
+    plain_counters = (K1.fused_window_attention_windows, K2.fused_ln_mlp_residual,
+                      K3.fused_attention, SB.fused_swin_block_windows, SB.fused_swin_block_raw,
+                      SP.fused_swin_block_chain, SP.fused_swin_block_pair)
+
     def reset_counts():
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
+        for fn in plain_counters:
+            fn.plain_calls = 0
 
     def read_counts():
+        plain = {fn.__name__: fn.plain_calls for fn in plain_counters if fn.plain_calls}
+        if plain:
+            fail(f"calls on a plain route: {plain}")
         return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
 
     preds, launches = {}, {}
@@ -824,6 +911,7 @@ def main() -> int:
             fail(f"{route}: act_amax did not round-trip through {amax_path}")
         m8 = MultiModalRetrievalModel(qcfg, dtype=bf16, device=dev).eval()
         m8.load_state_dict(state)
+        no_plain_route(route, m8)
         routes[route] = m8
         emb8 = MMRPredictor(m8, labels).embed(images, ids, mask)["joint_emb"]
         engine8 = RetrievalEngine(np.concatenate([gallery, emb8]), gallery_ids, device=dev)
@@ -874,7 +962,29 @@ def main() -> int:
     log(f"swin_int8: global cosine against the bf16 encoder min {cos:.6f} (> {INT8_COS_MIN})")
     if not cos > INT8_COS_MIN:
         fail("swin_int8: the dynamic int8 encoder strays from the bf16 one")
-    del enc, out, img_t, ref_global, state, m8
+    # Swin-T (C 96 / 192 / 384 / 768, K1 + K2 at stages 1-2: widths that are
+    # not multiples of 128) on its kernels, against its plain route
+    tiny = SwinConfig.tiny()
+    enc_t = SwinEncoder(tiny, dtype=bf16, device=dev).eval()
+    init_params(enc_t, seed=SEED)
+    enc_p = SwinEncoder(dataclasses.replace(tiny, use_pallas=False), dtype=bf16,
+                        device=dev).eval()
+    enc_p.load_state_dict(enc_t.state_dict())
+    with torch.inference_mode():
+        reset_counts()
+        out = enc_t(img_t)["global"].float()
+        torch.cuda.synchronize()
+        launches["swin_tiny"] = {k: v for k, v in read_counts().items() if v}
+        want = enc_p(img_t)["global"].float()
+    log(f"launches in one Swin-T forward (batch {B}): {launches['swin_tiny']}")
+    if launches["swin_tiny"] != EXPECTED["swin_tiny"]:
+        fail(f"swin_tiny: launch counts {launches['swin_tiny']}, "
+             f"expected {EXPECTED['swin_tiny']}")
+    cos = torch.nn.functional.cosine_similarity(out, want, dim=1).min().item()
+    log(f"swin_tiny: global cosine against its plain route min {cos:.6f} (> {EMB_COS_MIN})")
+    if not torch.isfinite(out).all() or not cos > EMB_COS_MIN:
+        fail("swin_tiny: the kernel route strays from the plain one")
+    del enc, out, img_t, ref_global, state, m8, enc_t, enc_p, want
 
     # throughput of every route (the default and int8_static also at the
     # longer text lengths) and retrieval latency, for information
@@ -1156,7 +1266,9 @@ def main() -> int:
             "library_ms": agg.get("library_ms"), "per": per_label[path],
             "path": path or "none",
             "launches_by_path": {k: v.get(name, 0) for k, v in launches.items()},
-            "launches_train": train_launches[name], "train_steps": steps, **extra})
+            "launches_train": train_launches[name], "train_steps": steps,
+            **{k: agg[k] for k in ("device_ms", "mlp_ms", "mlp_bound_ms") if k in agg},
+            **extra})
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

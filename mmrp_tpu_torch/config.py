@@ -1,20 +1,33 @@
-"""Settings of the joint train step and of the served model.
+"""Settings of the served model and of the joint train step.
 
 Counterpart of the fields of ``mmrp_tpu/config.py::Config`` that
-``train/joint.py``, ``train/state.py`` and ``MultiModalConfig.from_config``
-read, under the same names and defaults. Loading a YAML file is not ported.
+``MultiModalConfig.from_config``, ``train/joint.py`` and ``train/state.py``
+read, under the same names and defaults. :meth:`Config.load` reads the JAX
+package's flat YAML files (``configs/config.yaml``) without PyYAML.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, fields
+from typing import Any, Dict, Optional
 
 
 @dataclass(frozen=True)
 class Config:
     lr: float = 2e-5
     seed: int = 2709
+    # the model (MultiModalConfig.from_config)
+    num_fusion_layers: int = 5
+    image_backbone: str = "swin"  # swin | swin_small | swin_tiny | swin_micro | medclip (a Swin-Tiny)
+    modality: str = "multimodal"  # multimodal | image | text
+    joint_dim: int = 1024
+    num_heads: int = 8
+    text_dim: int = 512  # longest text sequence
+    use_shared_ffn: bool = False  # not ported: raises where the model is built
+    use_cls_only: bool = False  # not ported: raises where the model is built
+    image_size: int = 224
+    use_pallas_attention: bool = True  # False: every Swin step on its plain version
+    remat_backbone: bool = False  # not ported: raises in from_config
     # serving precision (MultiModalConfig.from_config): "none" = bf16; "int8" = W8A8 in the text tower (K3's
     # in-kernel form and the FFN) and the fusion stack; "int8_static" = that
     # and static W8A8 in the Swin whole-block kernels, with the calibrated
@@ -37,10 +50,99 @@ class Config:
     kg_weight: float = 0.1
     kg_method: str = "cosine"
     adam_mu_bf16: bool = True  # Adam's first moment stored in bf16
-    augment: bool = False
+    augment: bool = False  # the train step refuses True (train/joint.py)
 
     def __post_init__(self):
-        if self.augment:
-            raise NotImplementedError(
-                "augment=True needs ops/preprocess.py::augment_batch, which is not ported "
-                "(ROADMAP.md Queue 1 item 5)")
+        if self.modality not in ("multimodal", "image", "text"):
+            raise ValueError(f"invalid modality: {self.modality!r}")
+
+    @staticmethod
+    def load(path: str) -> "Config":
+        """A config file of flat ``key: value`` lines (``#`` comments, quoted
+        strings, bools, ints and floats such as ``2.0e-5``), as
+        ``mmrp_tpu.config.Config.load`` reads it: values coerced to the field
+        types, omitted fields at their defaults, and a warning for every key
+        that is not a field here (the JAX package's fields this port does not
+        have yet among them)."""
+        raw = parse_flat_yaml(path)
+        field_map = {f.name: f for f in fields(Config)}
+        unknown = sorted(set(raw) - set(field_map))
+        if unknown:
+            print(f"[WARN] Unknown keys in config file (ignored): {unknown}")
+        data: Dict[str, Any] = {}
+        used_defaults = []
+        for name, fld in field_map.items():
+            if name in raw:
+                data[name] = _coerce(raw[name], fld.type)
+            else:
+                used_defaults.append(name)
+        if used_defaults:
+            print("Using default values for:", ", ".join(used_defaults))
+        return Config(**data)
+
+
+def _coerce(raw: Any, target_type: Any) -> Any:
+    """``mmrp_tpu.config._coerce``: a parsed scalar to the annotated field type
+    (best effort; a value that does not convert is kept as it is)."""
+    if raw is None:
+        return None
+    target = target_type
+    try:
+        if target in ("float", float):
+            return float(raw)
+        if target in ("int", int):
+            return int(raw)
+        if target in ("bool", bool):
+            if isinstance(raw, bool):
+                return raw
+            if isinstance(raw, str):
+                return raw.strip().lower() in ("true", "1", "yes", "y")
+            return bool(raw)
+        if target in ("str", str):
+            return str(raw)
+    except (TypeError, ValueError):
+        return raw
+    return raw
+
+
+def _scalar(text: str) -> Any:
+    """One YAML scalar as ``yaml.safe_load`` reads the forms these files use:
+    quoted strings, true / false, null, ints, floats, else a bare string."""
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "\"'":
+        return text[1:-1]
+    low = text.lower()
+    if low in ("true", "yes", "on"):
+        return True
+    if low in ("false", "no", "off"):
+        return False
+    if low in ("null", "~", ""):
+        return None
+    for cast in (int, float):
+        try:
+            return cast(text)
+        except ValueError:
+            pass
+    return text
+
+
+def parse_flat_yaml(path: str) -> Dict[str, Any]:
+    """``key: value`` per line, ``#`` comments (outside quotes) and blank
+    lines skipped; a value of its own line is a scalar (:func:`_scalar`)."""
+    out: Dict[str, Any] = {}
+    with open(path, "r", encoding="utf-8") as fh:
+        for n, line in enumerate(fh, 1):
+            body, quote = [], None
+            for ch in line.rstrip("\n"):
+                if quote is None and ch == "#":
+                    break
+                if ch in "\"'":
+                    quote = None if quote == ch else (ch if quote is None else quote)
+                body.append(ch)
+            text = "".join(body).strip()
+            if not text:
+                continue
+            if line[:1].isspace() or ":" not in text:
+                raise ValueError(f"{path}:{n}: expected a flat 'key: value' line, got {line!r}")
+            key, _, value = text.partition(":")
+            out[key.strip()] = _scalar(value.strip())
+    return out

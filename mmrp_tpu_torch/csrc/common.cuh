@@ -1,7 +1,9 @@
 // Shared device helpers for the port's Hopper kernels (sm_90a).
 //
-// Every GEMM inside a kernel is a WMMA bf16 16x16x16 tile product with f32
-// accumulation (mma.sync on the tensor cores). B operands are nn.Linear
+// The GEMMs of the attention phases (attention.cuh, wattn_core.cu) are WMMA
+// bf16 16x16x16 tile products with f32 accumulation (mma.sync on the tensor
+// cores); the projections and MLPs run on wgmma (gemm_sm90.cuh,
+// mlp_sm90.cuh). B operands are nn.Linear
 // weights, (out_features, in_features) row-major, which is a column-major
 // (in, out) matrix: element (k, n) of B sits at w[n * ldb + k]. That lets the
 // kernels read weight tiles straight from global memory (L2-resident at
@@ -96,67 +98,6 @@ __device__ __forceinline__ void row_stats(Get get, int n, float eps, float& mean
     q += d * d;
   }
   rstd = rsqrtf(warp_sum(q) / (float)n + eps);
-}
-
-// The MLP core of K2 (ln_mlp.cu) and of the whole Swin block (swin_block.cu),
-// on a tile of kMlpRows rows: acc (f32, ld lda) += gelu_tanh(z W1^T + b1) W2^T
-// over hidden columns [n_begin, n_end), walked in chunks of kMlpChunk: FC1
-// chunk (one 16-wide tile per warp) -> bias + GELU in f32 -> bf16 chunk in
-// shared memory -> FC2 accumulated onto acc. The hidden activation never
-// leaves shared memory. z is bf16 (ld ldz); hf and hs are the chunk's f32 and
-// bf16 staging tiles. W1 (Hd, C) and W2 (C, Hd) are nn.Linear weights.
-constexpr int kMlpRows = 16;
-constexpr int kMlpChunk = 128;
-static_assert(kMlpChunk == kWarps * 16, "one FC1 tile per warp");
-
-struct MlpSmem {
-  size_t z, acc, hf, hs, total;
-};
-
-// Shared-memory layout of one kMlpRows-row MLP tile at width C.
-__host__ __device__ inline MlpSmem mlp_smem(int C) {
-  MlpSmem s;
-  size_t off = 0;
-  s.z = off;
-  off += align128((size_t)kMlpRows * (C + 8) * sizeof(bf16));
-  s.acc = off;
-  off += align128((size_t)kMlpRows * (C + 4) * sizeof(float));
-  s.hf = off;
-  off += align128((size_t)kMlpRows * (kMlpChunk + 4) * sizeof(float));
-  s.hs = off;
-  off += align128((size_t)kMlpRows * (kMlpChunk + 8) * sizeof(bf16));
-  s.total = off;
-  return s;
-}
-
-__device__ inline void mlp_hidden_chunks(const bf16* z, int ldz, float* acc, int lda, float* hf,
-                                         bf16* hs, const bf16* w1, const bf16* b1,
-                                         const bf16* w2, int C, int Hd, int n_begin,
-                                         int n_end) {
-  const int warp = threadIdx.x >> 5;
-  for (int n0 = n_begin; n0 < n_end; n0 += kMlpChunk) {
-    {  // FC1 chunk: warp w computes hidden columns [n0 + 16w, n0 + 16w + 16)
-      FragAcc h;
-      wmma::fill_fragment(h, 0.f);
-      mma_bcol(h, z, ldz, w1 + (size_t)(n0 + warp * 16) * C, C, C);
-      wmma::store_matrix_sync(hf + warp * 16, h, kMlpChunk + 4, wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < kMlpRows * kMlpChunk; i += kThreads) {
-      const int r = i / kMlpChunk, c = i % kMlpChunk;
-      hs[(size_t)r * (kMlpChunk + 8) + c] =
-          to_bf(gelu_tanh(hf[(size_t)r * (kMlpChunk + 4) + c] + to_f(b1[n0 + c])));
-    }
-    __syncthreads();
-    // FC2: acc[:, 16t:16t+16] += hidden chunk @ W2^T[chunk, 16t:16t+16]
-    for (int t = warp; t < C / 16; t += kWarps) {
-      FragAcc o;
-      wmma::load_matrix_sync(o, acc + t * 16, lda, wmma::mem_row_major);
-      mma_bcol(o, hs, kMlpChunk + 8, w2 + (size_t)t * 16 * Hd + n0, Hd, kMlpChunk);
-      wmma::store_matrix_sync(acc + t * 16, o, lda, wmma::mem_row_major);
-    }
-    __syncthreads();
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -281,6 +222,14 @@ template <typename Kernel>
 __host__ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// The SM count of the current device, into *sms.
+__host__ inline cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
 constexpr size_t kMaxSmem = 232448;  // 227 KB, the most one block may use on sm_90

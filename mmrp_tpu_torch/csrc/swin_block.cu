@@ -25,28 +25,33 @@
 // 10 GFLOP of GEMMs (8 C^2 + 16 C^2 flops per token for qkv/proj and the MLP,
 // over 6272 / 1568 / 392 tokens at C = 256 / 512 / 1024), about 10 us at the
 // 989 TFLOP/s bf16 peak; its weights are 1.6 / 6.3 / 25.2 MB (0.5 / 1.9 /
-// 7.5 us at 3.35 TB/s). So every flavor is compute-bound. Design, two
-// launches per block:
+// 7.5 us at 3.35 TB/s). So every flavor is compute-bound, and two thirds of
+// the FLOPs are the MLP's. Design, two launches per block:
 //   attention_kernel (attention.cuh, K1's attention phase) — one block per
 //     (window, head), LN0 rows gathered from the map into shared memory, this
 //     head's q/k/v, scores and softmax in shared memory; the C-wide context
 //     (bf16, as the TPU kernel casts it) is the one intermediate in memory;
-//   block_mlp_kernel — a cluster of S blocks per 16 window-ordered rows:
-//     proj + bias + the gathered residual into an f32 tile, LN1 of it to
-//     bf16, then the hidden dimension in chunks of 128 (FC1 -> bias + GELU in
-//     f32 -> bf16 chunk -> FC2 accumulated onto the f32 tile), and
-//     bf16(tile + b2) scattered to the destination rows. The 4C-wide hidden
-//     never leaves shared memory. At C = 1024 a block uses 111,616 bytes.
-// GEMMs are WMMA bf16 tiles with f32 accumulation, weights read from L2.
-// M / 16 row tiles are few at the late stages (25 at stage 4, batch 8: the
-// occupancy trap of K2 at the fusion FFN), so the host gives each row tile a
-// cluster of S = 1..8 blocks, enough to put about four blocks on every SM:
-// rank q computes proj columns [q C/S, (q+1) C/S) and hidden chunks
-// [q Hd/S, (q+1) Hd/S); the blocks exchange proj columns and reduce their FC2
-// partial sums (in rank order) through distributed shared memory.
+//   block_mlp_kernel — the MLP half on wgmma (mlp_sm90.cuh): a cluster of S
+//     blocks, one warpgroup each, per 64 window-ordered rows, S splitting the
+//     hidden dimension. Rank q computes proj column tiles q, q + S, ... on
+//     wgmma (the context rows and Wproj streamed through the ring), adds
+//     b_proj and the gathered residual into y in f32 (an f32 scratch, so
+//     y is rounded once, at the end); after a cluster barrier each rank
+//     LayerNorms its 64 / S rows of y into bf16 LN1(y) (a bf16 scratch); after
+//     another, mlp_sm90.cuh's FC1 -> GELU -> on-chip hidden slice -> FC2 with
+//     the ranks' partial sums added in rank order, and each rank writes
+//     bf16(y + FC2 + b2) of its rows to their destination rows. The scratch
+//     rows stay in L2; the 4C-wide hidden never leaves the chip.
+// The static W8A8 form with calibrated activation scales runs the same
+// kernel in int8 (the context and LN1(y) quantized as they are written to
+// the scratch, the hidden as it leaves FC1). The forms that need a row's
+// scale first (per-row static scales, the dynamic _qdot) run
+// block_mlp_q8_kernel: a cluster of S blocks per 16 rows on int8 mma.sync,
+// described below.
 #include <cooperative_groups.h>
 
 #include "attention.cuh"
+#include "mlp_sm90.cuh"
 
 namespace mmrp {
 // the same anonymous namespace as attention.cuh's: a second one at global
@@ -55,7 +60,7 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kRows = kMlpRows;  // rows per epilogue block
+constexpr int kRows = 16;  // rows per block of the int8 per-row epilogue
 
 struct BlockParams {
   const bf16* x;       // block input: (B * nW * N, C) windows, or the (B, H, W, C) map
@@ -69,12 +74,15 @@ struct BlockParams {
   const bf16* w2;      // (C, Hd)
   const bf16* b2;      // (C,)
   bf16* out;           // like x
+  float* y;            // (M, C) f32 scratch: x + proj + b_proj
+  unsigned char* z;    // (M, C) scratch: bf16 LN1(y), or its int8 form
+  signed char* ctx8;   // (M, C) scratch: the int8 context (static W8A8)
   int M, C, Hd, N, nW;
   int map_h, map_w, ws, roll_h, roll_w;  // map_h == 0: rows in window order, no roll
   float eps;
-  // W8A8 (block_mlp_q8_kernel): int8 weights + per-output-channel scales of
-  // proj / FC1 / FC2, and each GEMM's static activation scale (inv > 0) or
-  // per-row scales (act = inv = 0)
+  // W8A8: int8 weights + per-output-channel scales of proj / FC1 / FC2, and
+  // each GEMM's static activation scale (inv > 0) or per-row scales (act =
+  // inv = 0)
   int qmode;
   const signed char *wproj8, *w18, *w28;
   const float *sproj, *s1, *s2;
@@ -87,99 +95,157 @@ __device__ inline size_t block_row(const BlockParams& p, int r, bool dst) {
                  dst ? p.roll_w : 0);
 }
 
-__global__ void __launch_bounds__(kThreads) block_mlp_kernel(BlockParams p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const MlpSmem L = mlp_smem(p.C);
-  float* acc = reinterpret_cast<float*>(smem + L.acc);  // f32 y, then y + FC2
-  bf16* z = reinterpret_cast<bf16*>(smem + L.z);        // bf16 LN1(y)
-  float* hf = reinterpret_cast<float*>(smem + L.hf);
-  bf16* hs = reinterpret_cast<bf16*>(smem + L.hs);
-  const int lda = p.C + 4, ldz = p.C + 8;
-  const int row0 = (blockIdx.x / S) * kRows;
-  const int cols = p.C / S, c0 = rank * cols;  // this rank's proj and output columns
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+// The MLP half of the block on one 64-row tile and one cluster rank; Q8: the
+// static W8A8 form with static activation scales for proj, FC1 and FC2;
+// kPart: C % 128 != 0 (mlp_sm90.cuh::stream_tiles).
+template <bool Q8, bool kPart>
+__global__ void __launch_bounds__(kGemmThreads, 1) block_mlp_kernel(BlockParams p) {
+  using Acc = typename std::conditional<Q8, int, float>::type;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  const int S = (int)cgm::this_cluster().num_blocks(), rank = (int)cgm::this_cluster().block_rank();
+  const int span = p.Hd / S;
+  const int row0 = (blockIdx.x / S) * kTileM, rows = min(kTileM, p.M - row0);
+  const int R = kTileM / S, r0 = rank * R, live = max(0, min(R, rows - r0));
+  const MlpLayout L = mlp_layout(span, (size_t)R * p.C * 4);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int esize = Q8 ? 1 : 2, C = p.C;
+  float* yb = reinterpret_cast<float*>(base + L.rows);  // this rank's rows of y
 
-  // proj, this rank's columns: acc[:, c0 + 16t ...] = ctx[rows] @ Wproj^T
-  for (int t = warp; t < cols / 16; t += kWarps) {
-    FragAcc a;
-    wmma::fill_fragment(a, 0.f);
-    mma_bcol(a, p.ctx + (size_t)row0 * p.C, p.C, p.wproj + (size_t)(c0 + t * 16) * p.C, p.C,
-             p.C);
-    wmma::store_matrix_sync(acc + c0 + t * 16, a, lda, wmma::mem_row_major);
+  if (Q8) {  // this rank's context rows in int8, with the proj input's static scale
+    const bf16* cs = reinterpret_cast<const bf16*>(yb);  // staged in the rows' buffer first
+    stage_rows(base + L.rows,
+               reinterpret_cast<const unsigned char*>(p.ctx + (size_t)(row0 + r0) * C),
+               (size_t)C * 2, live, C * 2);
+    for (int i = threadIdx.x; i < live * (C / 8); i += kGemmThreads) {
+      const int lr = i / (C / 8), pc = i % (C / 8);
+      const uint4 raw = *reinterpret_cast<const uint4*>(cs + (size_t)lr * C + pc * 8);
+      const bf16* v = reinterpret_cast<const bf16*>(&raw);
+      __align__(8) signed char q8[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) q8[e] = quant1(to_f(v[e]), p.act[0], p.inv[0]);
+      *reinterpret_cast<uint2*>(p.ctx8 + (size_t)(row0 + r0 + lr) * C + pc * 8) =
+          *reinterpret_cast<uint2*>(q8);
+    }
+    cluster_or_block_sync(S);
   }
-  if (S > 1) {  // the other ranks' columns, from their shared memory
-    cluster.sync();
-    for (int q = 1; q < S; ++q) {
-      const int src = (rank + q) % S;
-      const float* racc = cluster.map_shared_rank(acc, src);
-      for (int i = threadIdx.x; i < kRows * cols; i += kThreads) {
-        const size_t at = (size_t)(i / cols) * lda + src * cols + i % cols;
-        acc[at] = racc[at];
+
+  // proj column tiles rank, rank + S, ...: y = x + (ctx Wproj^T + b_proj), f32
+  {
+    const unsigned char* a = Q8 ? reinterpret_cast<const unsigned char*>(p.ctx8 + (size_t)row0 * C)
+                                : reinterpret_cast<const unsigned char*>(p.ctx + (size_t)row0 * C);
+    const unsigned char* w = Q8 ? reinterpret_cast<const unsigned char*>(p.wproj8)
+                                : reinterpret_cast<const unsigned char*>(p.wproj);
+    const size_t ld = (size_t)C * esize;
+    const int ntiles = (C + kTileN - 1) / kTileN;
+    const int tiles = (ntiles - rank + S - 1) / S;  // tiles rank, rank + S, ...
+    Acc acc[64];
+    stream_tiles<true, kPart>(
+        acc, base + L.ring, a, ld, rows, tiles, w, ld, C,
+        [&](int t) { return (rank + t * S) * kTileN; }, C * esize, [&](int t, Acc(&acc)[64]) {
+          const int n0 = (rank + t * S) * kTileN;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = warp * 16 + g + 8 * h;
+            if (r >= rows) continue;
+            const bf16* xr = p.x + block_row(p, row0 + r, false) * C;
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+              const int c = n0 + j * 8 + 2 * tq;
+              if (kPart && c >= C) continue;  // past C in the last tile
+              float v0 = (float)acc[4 * j + 2 * h], v1 = (float)acc[4 * j + 2 * h + 1];
+              if (Q8) {
+                v0 = dequant((int)acc[4 * j + 2 * h], p.act[0], p.sproj[c], kQuantStatic);
+                v1 = dequant((int)acc[4 * j + 2 * h + 1], p.act[0], p.sproj[c + 1],
+                             kQuantStatic);
+              }
+              const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(xr + c);
+              *reinterpret_cast<float2*>(p.y + (size_t)(row0 + r) * C + c) =
+                  make_float2(to_f(xv.x) + (v0 + to_f(p.bproj[c])),
+                              to_f(xv.y) + (v1 + to_f(p.bproj[c + 1])));
+            }
+          }
+        });
+  }
+  cluster_or_block_sync(S);  // every column of the tile's y is written
+
+  // this rank's rows of y, staged (they are also the residual of the end), and
+  // LN1(y) of them in bf16 (Q8: then int8 with FC1's input scale)
+  stage_rows(base + L.rows, reinterpret_cast<const unsigned char*>(p.y + (size_t)(row0 + r0) * C),
+             (size_t)C * 4, live, C * 4);
+  for (int lr = warp; lr < live; lr += kGemmThreads / 32) {
+    const float* yr = yb + (size_t)lr * C;
+    float v[8][4];
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int pc = lane + 32 * i;
+      float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (pc < C / 4) f = *reinterpret_cast<const float4*>(yr + pc * 4);
+      v[i][0] = f.x, v[i][1] = f.y, v[i][2] = f.z, v[i][3] = f.w;
+      s += (f.x + f.y) + (f.z + f.w);
+    }
+    const float mean = warp_sum(s) / (float)C;
+    float q = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (lane + 32 * i < C / 4) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) q += (v[i][e] - mean) * (v[i][e] - mean);
+      }
+    const float rstd = rsqrtf(warp_sum(q) / (float)C + p.eps);
+    const size_t zrow = (size_t)(row0 + r0 + lr) * C;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c0 = (lane + 32 * i) * 4;
+      if (c0 >= C) continue;
+      float zf[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        zf[e] = to_f(to_bf((v[i][e] - mean) * rstd * p.ln1_s[c0 + e] + p.ln1_b[c0 + e]));
+      if (Q8) {
+        char4 q8 = make_char4(quant1(zf[0], p.act[1], p.inv[1]), quant1(zf[1], p.act[1], p.inv[1]),
+                              quant1(zf[2], p.act[1], p.inv[1]), quant1(zf[3], p.act[1], p.inv[1]));
+        *reinterpret_cast<char4*>(p.z + zrow + c0) = q8;
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(p.z + (zrow + c0) * 2) =
+            __floats2bfloat162_rn(zf[0], zf[1]);
+        *reinterpret_cast<__nv_bfloat162*>(p.z + (zrow + c0 + 2) * 2) =
+            __floats2bfloat162_rn(zf[2], zf[3]);
       }
     }
-    cluster.sync();  // every rank has its rows whole before any rank overwrites its own
-  } else {
-    __syncthreads();
   }
+  cluster_or_block_sync(S);  // the tile's LN1 rows are in the scratch before FC1 streams them
 
-  // y = x + (proj + b_proj) in f32, kept in acc; z = bf16(LN1(y)). One warp per row.
-  for (int lr = warp; lr < kRows; lr += kWarps) {
-    const int r = row0 + lr;
-    float* a = acc + (size_t)lr * lda;
-    bf16* zr = z + (size_t)lr * ldz;
-    if (r >= p.M) {
-      for (int c = lane; c < p.C; c += 32) {
-        a[c] = 0.f;
-        zr[c] = to_bf(0.f);
-      }
-      continue;
-    }
-    const bf16* xr = p.x + block_row(p, r, false) * p.C;
-    for (int c = lane; c < p.C; c += 32) a[c] = to_f(xr[c]) + (a[c] + to_f(p.bproj[c]));
-    float mean, rstd;
-    row_stats([&](int c) { return a[c]; }, p.C, p.eps, mean, rstd);
-    for (int c = lane; c < p.C; c += 32) {
-      zr[c] = to_bf((a[c] - mean) * rstd * p.ln1_s[c] + p.ln1_b[c]);
-      if (rank) a[c] = 0.f;  // rank 0 accumulates onto y, the others from zero
-    }
-  }
-  __syncthreads();
-
-  const int span = p.Hd / S;  // this rank's hidden columns
-  mlp_hidden_chunks(z, ldz, acc, lda, hf, hs, p.w1, p.b1, p.w2, p.C, p.Hd, rank * span,
-                    (rank + 1) * span);
-  if (S > 1) cluster.sync();  // every rank's partial sums are complete
-
-  // out = bf16(y + FC2 + b2) on this rank's columns, the ranks' partial sums
-  // added in rank order, scattered to the destination rows
-  for (int lr = warp; lr < kRows; lr += kWarps) {
-    const int r = row0 + lr;
-    if (r >= p.M) continue;
-    bf16* o = p.out + block_row(p, r, true) * p.C;
-    for (int c = c0 + lane; c < c0 + cols; c += 32) {
-      float v = 0.f;
-      for (int q = 0; q < S; ++q)
-        v += (S > 1 ? cluster.map_shared_rank(acc, q) : acc)[(size_t)lr * lda + c];
-      o[c] = to_bf(v + to_f(p.b2[c]));
-    }
-  }
-  if (S > 1) cluster.sync();  // no rank leaves while another still reads its shared memory
-}
-
-// Blocks per row tile: the largest power of two up to 8 that keeps the grid
-// within about four blocks per SM and divides both the proj column tiles and
-// the hidden chunks.
-inline int cluster_size(int row_tiles, int C, int Hd) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  int S = 1;
-  while (S < 8 && row_tiles * 2 * S <= 4 * sms && (C / 16) % (2 * S) == 0 &&
-         (Hd / kMlpChunk) % (2 * S) == 0)
-    S *= 2;
-  return S;
+  MlpTile t{};
+  t.a = p.z + (size_t)row0 * C * esize;
+  t.lda = (size_t)C * esize;
+  t.rows = rows;
+  t.w1 = Q8 ? reinterpret_cast<const unsigned char*>(p.w18)
+            : reinterpret_cast<const unsigned char*>(p.w1);
+  t.b1 = p.b1;
+  t.w2 = Q8 ? reinterpret_cast<const unsigned char*>(p.w28)
+            : reinterpret_cast<const unsigned char*>(p.w2);
+  t.s1 = p.s1;
+  t.s2 = p.s2;
+  t.sa1 = p.act[1];
+  t.sa2 = p.act[2];
+  t.inv2 = p.inv[2];
+  t.C = C;
+  t.Hd = p.Hd;
+  t.span = span;
+  t.h0 = rank * span;
+  mlp_tile<Q8, kPart>(t, base + L.h, base + L.ring, reinterpret_cast<float*>(base + L.red), S, rank,
+               [&](int r, int c, const float (&f)[4]) {
+                 const float4 y = *reinterpret_cast<const float4*>(yb + (size_t)(r - r0) * C + c);
+                 __align__(8) bf16 o[4];
+                 o[0] = to_bf(y.x + (f[0] + to_f(p.b2[c])));
+                 o[1] = to_bf(y.y + (f[1] + to_f(p.b2[c + 1])));
+                 o[2] = to_bf(y.z + (f[2] + to_f(p.b2[c + 2])));
+                 o[3] = to_bf(y.w + (f[3] + to_f(p.b2[c + 3])));
+                 *reinterpret_cast<uint2*>(p.out + block_row(p, row0 + r, true) * C + c) =
+                     *reinterpret_cast<uint2*>(o);
+               });
 }
 
 // ---------------------------------------------------------------------------
@@ -353,13 +419,11 @@ __global__ void __launch_bounds__(kThreads) block_mlp_q8_kernel(BlockParams p) {
   if (S > 1) cluster.sync();  // no rank leaves while another still reads its shared memory
 }
 
-// Blocks per row tile of the int8 epilogue: the fewest whose hidden slice
-// fits in shared memory, then more up to 8 as cluster_size grows them; each
-// rank's output columns a multiple of 8 and its slice of 32. 0: no fit.
-inline int cluster_size_q8(int row_tiles, int C, int Hd) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+// Blocks per row tile of the int8 per-row epilogue: the fewest whose hidden
+// slice fits in shared memory, then twice as many up to 8 while the grid stays
+// within about four blocks per SM; each rank's output columns a multiple of 8
+// and its slice of 32. 0: no fit.
+inline int cluster_size_q8(int row_tiles, int C, int Hd, int sms) {
   auto ok = [&](int S) { return (C / 8) % S == 0 && (Hd / 32) % S == 0; };
   int S = 1;
   while (S <= 8 && (!ok(S) || mlp_q8_smem(C, Hd / S).total > kMaxSmem)) S *= 2;
@@ -380,21 +444,28 @@ extern "C" {
 // with a map, out is the block's output rolled by (roll, roll). ln f32 (C);
 // w_qkv (3C, C), b_qkv (3C), w_proj (C, C), b_proj (C), w1 (Hd, C), b1 (Hd),
 // w2 (C, Hd), b2 (C) bf16; bias (nW, heads, N, N) f32; ctx (round16(B*nW*N), C)
-// bf16 scratch. out must not overlap x. quant: null, or a QuantArgs
-// (common.cuh) whose w/s are the int8 qkv / proj / FC1 / FC2 weights and
-// their scales and whose act/inv are the four GEMMs' static activation
-// scales (0: per row); the bf16 weight pointers are then unused.
+// bf16 scratch; scratch 7 M C bytes (M = B nW N: y in f32, LN1(y), the int8
+// context), used by block_mlp_kernel. out must not overlap x. quant: null, or
+// a QuantArgs (common.cuh) whose w/s are the int8 qkv / proj / FC1 / FC2
+// weights and their scales and whose act/inv are the four GEMMs' static
+// activation scales (0: per row); the bf16 weight pointers are then unused.
+// bf16 and static W8A8 with every scale static take C % 16 == 0 (int8: 32),
+// C <= 1024 and Hd that mlp_cluster_size splits; the per-row forms C % 32 ==
+// 0 and Hd % 128 == 0 with a slice cluster_size_q8 fits (block_mlp_q8_kernel).
 int mmrp_swin_block(const void* x, const void* ln0_s, const void* ln0_b, const void* w_qkv,
                     const void* b_qkv, const void* w_proj, const void* b_proj, const void* ln1_s,
                     const void* ln1_b, const void* w1, const void* b1, const void* w2,
-                    const void* b2, const void* bias, void* ctx, void* out, int B, int nW, int N,
-                    int C, int heads, int Hd, int map_h, int map_w, int ws, int roll, float eps,
-                    const void* quant, void* stream) {
+                    const void* b2, const void* bias, void* ctx, void* scratch, void* out, int B,
+                    int nW, int N, int C, int heads, int Hd, int map_h, int map_w, int ws,
+                    int roll, float eps, const void* quant, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const QuantArgs* qa = static_cast<const QuantArgs*>(quant);
   const int qmode = qa ? qa->mode : kQuantOff;
-  if (B < 1 || nW < 1 || heads < 1 || C % heads || C % 16 || Hd % kMlpChunk || qmode < 0 ||
-      qmode > kQuantStatic || (qmode && C % 32))
+  // the wgmma epilogue: bf16, or static W8A8 whose proj, FC1 and FC2 inputs all have static scales
+  const bool wg = qmode == kQuantOff ||
+                  (qmode == kQuantStatic && qa->inv[1] > 0.f && qa->inv[2] > 0.f && qa->inv[3] > 0.f);
+  if (B < 1 || nW < 1 || heads < 1 || C % heads || C % 16 || Hd % kTileN || qmode < 0 ||
+      qmode > kQuantStatic || (qmode && C % 32) || (wg && C > 8 * kTileN))
     return (int)cudaErrorInvalidValue;
   if (map_h && (ws < 1 || map_h % ws || map_w % ws || N != ws * ws ||
                 nW != (map_h / ws) * (map_w / ws)))
@@ -466,9 +537,6 @@ int mmrp_swin_block(const void* x, const void* ln0_s, const void* ln0_b, const v
   }
   p.eps = eps;
   p.qmode = qmode;
-  const int row_tiles = (p.M + kRows - 1) / kRows;
-  int S;
-  size_t smem;
   if (qmode) {
     p.wproj8 = static_cast<const signed char*>(qa->w[1]);
     p.w18 = static_cast<const signed char*>(qa->w[2]);
@@ -480,20 +548,33 @@ int mmrp_swin_block(const void* x, const void* ln0_s, const void* ln0_b, const v
       p.act[i] = qa->act[i + 1];
       p.inv[i] = qa->inv[i + 1];
     }
-    S = cluster_size_q8(row_tiles, C, Hd);
-    if (!S) return (int)cudaErrorInvalidValue;
-    smem = mlp_q8_smem(C, Hd / S).total;
-    e = allow_smem(block_mlp_q8_kernel, smem);
-  } else {
-    smem = mlp_smem(C).total;
-    if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-    S = cluster_size(row_tiles, C, Hd);
-    e = allow_smem(block_mlp_kernel, smem);
   }
+  unsigned char* sc = static_cast<unsigned char*>(scratch);
+  p.y = reinterpret_cast<float*>(sc);
+  p.z = sc + (size_t)p.M * C * 4;
+  p.ctx8 = reinterpret_cast<signed char*>(p.z + (size_t)p.M * C * 2);
+  const int rows = wg ? kTileM : kRows, row_tiles = (p.M + rows - 1) / rows;
+  int sms = 0;
+  e = sm_count(&sms);
+  if (e != cudaSuccess) return (int)e;
+  const int S = wg ? mlp_cluster_size(row_tiles, Hd, (size_t)C * 4, sms)
+                   : cluster_size_q8(row_tiles, C, Hd, sms);
+  if (!S || (wg && !scratch)) return (int)cudaErrorInvalidValue;
+  const size_t smem = wg ? mlp_layout(Hd / S, (size_t)(kTileM / S) * C * 4).total
+                         : mlp_q8_smem(C, Hd / S).total;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const bool part = C % kTileN != 0;
+  const void* kernel =
+      !wg                  ? (const void*)block_mlp_q8_kernel
+      : qmode == kQuantOff ? (part ? (const void*)block_mlp_kernel<false, true>
+                                   : (const void*)block_mlp_kernel<false, false>)
+                           : (part ? (const void*)block_mlp_kernel<true, true>
+                                   : (const void*)block_mlp_kernel<true, false>);
+  e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(row_tiles * S);
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(wg ? kGemmThreads : kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute cluster;
@@ -503,10 +584,16 @@ int mmrp_swin_block(const void* x, const void* ln0_s, const void* ln0_b, const v
   cluster.val.clusterDim.z = 1;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
-  e = qmode ? cudaLaunchKernelEx(&cfg, block_mlp_q8_kernel, p)
-            : cudaLaunchKernelEx(&cfg, block_mlp_kernel, p);
+  void* args[] = {&p};
+  e = cudaLaunchKernelExC(&cfg, kernel, args);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// The cluster size of block_mlp_q8_kernel (cluster_size_q8) for row_tiles
+// tiles of 16 rows on sms SMs; 0: no fit. The tests hold the Python copy to it.
+int mmrp_mlp_q8_cluster(int row_tiles, int C, int Hd, int sms) {
+  return cluster_size_q8(row_tiles, C, Hd, sms);
 }
 
 }  // extern "C"

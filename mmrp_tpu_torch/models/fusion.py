@@ -13,7 +13,11 @@ attention kernel (K3, ``ops/fused_attention.py``):
 
 The port runs the token counts as they are (49 patches, 51-token sequence);
 the JAX package pads them to multiples of 8 for its TPU kernels and masks the
-pads, which leaves the real rows unchanged.
+pads, which leaves the real rows unchanged. Each attention's route is fixed
+at construction from the most tokens it can see (:func:`attention_route`):
+``kernel`` where K3 takes the shapes, ``plain`` (K3's plain version, counted
+in ``fused_attention.plain_calls``) where it does not, ``int8`` for the W8A8
+XLA branch.
 
 Training (``forward_train``) takes the JAX XLA branches (``fusion.py:130-163,
 216-241``): plain GEMMs, f32 scores and softmax, dropout on the attention
@@ -36,8 +40,26 @@ from mmrp_tpu_torch.models.text_encoder import (
     qlinear,
     qlinear_multi,
 )
-from mmrp_tpu_torch.ops.fused_attention import fused_attention
+from mmrp_tpu_torch.ops import _build
+from mmrp_tpu_torch.ops import fused_attention as K3
+from mmrp_tpu_torch.ops.fused_attention import attention_plain, fused_attention
 from mmrp_tpu_torch.ops.quant import attach_int8
+
+
+def attention_route(dim: int, num_heads: int, max_q: int, max_k: int, quant: bool) -> str:
+    """"int8" (the W8A8 XLA branch), else "kernel" where K3 takes width
+    ``dim``, ``num_heads`` heads and up to ``max_q`` / ``max_k`` query / key
+    tokens, else "plain"."""
+    if quant:
+        return "int8"
+    return "kernel" if K3.kernel_takes(dim, num_heads, max_q, max_k) else "plain"
+
+
+def run_attention(route: str, *args, **kwargs):
+    """K3 on a kernel route, its plain version (counted) on a plain one."""
+    if route == "kernel":
+        return fused_attention(*args, **kwargs)
+    return _build.run_plain(fused_attention, attention_plain, *args, **kwargs)
 
 
 def plain_lins(x, lins):
@@ -56,12 +78,14 @@ class CrossAttention(nn.Module):
     """MHA with queries from ``q_in`` and keys/values from ``kv_in``."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32, device=None,
-                 dropout: float = 0.0, quant: bool = False):
+                 dropout: float = 0.0, quant: bool = False, max_q: int = 512,
+                 max_k: int = 512):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.num_heads = num_heads
         self.dropout = dropout
         self.quant = quant
+        self.route = attention_route(dim, num_heads, max_q, max_k, quant)
         self.q = nn.Linear(dim, dim, **kw)
         self.k = nn.Linear(dim, dim, **kw)
         self.v = nn.Linear(dim, dim, **kw)
@@ -76,8 +100,8 @@ class CrossAttention(nn.Module):
         if self.quant:
             return self._xla(q_in, kv_in, kv_mask, post_ln, qlinear_multi, 0.0, None)
         ln_s, ln_b = post_ln if post_ln is not None else (None, None)
-        return fused_attention(
-            q_in, ln_s, ln_b, self.q.weight, self.q.bias, self.k.weight, self.k.bias,
+        return run_attention(
+            self.route, q_in, ln_s, ln_b, self.q.weight, self.q.bias, self.k.weight, self.k.bias,
             self.v.weight, self.v.bias, self.out.weight, self.out.bias, kv=kv_in,
             key_mask=None if kv_mask is None else additive_key_mask(kv_mask),
             num_heads=self.num_heads, ln_mode="post" if post_ln is not None else "none",
@@ -111,6 +135,7 @@ class PreFusionEnhancer(nn.Module):
         self.max_len = max_len
         self.dropout = dropout
         self.quant = quant
+        self.route = attention_route(dim, num_heads, max_len, max_len, quant)
         self.pos_embed = nn.Parameter(torch.zeros(1, max_len, dim, dtype=dtype, device=device))
         self.alpha = nn.Parameter(torch.zeros((), dtype=torch.float32, device=device))
         self.LayerNorm_0 = LayerNorm(dim, dtype, device)
@@ -144,8 +169,8 @@ class PreFusionEnhancer(nn.Module):
             return self._xla(x, mask, qlinear_multi, 0.0, None)
         N = x.shape[1]
         pos = self._pos(N)
-        return fused_attention(
-            x, self.LayerNorm_0.weight, self.LayerNorm_0.bias, *self.attention.weights(),
+        return run_attention(
+            self.route, x, self.LayerNorm_0.weight, self.LayerNorm_0.bias, *self.attention.weights(),
             key_mask=None if mask is None else additive_key_mask(mask),
             pos=pos, alpha=self.alpha, num_heads=self.num_heads,
             ln_mode="pre", include_residual=True, residual_from_raw=True)
@@ -163,8 +188,8 @@ class CrossModalFusion(nn.Module):
         self.img_enh = PreFusionEnhancer(dim, num_heads, num_patches, *args)
         self.txt_norm = LayerNorm(dim, dtype, device)
         self.img_norm = LayerNorm(dim, dtype, device)
-        self.txt2img = CrossAttention(dim, num_heads, *args)
-        self.img2txt = CrossAttention(dim, num_heads, *args)
+        self.txt2img = CrossAttention(dim, num_heads, *args, max_text_len, num_patches)
+        self.img2txt = CrossAttention(dim, num_heads, *args, num_patches, max_text_len)
         self.cls_proj = nn.Linear(2 * dim, dim, dtype=dtype, device=device)
 
     def forward(self, img_patches: torch.Tensor, img_global: torch.Tensor,

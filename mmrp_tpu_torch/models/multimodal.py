@@ -14,21 +14,35 @@ every tower takes its JAX XLA branch with dropout and DropPath drawn from
 
 ``MultiModalConfig.quant="int8"`` serves the fusion stack through the same
 XLA branch with every GEMM in W8A8 (``ops/quant.py``) and no kernel, as the
-JAX model does (``multimodal.py:231-241, 299-341``). ``from_config`` maps a
-``Config``'s ``serve_quant`` onto all three towers (``multimodal.py:66-131``).
+JAX model does (``multimodal.py:231-241, 299-341``). ``from_config`` builds
+the JAX ``MultiModalConfig.from_config``'s model from a ``Config``
+(``multimodal.py:60-130``), ``serve_quant`` on all three towers.
+
+Every kernel call site has a route fixed at construction from the kernel
+wrappers' ``kernel_takes`` (:func:`model_routes`): ``kernel``, ``plain`` (the
+kernel's plain version, on any device, counted in the wrapper's
+``plain_calls``), or ``int8`` (a W8A8 XLA branch of the JAX model); Swin
+steps are named by their route or "plain" (``models/swin.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from mmrp_tpu_torch.config import Config
 from mmrp_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from mmrp_tpu_torch.models.fusion import CrossModalFusion, attach_int8_all, plain_lins
+from mmrp_tpu_torch.models.fusion import (
+    CrossModalFusion,
+    attach_int8_all,
+    attention_route,
+    plain_lins,
+    run_attention,
+)
 from mmrp_tpu_torch.models.layers import (
     DropPath,
     LayerNorm,
@@ -39,10 +53,17 @@ from mmrp_tpu_torch.models.layers import (
     ln_f32,
     sinusoidal_positions,
 )
-from mmrp_tpu_torch.models.swin import SwinConfig, SwinEncoder
-from mmrp_tpu_torch.models.text_encoder import TextConfig, TextEncoder, mha_train, qlinear_multi
-from mmrp_tpu_torch.ops.fused_attention import fused_attention
-from mmrp_tpu_torch.ops.fused_mlp import fused_ln_mlp_residual
+from mmrp_tpu_torch.models.swin import SwinConfig, SwinEncoder, plan_names
+from mmrp_tpu_torch.models.text_encoder import (
+    TextConfig,
+    TextEncoder,
+    mha_train,
+    qlinear_multi,
+)
+from mmrp_tpu_torch.models.text_encoder import attention_route as text_attention_route
+from mmrp_tpu_torch.ops import _build
+from mmrp_tpu_torch.ops import fused_mlp as K2
+from mmrp_tpu_torch.ops.fused_mlp import fused_ln_mlp_residual, ln_mlp_plain
 
 
 @dataclass(frozen=True)
@@ -68,35 +89,101 @@ class MultiModalConfig:
         return MultiModalConfig(swin=SwinConfig.base(), text=TextConfig.clinicalbert(), **kw)
 
     @staticmethod
-    def from_config(cfg: Config, num_classes: int = 43,
-                    flagship: bool = False) -> "MultiModalConfig":
-        """The serving precision of the JAX ``MultiModalConfig.from_config``
-        on the flagship (``flagship=True``: Swin-B + ClinicalBERT dims) or the
-        micro preset (a one-stage Swin and a one-layer text tower).
+    def from_config(cfg: Config, num_classes: int = 43, flagship: bool = False,
+                    text_override: Optional[TextConfig] = None) -> "MultiModalConfig":
+        """The JAX ``MultiModalConfig.from_config`` (``multimodal.py:60-130``):
+        the Swin preset of ``image_backbone`` (``medclip``: Swin-Tiny) at
+        ``image_size``; the text tower ``text_override`` (its dims, with the
+        serving precision), else ClinicalBERT dims for ``flagship``, else the
+        32-wide one-layer tower for a micro backbone, else
+        ``TextConfig.small()``; the fusion stack's ``joint_dim``,
+        ``num_fusion_layers``, ``num_heads``, ``modality`` and ``text_dim``.
         ``serve_quant`` "int8" and "int8_static" run the text tower as
         "int8_kernel" and the fusion stack as "int8"; "int8_static" also runs
         the Swin whole-block stages in static int8, with ``act_amax`` from
         ``swin_act_amax_path`` when one is given (else per-row activation
-        scales)."""
+        scales). ``use_pallas_attention=False`` sends every Swin step to its
+        plain version. ``remat_backbone`` is not ported and raises."""
         from mmrp_tpu_torch.models.quant_calib import load_act_amax
 
         sq = cfg.serve_quant
         if sq not in ("none", "int8", "int8_static"):
             raise ValueError(f"serve_quant must be none, int8 or int8_static, got {sq!r}")
+        if cfg.remat_backbone:
+            raise NotImplementedError(
+                "remat_backbone=True (activation checkpointing of the towers) is not ported "
+                "(ROADMAP.md Queue 1 item 6)")
         swin_kw = {}
         if sq == "int8_static":
             swin_kw["quant"] = "int8_static"
             if cfg.swin_act_amax_path:
                 swin_kw["act_amax"] = load_act_amax(cfg.swin_act_amax_path)
-        tq = "int8_kernel" if sq != "none" else "none"
-        if flagship:
-            swin, text = SwinConfig.base(**swin_kw), TextConfig.clinicalbert(quant=tq)
+        backbone = cfg.image_backbone.lower()
+        swin = SwinConfig.from_name(
+            cfg.image_backbone if cfg.image_backbone.startswith("swin")
+            # MedCLIP's vision tower is Swin-Tiny
+            else ("swin_tiny" if backbone == "medclip" else "swin"),
+            use_pallas=cfg.use_pallas_attention, img_size=cfg.image_size, **swin_kw)
+        if backbone.startswith("swin"):
+            vision_backbone = "swin"
+        elif backbone.startswith("resnet"):
+            vision_backbone = "resnet50"
+        elif backbone.startswith("efficientnet"):
+            vision_backbone = "efficientnet"
+        elif backbone in ("medclip", "vit"):
+            vision_backbone = backbone
         else:
-            swin = SwinConfig.micro(**swin_kw)
+            vision_backbone = "swin"
+        tq = "int8_kernel" if sq != "none" else "none"
+        if text_override is not None:
+            text = dataclasses.replace(text_override, quant=tq)
+        elif flagship:
+            text = TextConfig.clinicalbert(quant=tq)
+        elif "micro" in cfg.image_backbone:
             text = TextConfig.small(hidden_dim=32, num_layers=1, num_heads=2,
                                     intermediate_dim=64, quant=tq)
-        return MultiModalConfig(swin=swin, text=text, num_classes=num_classes,
-                                quant="int8" if sq != "none" else "none")
+        else:
+            text = TextConfig.small(quant=tq)
+        return MultiModalConfig(
+            swin=swin, text=text, vision_backbone=vision_backbone, joint_dim=cfg.joint_dim,
+            num_fusion_layers=cfg.num_fusion_layers, num_heads=cfg.num_heads,
+            num_classes=num_classes, mode=cfg.modality, use_shared_ffn=cfg.use_shared_ffn,
+            use_cls_only=cfg.use_cls_only, max_text_len=cfg.text_dim,
+            quant="int8" if sq != "none" else "none")
+
+
+def fusion_routes(config: MultiModalConfig) -> Dict[str, str]:
+    """The routes of one fusion layer (every layer has the same shapes): its
+    four fusion attentions, the self-attention over [cls, patches, text] and
+    the FFN."""
+    D, h, q = config.joint_dim, config.num_heads, config.quant == "int8"
+    Np = 1 if config.mode == "text" else config.swin.num_patches
+    Lt = config.max_text_len
+    ffn = "int8" if q else ("kernel" if K2.kernel_takes(D, 4 * D) else "plain")
+    return {"txt_enh": attention_route(D, h, Lt, Lt, q),
+            "img_enh": attention_route(D, h, Np, Np, q),
+            "txt2img": attention_route(D, h, Lt, Np, q),
+            "img2txt": attention_route(D, h, Np, Lt, q),
+            "self_attention": attention_route(D, h, Np + 2, Np + 2, q), "ffn": ffn}
+
+
+def model_routes(config: MultiModalConfig) -> Dict[str, str]:
+    """Every kernel call site of the serving forward and its route, named
+    ``swin.stage{s}.step{i}`` (the Swin step's route, or "plain"),
+    ``text.attention`` and ``fusion.{site}`` (:func:`fusion_routes`)."""
+    routes = {}
+    if config.mode != "text":
+        for s, names in enumerate(plan_names(config.swin)):
+            routes.update({f"swin.stage{s}.step{i}": n for i, n in enumerate(names)})
+    if config.mode != "image":
+        routes["text.attention"] = text_attention_route(config.text)
+    routes.update({f"fusion.{k}": v for k, v in fusion_routes(config).items()})
+    return routes
+
+
+def plain_routes(config: MultiModalConfig) -> list:
+    """The call sites of :func:`model_routes` that no kernel takes."""
+    return [name for name, route in model_routes(config).items() if route == "plain"]
 
 
 class Backbones(nn.Module):
@@ -110,7 +197,7 @@ class Backbones(nn.Module):
             if config.vision_backbone != "swin":
                 raise NotImplementedError(
                     f"vision backbone {config.vision_backbone!r} is not ported yet "
-                    "(ROADMAP.md Queue 1: other backbones); the port runs 'swin'")
+                    "(ROADMAP.md Queue 1 item 9); the port runs 'swin'")
             self.swin = SwinEncoder(config.swin, dtype, device)
         if config.mode != "image":
             self.text = TextEncoder(config.text, dtype, device)
@@ -145,6 +232,8 @@ class FusionLayer(nn.Module):
         self.fusion = CrossModalFusion(D, config.num_heads, num_patches,
                                        config.max_text_len, dtype, device, config.dropout,
                                        self.quant)
+        routes = fusion_routes(config)
+        self.attn_route, self.ffn_route = routes["self_attention"], routes["ffn"]
         self.LayerNorm_0 = LayerNorm(D, dtype, device)
         self.attention = MhaParams(D, dtype, device)
         self.LayerNorm_1 = LayerNorm(D, dtype, device)
@@ -163,13 +252,14 @@ class FusionLayer(nn.Module):
         if self.quant:
             return self._xla(seq, qlinear_multi, None)
         B, L, D = seq.shape
-        seq = fused_attention(seq, self.LayerNorm_0.weight, self.LayerNorm_0.bias,
-                              *self.attention.weights(), pos=self.sin_pos[:L],
-                              num_heads=self.num_heads, ln_mode="pre",
-                              include_residual=True)
-        seq = fused_ln_mlp_residual(seq.reshape(B * L, D), self.LayerNorm_1.weight,
-                                    self.LayerNorm_1.bias,
-                                    *self.ffn.weights()).reshape(B, L, D)
+        seq = run_attention(self.attn_route, seq, self.LayerNorm_0.weight,
+                            self.LayerNorm_0.bias, *self.attention.weights(),
+                            pos=self.sin_pos[:L], num_heads=self.num_heads, ln_mode="pre",
+                            include_residual=True)
+        args = (seq.reshape(B * L, D), self.LayerNorm_1.weight, self.LayerNorm_1.bias,
+                *self.ffn.weights())
+        seq = (fused_ln_mlp_residual(*args) if self.ffn_route == "kernel" else
+               _build.run_plain(fused_ln_mlp_residual, ln_mlp_plain, *args)).reshape(B, L, D)
         return self._adapter_pool(seq)
 
     def forward_train(self, img_patches, img_global, txt_tokens, txt_mask,
@@ -220,9 +310,9 @@ class MultiModalRetrievalModel(nn.Module):
             raise ValueError(f"invalid mode {config.mode!r}")
         if config.use_shared_ffn or config.use_cls_only:
             raise NotImplementedError(
-                "use_shared_ffn and use_cls_only are not ported (ROADMAP.md Queue 1, "
-                "detailed item 4)")
+                "use_shared_ffn and use_cls_only are not ported (ROADMAP.md Queue 1 item 9)")
         self.config = config
+        self.routes = model_routes(config)
         self.dtype = dtype
         D = config.joint_dim
         kw = dict(dtype=dtype, device=device)

@@ -18,6 +18,14 @@ the conditions of ``swin.py:503-510, 718-765, 791-826``):
   (``ops/fused_swin_block.py``) — Swin-B stage 4, where the chain's VMEM gate
   fails and the partition of a single window is a view.
 
+Each step also says whether the CUDA kernels take its shapes
+(``Step.kernel``, from each wrapper's ``kernel_takes``): a step they refuse
+(a head dim other than 32 / 64 / 128, a window over 64 tokens, a width or
+hidden width the MLP kernels do not take) is a ``plain`` route that runs the
+plain version of its JAX route on any device, counted in the wrapper's
+``plain_calls``; ``SwinConfig(use_pallas=False)`` makes every step one, on
+the K1 + K2 route's plain versions, as JAX's ``use_pallas=False`` runs XLA.
+
 ``SwinConfig.quant`` picks the serving precision of the whole-block routes:
 ``"int8_static"`` runs pair, chain and windows in static W8A8 (int8 weights
 kept per block, ``act_amax`` the calibrated per-block activation abs-max of
@@ -52,17 +60,24 @@ from torch import nn
 
 from mmrp_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mmrp_tpu_torch.models.layers import DropPath, LayerNorm, MlpParams, dropout, gelu, ln_f32
-from mmrp_tpu_torch.ops.fused_mlp import fused_ln_mlp_residual
-from mmrp_tpu_torch.ops.fused_swin_block import fused_swin_block_windows
+from mmrp_tpu_torch.ops import _build
+from mmrp_tpu_torch.ops import fused_mlp as K2
+from mmrp_tpu_torch.ops import fused_swin_block as SB
+from mmrp_tpu_torch.ops import fused_window_attention as K1
+from mmrp_tpu_torch.ops.fused_mlp import fused_ln_mlp_residual, ln_mlp_plain
+from mmrp_tpu_torch.ops.fused_swin_block import fused_swin_block_windows, swin_block_plain
 from mmrp_tpu_torch.ops.fused_swin_pair import (
+    chain_plain,
     chain_vmem_ok,
     fused_swin_block_chain,
     fused_swin_block_pair,
+    pair_plain,
     pair_vmem_ok,
 )
 from mmrp_tpu_torch.ops.fused_window_attention import (
     build_bias_full,
     fused_window_attention_windows,
+    window_attention_plain,
 )
 from mmrp_tpu_torch.ops.quant import attach_int8
 from mmrp_tpu_torch.ops.wattn_core import window_attention_core
@@ -105,6 +120,8 @@ class SwinConfig:
     # of every block in global order, or None for per-row activation scales
     quant: str = "none"
     act_amax: Optional[Tuple[Tuple[float, float, float, float], ...]] = None
+    # False: every step on the plain versions (JAX's use_pallas=False)
+    use_pallas: bool = True
 
     @property
     def num_features(self) -> int:
@@ -136,17 +153,38 @@ class SwinConfig:
         kw.setdefault("img_size", 28)
         return SwinConfig(embed_dim=16, depths=(1,), num_heads=(2,), **kw)
 
+    @staticmethod
+    def from_name(name: str, **kw) -> "SwinConfig":
+        """The preset of a backbone name, as the JAX ``SwinConfig.from_name``."""
+        name = name.lower()
+        if name in ("swin", "swin_base", "base"):
+            return SwinConfig.base(**kw)
+        if name in ("swin_small", "small"):
+            return SwinConfig.small(**kw)
+        if name in ("swin_tiny", "tiny"):
+            return SwinConfig.tiny(**kw)
+        if name in ("swin_micro", "micro"):
+            return SwinConfig.micro(**kw)
+        raise ValueError(f"unknown swin preset {name!r}")
+
 
 class Step(NamedTuple):
-    """One call of a stage's route: ``route`` on block ``block`` (and, for a
-    pair, ``block + 1``); ``roll_after`` is a chain step's roll into the next
-    block's frame; ``quant`` the kernel's W8A8 form: False, True (dynamic)
-    or "static"."""
+    """One call of a stage's route: ``route`` (the JAX model's) on block
+    ``block`` (and, for a pair, ``block + 1``); ``roll_after`` is a chain
+    step's roll into the next block's frame; ``quant`` the kernel's W8A8 form:
+    False, True (dynamic) or "static"; ``kernel`` False when the CUDA kernels
+    do not take the step's shapes, which then runs the plain version of
+    ``route`` (its name is "plain")."""
 
     route: str  # "k1k2" | "pair" | "chain" | "windows"
     block: int
     roll_after: int = 0
     quant: object = False
+    kernel: bool = True
+
+    @property
+    def name(self) -> str:
+        return self.route if self.kernel else "plain"
 
 
 def stage_geometry(cfg: SwinConfig) -> List[Tuple[int, int, int]]:
@@ -174,44 +212,57 @@ QUANTS = ("none", "int8", "int8_static")
 def swin_plan(cfg: SwinConfig) -> List[List[Step]]:
     """The steps of every stage, with the JAX ``SwinEncoder``'s conditions
     (``swin.py:503-510, 718-765, 791-826``; the serving route: deterministic,
-    Pallas on): dynamic int8 turns pair and chain off, static int8 sizes
-    their VMEM gates for 1-byte weights."""
+    Pallas on unless ``use_pallas`` is False): dynamic int8 turns pair and
+    chain off, static int8 sizes their VMEM gates for 1-byte weights. Each
+    step's ``kernel`` is whether the CUDA kernels take its shapes."""
     if cfg.quant not in QUANTS:
         raise ValueError(f"SwinConfig.quant must be one of {QUANTS}, got {cfg.quant!r}")
     wbytes = 1 if cfg.quant == "int8_static" else 2
     flavor = {"none": False, "int8": True, "int8_static": "static"}[cfg.quant]
+    # the static form's activation scales: calibrated, or per row
+    acts = (1.0,) * 4 if cfg.act_amax is not None else None
     plan = []
     for stage, (dim, res, ws) in enumerate(stage_geometry(cfg)):
         depth, heads = cfg.depths[stage], cfg.num_heads[stage]
-        whole = cfg.whole_block and dim >= cfg.whole_min_c
+        hidden = int(dim * cfg.mlp_ratio)
+        whole = cfg.use_pallas and cfg.whole_block and dim >= cfg.whole_min_c
         fused = whole and cfg.quant != "int8"
         use_pair = (cfg.pair and fused and dim <= cfg.pair_max_c and res > ws
                     and pair_vmem_ok(dim, res, res, heads, ws, cfg.mlp_ratio,
                                      weight_bytes=wbytes))
         use_chain = cfg.chain and fused and chain_vmem_ok(dim, res, res, heads, ws,
                                                           cfg.mlp_ratio, weight_bytes=wbytes)
+        k1k2 = cfg.use_pallas and K1.kernel_takes(dim, heads, ws * ws) and (
+            dim > FUSED_MLP_MAX_DIM or K2.kernel_takes(dim, hidden))
+        block_ok = SB.kernel_takes(dim, heads, ws * ws, hidden, flavor, acts)
         steps, blk = [], 0
         while blk < depth:
             if use_pair and blk % 2 == 0 and blk + 1 < depth:
-                steps.append(Step("pair", blk, quant=flavor))
+                steps.append(Step("pair", blk, quant=flavor, kernel=block_ok))
                 blk += 2
                 continue
             if use_chain:
                 nxt = block_shift(blk + 1, res, ws) if blk + 1 < depth else 0
-                steps.append(Step("chain", blk, block_shift(blk, res, ws) - nxt, flavor))
+                steps.append(Step("chain", blk, block_shift(blk, res, ws) - nxt, flavor,
+                                  block_ok))
             elif whole:
-                steps.append(Step("windows", blk, quant=flavor))
+                steps.append(Step("windows", blk, quant=flavor, kernel=block_ok))
             else:
-                steps.append(Step("k1k2", blk))
+                steps.append(Step("k1k2", blk, kernel=k1k2))
             blk += 1
         plan.append(steps)
     return plan
 
 
 def stage_routes(cfg: SwinConfig) -> List[str]:
-    """The route of each stage's first step (a pair stage of odd depth ends
-    with one chain or windows step)."""
+    """The JAX route of each stage's first step (a pair stage of odd depth
+    ends with one chain or windows step)."""
     return [steps[0].route for steps in swin_plan(cfg)]
+
+
+def plan_names(cfg: SwinConfig) -> List[List[str]]:
+    """The name of every step of every stage: its route, or "plain"."""
+    return [[step.name for step in steps] for steps in swin_plan(cfg)]
 
 
 class PatchEmbed(nn.Module):
@@ -351,33 +402,42 @@ class SwinBlock(nn.Module):
             kw["act_scales"] = self.act_scales
         return kw
 
-    def forward_windows(self, x: torch.Tensor, quant=False) -> torch.Tensor:  # (B, H, W, C)
+    def forward_windows(self, x: torch.Tensor, quant=False,
+                        kernel: bool = True) -> torch.Tensor:  # (B, H, W, C)
+        """The whole-block kernel on the partitioned windows; with ``kernel``
+        False its plain version (a plain route of the plan)."""
         _, H, W, _ = x.shape
         ws, s = self.attn.window_size, self.attn.shift
         xs = torch.roll(x, shifts=(-s, -s), dims=(1, 2)) if s else x
-        ow = fused_swin_block_windows(window_partition(xs, ws).contiguous(),
-                                      *self.kernel_args(quant), self.attn.bias_full,
-                                      self.num_heads, quant=quant, **self.quant_kwargs(quant))
+        args = (window_partition(xs, ws).contiguous(), *self.kernel_args(quant),
+                self.attn.bias_full, self.num_heads)
+        kw = dict(quant=quant, **self.quant_kwargs(quant))
+        ow = fused_swin_block_windows(*args, **kw) if kernel else \
+            _build.run_plain(fused_swin_block_windows, swin_block_plain, *args, **kw)
         out = window_reverse(ow, ws, H, W)
         return torch.roll(out, shifts=(s, s), dims=(1, 2)) if s else out
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, H, W, C)
+    def forward(self, x: torch.Tensor, kernel: bool = True) -> torch.Tensor:  # (B, H, W, C)
+        """K1, then K2 (C <= 256) or plain GEMMs; with ``kernel`` False the
+        plain versions of K1 and K2 (a plain route of the plan)."""
         B, H, W, C = x.shape
         ws, s = self.attn.window_size, self.attn.shift
         xs = torch.roll(x, shifts=(-s, -s), dims=(1, 2)) if s else x
-        ow = fused_window_attention_windows(
-            window_partition(xs, ws).contiguous(),
-            self.LayerNorm_0.weight, self.LayerNorm_0.bias,
-            self.attn.qkv.weight, self.attn.qkv.bias,
-            self.attn.proj.weight, self.attn.proj.bias,
-            self.attn.bias_full, self.num_heads)
+        args = (window_partition(xs, ws).contiguous(),
+                self.LayerNorm_0.weight, self.LayerNorm_0.bias,
+                self.attn.qkv.weight, self.attn.qkv.bias,
+                self.attn.proj.weight, self.attn.proj.bias,
+                self.attn.bias_full, self.num_heads)
+        ow = fused_window_attention_windows(*args) if kernel else \
+            _build.run_plain(fused_window_attention_windows, window_attention_plain, *args)
         x = window_reverse(ow, ws, H, W)
         if s:
             x = torch.roll(x, shifts=(s, s), dims=(1, 2))
         if self.dim <= FUSED_MLP_MAX_DIM:
-            out = fused_ln_mlp_residual(x.reshape(B * H * W, C).contiguous(),
-                                        self.LayerNorm_1.weight, self.LayerNorm_1.bias,
-                                        *self.mlp.weights())
+            args = (x.reshape(B * H * W, C).contiguous(), self.LayerNorm_1.weight,
+                    self.LayerNorm_1.bias, *self.mlp.weights())
+            out = fused_ln_mlp_residual(*args) if kernel else \
+                _build.run_plain(fused_ln_mlp_residual, ln_mlp_plain, *args)
             return out.reshape(B, H, W, C)
         y = ln_f32(x, self.LayerNorm_1.weight, self.LayerNorm_1.bias, x.dtype)
         return x + self.mlp.Dense_1(gelu(self.mlp.Dense_0(y)))
@@ -462,23 +522,27 @@ class SwinEncoder(nn.Module):
             for step in steps:
                 blk = self._modules[f"stage{stage}_block{step.block}"]
                 ws = blk.attn.window_size
-                q = step.quant
+                q, kernel = step.quant, step.kernel
                 if step.route == "k1k2":
-                    x = blk(x)
+                    x = blk(x, kernel)
                 elif step.route == "windows":
-                    x = blk.forward_windows(x, q)
+                    x = blk.forward_windows(x, q, kernel)
                 elif step.route == "chain":
-                    x = fused_swin_block_chain(x, blk.kernel_args(q), blk.attn.bias_full,
-                                               blk.num_heads, ws, step.roll_after, quant=q,
-                                               **blk.quant_kwargs(q))
+                    args = (x, blk.kernel_args(q), blk.attn.bias_full, blk.num_heads, ws,
+                            step.roll_after)
+                    kw = dict(quant=q, **blk.quant_kwargs(q))
+                    x = fused_swin_block_chain(*args, **kw) if kernel else \
+                        _build.run_plain(fused_swin_block_chain, chain_plain, *args, **kw)
                 else:
                     nxt = self._modules[f"stage{stage}_block{step.block + 1}"]
                     kw0, kw1 = blk.quant_kwargs(q), nxt.quant_kwargs(q)
-                    x = fused_swin_block_pair(
-                        x, blk.kernel_args(q), blk.attn.bias_full, nxt.kernel_args(q),
-                        nxt.attn.bias_full, blk.num_heads, ws, nxt.attn.shift, quant=q,
-                        wscales0=kw0.get("wscales"), wscales1=kw1.get("wscales"),
-                        act_scales0=kw0.get("act_scales"), act_scales1=kw1.get("act_scales"))
+                    args = (x, blk.kernel_args(q), blk.attn.bias_full, nxt.kernel_args(q),
+                            nxt.attn.bias_full, blk.num_heads, ws, nxt.attn.shift)
+                    kw = dict(quant=q, wscales0=kw0.get("wscales"),
+                              wscales1=kw1.get("wscales"), act_scales0=kw0.get("act_scales"),
+                              act_scales1=kw1.get("act_scales"))
+                    x = fused_swin_block_pair(*args, **kw) if kernel else \
+                        _build.run_plain(fused_swin_block_pair, pair_plain, *args, **kw)
             if f"merge{stage}" in self._modules:
                 x = self._modules[f"merge{stage}"](x)
         return self._pool(x)

@@ -13,6 +13,11 @@ softmax, dropout on the probabilities, after the output GEMM and after the FFN.
 W8A8 on the XLA branch (``ops/quant.py``); "int8_ffn" keeps the bf16 K3 and
 runs the FFN in W8A8; "int8_kernel" runs K3 with its in-kernel W8A8
 projections and the FFN in W8A8. Training stays full precision.
+
+The attention's route is fixed at construction (:func:`attention_route`):
+``kernel`` where K3 takes the width, heads and ``max_positions`` tokens,
+``plain`` (K3's plain version, counted in ``fused_attention.plain_calls``)
+where it does not, ``int8`` for the XLA W8A8 branch.
 """
 
 from __future__ import annotations
@@ -25,7 +30,9 @@ from torch import nn
 
 from mmrp_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mmrp_tpu_torch.models.layers import LayerNorm, MhaParams, dropout, gelu, ln_f32
-from mmrp_tpu_torch.ops.fused_attention import fused_attention
+from mmrp_tpu_torch.ops import _build
+from mmrp_tpu_torch.ops import fused_attention as K3
+from mmrp_tpu_torch.ops.fused_attention import attention_plain, fused_attention
 from mmrp_tpu_torch.ops.quant import attach_int8, quant_dot, quant_dot_multi
 
 
@@ -54,6 +61,16 @@ class TextConfig:
 
 
 QUANTS = ("none", "int8", "int8_ffn", "int8_kernel")
+
+
+def attention_route(config: TextConfig) -> str:
+    """The BERT layers' attention: "int8" (the XLA branch with W8A8 GEMMs),
+    else "kernel" where K3 takes every text length up to ``max_positions``,
+    else "plain"."""
+    if config.quant == "int8":
+        return "int8"
+    D, L = config.hidden_dim, config.max_positions
+    return "kernel" if K3.kernel_takes(D, config.num_heads, L, L) else "plain"
 
 
 def qlinear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
@@ -116,6 +133,7 @@ class BertLayer(nn.Module):
         D = config.hidden_dim
         self.num_heads = config.num_heads
         self.quant = config.quant
+        self.route = attention_route(config)
         self.attention = MhaParams(D, dtype, device)
         self.attn_norm = LayerNorm(D, dtype, device)
         self.ffn_in = nn.Linear(D, config.intermediate_dim, dtype=dtype, device=device)
@@ -132,7 +150,7 @@ class BertLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
         """x: (B, L, D); key_mask: (B, L) additive f32 (0 valid / -1e9 pad)."""
-        if self.quant == "int8":
+        if self.route == "int8":
             a = self.attention
             q, k, v = qlinear_multi(x, (a.query, a.key, a.value))
             ctx = mha_train(q, k, v, self.num_heads, key_mask, 0.0, None)
@@ -140,10 +158,11 @@ class BertLayer(nn.Module):
                        x.dtype)
         else:
             q8 = self.quant == "int8_kernel"
-            x = fused_attention(x, self.attn_norm.weight, self.attn_norm.bias,
-                                *self.attention.weights(q8), key_mask=key_mask,
-                                num_heads=self.num_heads, ln_mode="post", quant=q8,
-                                wscales=self.attention.scales() if q8 else None)
+            args = (x, self.attn_norm.weight, self.attn_norm.bias, *self.attention.weights(q8))
+            kw = dict(key_mask=key_mask, num_heads=self.num_heads, ln_mode="post", quant=q8,
+                      wscales=self.attention.scales() if q8 else None)
+            x = fused_attention(*args, **kw) if self.route == "kernel" else \
+                _build.run_plain(fused_attention, attention_plain, *args, **kw)
         if self.quant == "none":
             y = self.ffn_out(gelu(self.ffn_in(x)))
         else:

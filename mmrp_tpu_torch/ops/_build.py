@@ -39,9 +39,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of every C entry, in the order of its definition in csrc/
 _SIGNATURES = {
     "mmrp_window_attention": [_P] * 10 + [_I] * 6 + [_F, _P],
-    "mmrp_ln_mlp": [_P] * 8 + [_I] * 5 + [_F, _P],
+    "mmrp_ln_mlp": [_P] * 10 + [_I] * 5 + [_F, _P],
+    "mmrp_mlp_cluster": [_I] * 4,
     "mmrp_seq_attention": [_P] * 18 + [_I] * 8 + [_F, _P, _P],
-    "mmrp_swin_block": [_P] * 16 + [_I] * 10 + [_F, _P, _P],
+    "mmrp_swin_block": [_P] * 17 + [_I] * 10 + [_F, _P, _P],
+    "mmrp_mlp_q8_cluster": [_I] * 4,
     "mmrp_wattn_core_fwd": [_P] * 3 + [_I] * 7 + [_F, _P],
     "mmrp_wattn_core_bwd": [_P] * 6 + [_I] * 8 + [_F, _P],
     "mmrp_window_attention_heads": [_P] * 5 + [_I] * 4 + [_F, _P],
@@ -130,15 +132,19 @@ def launch(name: str, device: torch.device, *args) -> None:
     """Call C entry ``name`` with ``device`` current (a launch goes to the
     current device); raise if the launch reported a CUDA error."""
     lib = library()
-    with torch.cuda.device(device):
+    if device.index is None or device.index == torch.cuda.current_device():
         code = getattr(lib, name)(*args)
+    else:
+        with torch.cuda.device(device):
+            code = getattr(lib, name)(*args)
     if code != 0:
         msg = lib.mmrp_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of PyTorch's current stream on t's device."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -169,6 +175,14 @@ def check_cuda_inputs(op: str, device: torch.device,
             raise RuntimeError(
                 f"{op}: {name} requires grad; the CUDA kernel is forward-only "
                 "(run under torch.inference_mode() or torch.no_grad())")
+
+
+def run_plain(wrapper, plain, *args, **kwargs):
+    """``plain(*args, **kwargs)`` on a plain route of a model's plan: a shape
+    the kernel behind ``wrapper`` does not take, run by its plain version on
+    any device and counted in ``wrapper.plain_calls``."""
+    wrapper.plain_calls += 1
+    return plain(*args, **kwargs)
 
 
 def round16(n: int) -> int:

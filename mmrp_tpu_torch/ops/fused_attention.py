@@ -24,6 +24,11 @@ kernels take 1 to 512 per sequence, the model's positions.
 :func:`tile_walk_plain` is the CUDA attention tile's walk over 64-key tiles,
 with its rounding points, in plain PyTorch.
 
+:func:`kernel_takes` holds the CUDA kernels' shape limits: the wrapper raises
+on a CUDA tensor it refuses, and the text encoder and the fusion modules
+route such shapes to :func:`attention_plain` by their plan, counted in
+``fused_attention.plain_calls``.
+
 Weights use the nn.Linear layout: each of wq/wk/wv/wo is (C_out, C_in).
 """
 
@@ -40,6 +45,20 @@ from mmrp_tpu_torch.ops.quant import int8_weights, quant_dot
 _LN_MODES = {"none": 0, "pre": 1, "post": 2}
 MAX_TOKENS = 512  # tokens per sequence the CUDA kernels take: the model's positions
 TILE = 64  # queries per attention tile, and keys per key tile
+
+
+HEAD_DIMS = (32, 64, 128)
+MAX_WIDTH = 1024
+
+
+def kernel_takes(C: int, num_heads: int, Nq: int, Nk: Optional[int] = None) -> bool:
+    """Whether the CUDA kernels take width C, ``num_heads`` heads, Nq query
+    and Nk key tokens (Nk = Nq for self-attention): head dims 32, 64 or 128,
+    C a multiple of 128 up to 1024, and 1 to ``MAX_TOKENS`` tokens."""
+    Nk = Nq if Nk is None else Nk
+    return (num_heads > 0 and C % num_heads == 0 and C // num_heads in HEAD_DIMS
+            and C % 128 == 0 and C <= MAX_WIDTH and 1 <= Nq <= MAX_TOKENS
+            and 1 <= Nk <= MAX_TOKENS)
 
 
 def _ln(xf, scale, bias, eps):
@@ -153,8 +172,7 @@ def fused_attention(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
     _check_form(ln_mode, kv)
     B, Nq, C = x.shape
     Nk = Nq if kv is None else kv.shape[1]
-    if C % num_heads or C // num_heads not in (32, 64, 128) or C % 128 or C > 1024 \
-            or not (1 <= Nq <= MAX_TOKENS and 1 <= Nk <= MAX_TOKENS):
+    if not kernel_takes(C, num_heads, Nq, Nk):
         raise ValueError(
             "fused_attention: the kernel takes head dims 32/64/128, C a multiple of 128 up "
             f"to 1024 and 1 to {MAX_TOKENS} tokens, got C={C}, heads={num_heads}, Nq={Nq}, "
@@ -201,3 +219,4 @@ def fused_attention(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
 
 fused_attention.launches = 0
 fused_attention.launches_int8 = 0
+fused_attention.plain_calls = 0

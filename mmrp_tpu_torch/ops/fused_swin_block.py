@@ -38,17 +38,24 @@ W8A8 (``quant``), the int8 forms of ``_block_body``, for all four GEMMs:
   sx``).
 
 Launches are counted per flavor: ``launches`` (bf16), ``launches_dynamic``
-and, on the windows flavor, ``launches_static``.
+and, on the windows flavor, ``launches_static``. The MLP half runs on the
+wgmma epilogue of ``csrc/mlp_sm90.cuh`` in bf16 and in static W8A8 with
+calibrated activation scales; the forms that need per-row activation
+scales (static without ``act_scales``, dynamic) on ``block_mlp_q8_kernel``.
+:func:`kernel_takes` holds the shape limits of both launches: the wrapper
+raises on CUDA tensors it refuses, and the Swin encoder's plan routes such
+steps to their plain version, counted in each flavor's ``plain_calls``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 
-from mmrp_tpu_torch.ops import _build
+from mmrp_tpu_torch.ops import _build, fused_mlp, fused_window_attention
 from mmrp_tpu_torch.ops.fused_window_attention import _gemm, attention_half_f32
 from mmrp_tpu_torch.ops.quant import exact_int_matmul, int8_weights, quant_dot, quantize_acts
 from mmrp_tpu_torch.ops.window_attention import window_partition, window_reverse
@@ -58,6 +65,62 @@ BLOCK_ARGS = 12
 # the weights of the four GEMMs (qkv, proj, FC1, FC2) among them
 GEMM_WEIGHTS = (2, 4, 8, 10)
 QUANT_MODES = {False: 0, True: 1, "static": 2}
+
+
+def wgmma_epilogue(quant=False, act_scales=None) -> bool:
+    """Whether the MLP half runs on the wgmma epilogue: bf16, or static W8A8
+    with a static scale for every GEMM input."""
+    return quant is False or (quant == "static" and act_scales is not None
+                              and all(float(a) > 0 for a in act_scales[1:]))
+
+
+def _q8_smem(C: int, span: int) -> int:
+    """Shared memory of ``block_mlp_q8_kernel`` (``swin_block.cu::mlp_q8_smem``)."""
+    def a128(n):
+        return (n + 127) // 128 * 128
+    return (a128(16 * (C + 16)) + a128(16 * (C + 4) * 4) + a128(16 * (C + 8) * 2)
+            + a128(16 * (span + 8) * 2) + 4 * 16 * 4)
+
+
+def q8_cluster_size(row_tiles: int, C: int, Hd: int, sms: int = 0) -> int:
+    """The cluster size ``swin_block.cu::cluster_size_q8`` picks for the
+    per-row int8 epilogue over ``row_tiles`` tiles of 16 rows on ``sms`` SMs:
+    the fewest ranks whose slice fits, then twice as many while the grid
+    stays within about four blocks per SM (``sms`` 0: the fewest). 0: no fit."""
+    def ok(S):
+        return (C // 8) % S == 0 and (Hd // 32) % S == 0
+    S = 1
+    while S <= fused_mlp.MAX_CLUSTER and (not ok(S)
+                                          or _q8_smem(C, Hd // S) > fused_mlp.MAX_SMEM):
+        S *= 2
+    if S > fused_mlp.MAX_CLUSTER:
+        return 0
+    while S < fused_mlp.MAX_CLUSTER and row_tiles * 2 * S <= 4 * sms and ok(2 * S):
+        S *= 2
+    return S
+
+
+def kernel_takes(C: int, num_heads: int, N: int, Hd: int, quant=False,
+                 act_scales=None) -> bool:
+    """Whether the whole-block kernel takes a block of width C, ``num_heads``
+    heads, N tokens per window and hidden width Hd in the W8A8 form
+    ``quant`` (with ``act_scales`` or per-row scales): the attention phase's
+    limits (``fused_window_attention.kernel_takes``), C % 32 == 0 in int8;
+    then the wgmma epilogue's (``fused_mlp.kernel_takes``, staging f32 rows),
+    or for the per-row int8 forms Hd % 128 == 0 and a cluster whose hidden
+    slice fits one block (:func:`q8_cluster_size`)."""
+    return _takes(C, num_heads, N, Hd, quant, wgmma_epilogue(quant, act_scales))
+
+
+@functools.lru_cache(maxsize=None)
+def _takes(C: int, num_heads: int, N: int, Hd: int, quant, wgmma: bool) -> bool:
+    if quant not in QUANT_MODES or not fused_window_attention.kernel_takes(C, num_heads, N):
+        return False
+    if quant and C % 32:
+        return False
+    if wgmma:
+        return fused_mlp.kernel_takes(C, Hd, staged=4)
+    return Hd > 0 and Hd % 128 == 0 and q8_cluster_size(1, C, Hd) > 0
 
 
 def static_gemm(x, w8, sw, sa, b) -> torch.Tensor:
@@ -160,10 +223,14 @@ def launch_block(op: str, x: torch.Tensor, blk: Sequence[torch.Tensor],
         B, nW, N, C = x.shape
         H = W = 0
     Hd = blk[8].shape[0]
-    if C % num_heads or C // num_heads not in (32, 64, 128) or N > 64 or Hd % 128:
+    wgmma = wgmma_epilogue(quant, act_scales)
+    if not _takes(C, num_heads, N, Hd, quant, wgmma):
         raise ValueError(
-            f"{op}: the kernel takes head dims 32/64/128, at most 64 tokens per window "
-            f"and a hidden width % 128 == 0, got C={C}, heads={num_heads}, N={N}, Hd={Hd}")
+            f"{op}: the kernel takes head dims 32/64/128, at most 64 tokens per window, and "
+            "C % 16 == 0 (int8: 32) up to 1024 with a hidden width that a cluster of up to 8 "
+            "splits into multiples of 128 of at most 512 (the per-row int8 forms: C % 32 "
+            f"== 0, Hd % 128 == 0), got C={C}, heads={num_heads}, N={N}, Hd={Hd}, "
+            f"quant={quant!r}")
     bf16, f32 = torch.bfloat16, torch.float32
     names = ("ln0_scale", "ln0_bias", "w_qkv", "b_qkv", "w_proj", "b_proj",
              "ln1_scale", "ln1_bias", "w1", "b1", "w2", "b2")
@@ -178,11 +245,17 @@ def launch_block(op: str, x: torch.Tensor, blk: Sequence[torch.Tensor],
         *((n, t, dt, shape) for n, t, (dt, shape) in zip(names, blk, specs)),
         ("bias_full", bias_full, f32, (nW, num_heads, N, N)), *qspecs,
     ])
-    ctx = torch.empty((_build.round16(B * nW * N), C), dtype=bf16, device=x.device)
+    M = B * nW * N
+    # one allocation: the attention context (bf16, round16(M) rows), then the
+    # wgmma epilogue's y (f32), LN1(y) and int8 context, by rows
+    nctx = _build.round16(M) * C * 2
+    buf = torch.empty(nctx + (M * C * 7 if wgmma else 0), dtype=torch.uint8,
+                      device=x.device)
+    ctx, scratch = buf[:nctx], buf[nctx:] if wgmma else None
     out = torch.empty_like(x)
     _build.launch(
         "mmrp_swin_block", x.device,
-        *map(_build.ptr, (x, *blk, bias_full, ctx, out)),
+        *map(_build.ptr, (x, *blk, bias_full, ctx, scratch, out)),
         B, nW, N, C, num_heads, Hd, H, W, map_ws, int(roll), float(ln_eps),
         _build.addr(qa), _build.stream_of(x))
     return out
@@ -213,6 +286,7 @@ def fused_swin_block_windows(xw, ln0_scale, ln0_bias, w_qkv, b_qkv, w_proj, b_pr
 fused_swin_block_windows.launches = 0
 fused_swin_block_windows.launches_dynamic = 0
 fused_swin_block_windows.launches_static = 0
+fused_swin_block_windows.plain_calls = 0
 
 
 def fused_swin_block_raw(x, ln0_scale, ln0_bias, w_qkv, b_qkv, w_proj, b_proj,
@@ -238,3 +312,4 @@ def fused_swin_block_raw(x, ln0_scale, ln0_bias, w_qkv, b_qkv, w_proj, b_proj,
 
 fused_swin_block_raw.launches = 0
 fused_swin_block_raw.launches_dynamic = 0
+fused_swin_block_raw.plain_calls = 0

@@ -20,6 +20,11 @@ barrier across the map that the shifted block needs. On CPU tensors they run
 :func:`chain_plain` / :func:`pair_plain`, the JAX ``_xla_chain`` / ``_xla_pair``
 in plain PyTorch.
 
+:func:`kernel_takes` holds the kernel's shape limits on the map
+(``fused_swin_block.kernel_takes`` with ws x ws windows); each flavor counts
+the calls its plain version serves on a plain route of the Swin encoder's
+plan in ``plain_calls``.
+
 ``pair_vmem_ok`` and ``chain_vmem_ok`` are copies of the JAX gates. They
 size TPU VMEM, not anything on the GPU; the port keeps them so that its
 Swin encoder takes the same route as the reference at every geometry
@@ -32,7 +37,15 @@ from typing import Sequence
 
 import torch
 
+from mmrp_tpu_torch.ops import fused_swin_block
 from mmrp_tpu_torch.ops.fused_swin_block import count_launch, launch_block, raw_plain
+
+
+def kernel_takes(C: int, num_heads: int, ws: int, Hd: int, quant=False,
+                 act_scales=None) -> bool:
+    """Whether the kernel takes a block on the map in ws x ws windows (the
+    pair: each of its two blocks)."""
+    return fused_swin_block.kernel_takes(C, num_heads, ws * ws, Hd, quant, act_scales)
 
 
 def pair_vmem_ok(C: int, H: int, W: int, num_heads: int, ws: int,
@@ -115,6 +128,7 @@ def fused_swin_block_chain(x, blk: Sequence[torch.Tensor], bias, num_heads: int,
 
 fused_swin_block_chain.launches = 0
 fused_swin_block_chain.launches_static = 0
+fused_swin_block_chain.plain_calls = 0
 
 
 def fused_swin_block_pair(x, blk0: Sequence[torch.Tensor], bias0,
@@ -140,3 +154,4 @@ def fused_swin_block_pair(x, blk0: Sequence[torch.Tensor], bias0,
 
 fused_swin_block_pair.launches = 0
 fused_swin_block_pair.launches_static = 0
+fused_swin_block_pair.plain_calls = 0

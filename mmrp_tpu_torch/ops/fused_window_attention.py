@@ -7,6 +7,10 @@ Counterpart of ``mmrp_tpu/ops/fused_window_attention.py``. On a CUDA tensor
 dtype discipline of the JAX ``xla_equivalent``: LN, softmax and every
 accumulation in f32, GEMM operands in the activation dtype.
 
+:func:`kernel_takes` holds the kernel's shape limits: the wrapper raises on a
+CUDA tensor it refuses, and the Swin encoder's plan routes such stages to the
+plain version, counted in ``fused_window_attention_windows.plain_calls``.
+
 Weights use the nn.Linear layout: ``w_qkv`` is (3C, C) with rows [q | k | v]
 (the transpose of the Flax (C, 3C) kernel), ``w_proj`` is (C, C).
 """
@@ -18,6 +22,18 @@ import torch.nn.functional as F
 
 from mmrp_tpu_torch.ops import _build
 from mmrp_tpu_torch.ops.window_attention import build_rel_bias, shift_attn_mask_on
+
+
+HEAD_DIMS = (32, 64, 128)
+MAX_WINDOW_TOKENS = 64
+
+
+def kernel_takes(C: int, num_heads: int, N: int) -> bool:
+    """Whether the CUDA window attention (K1, and the whole Swin block's
+    attention phase) takes width C, ``num_heads`` heads and N tokens per
+    window: head dims 32, 64 or 128 and 1 to 64 tokens."""
+    return (num_heads > 0 and C % num_heads == 0 and C // num_heads in HEAD_DIMS
+            and 1 <= N <= MAX_WINDOW_TOKENS)
 
 
 def _ln(xf, scale, bias, eps):
@@ -73,7 +89,7 @@ def fused_window_attention_windows(xw, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
     if xw.device.type != "cuda":
         raise ValueError(f"fused_window_attention_windows: no kernel for {xw.device}")
     B, nW, N, C = xw.shape
-    if C % num_heads or C // num_heads not in (32, 64, 128) or N > 64:
+    if not kernel_takes(C, num_heads, N):
         raise ValueError(
             "fused_window_attention_windows: the kernel takes head dims 32/64/128 "
             f"and at most 64 tokens per window, got C={C}, heads={num_heads}, N={N}")
@@ -98,6 +114,7 @@ def fused_window_attention_windows(xw, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
 
 
 fused_window_attention_windows.launches = 0
+fused_window_attention_windows.plain_calls = 0
 
 
 def build_bias_full(rel_bias_table: torch.Tensor, ws: int, H: int, W: int,

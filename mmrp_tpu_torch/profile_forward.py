@@ -58,8 +58,9 @@ KINDS = (  # (kind, test on the kernel name), first match wins
     ("K3 output GEMM + epilogue", lambda n: "out_kernel<" in n),
     ("K1 projection epilogue", lambda n: "proj_epilogue_kernel" in n),
     ("K2 ln_mlp", lambda n: "ln_mlp_kernel" in n),
+    ("whole-block MLP epilogue, int8", lambda n: "block_mlp_q8_kernel" in n
+     or "block_mlp_kernel<true" in n),
     ("whole-block MLP epilogue", lambda n: "block_mlp_kernel" in n),
-    ("whole-block MLP epilogue, int8", lambda n: "block_mlp_q8_kernel" in n),
     ("library GEMMs", lambda n: any(k in n.lower() for k in ("gemm", "cutlass", "xmma",
                                                              "nvjet", "sm90_", "cublas"))),
     ("other (copies, casts, elementwise)", lambda n: True),

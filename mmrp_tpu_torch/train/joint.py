@@ -50,10 +50,22 @@ def init_train_state(model: MultiModalRetrievalModel, cfg: Config, seed: int = 0
     return TrainState(params, mu, nu, 0, cfg.seed, tx)
 
 
+def refuse_augment(cfg: Config) -> None:
+    """The JAX train step augments the batch's images here when
+    ``cfg.augment`` (``mmrp_tpu/train/joint.py:83-87``); the port has no
+    ``augment_batch`` yet."""
+    if cfg.augment:
+        raise NotImplementedError(
+            "Config(augment=True) trains on augmented images, which needs "
+            "ops/preprocess.py::augment_batch, not ported yet (ROADMAP.md Queue 1 item 4)")
+
+
 def compute_losses(model: MultiModalRetrievalModel, kg_proj: Optional[torch.Tensor],
                    batch: Batch, generator: Optional[torch.Generator], cfg: Config,
                    pos_weight: Optional[torch.Tensor],
                    deterministic: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    if not deterministic:
+        refuse_augment(cfg)
     out = model(batch["image"], batch["input_ids"], batch["attention_mask"],
                 deterministic=deterministic, generator=generator)
     return assemble_losses(kg_proj, out, batch, cfg, pos_weight)
@@ -103,6 +115,7 @@ def make_train_step(model: MultiModalRetrievalModel, cfg: Config,
     state and the model are updated in place; the same state is returned.
     ``metrics`` holds the loss terms and ``grad_norm``, the global norm of the
     unclipped gradients, as Python floats."""
+    refuse_augment(cfg)
     device = next(model.parameters()).device
     pw = None if pos_weight is None else torch.as_tensor(pos_weight, dtype=torch.float32,
                                                          device=device)

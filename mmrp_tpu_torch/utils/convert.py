@@ -69,19 +69,23 @@ def _convert_leaf(leaf: str, arr: np.ndarray):
     return leaf, arr
 
 
-def flax_to_state_dict(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax param tree (nested or ``/``-joined flat) -> port state dict (f32)."""
-    flat = _flatten(tree)
-    out = {}
-    for key, arr in flat.items():
+def state_items(tree: Mapping[str, Any]):
+    """(state-dict key, numpy array in the port's layout) for every leaf of a
+    Flax param tree, nested or ``/``-joined flat; the arrays may be views."""
+    for key, arr in _flatten(tree).items():
         parts = key.split("/")
         if parts[0] == "params":
             parts = parts[1:]
         if parts[0] == "model":
             parts = parts[1:]
         name, arr = _convert_leaf(parts[-1], arr)
-        out[".".join(parts[:-1] + [name])] = torch.from_numpy(np.array(arr, dtype=np.float32))
-    return out
+        yield ".".join(parts[:-1] + [name]), arr
+
+
+def flax_to_state_dict(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax param tree (nested or ``/``-joined flat) -> port state dict (f32)."""
+    return {key: torch.from_numpy(np.array(arr, dtype=np.float32))
+            for key, arr in state_items(tree)}
 
 
 def load_flax_params(model: nn.Module, tree_or_npz) -> Dict[str, torch.Tensor]:

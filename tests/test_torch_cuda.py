@@ -79,6 +79,146 @@ def test_ln_mlp_kernel(dev, M, C, Hd, post_ln):
     torch.testing.assert_close(got.float(), want.float(), atol=ATOL, rtol=0)
 
 
+# M rows of each MLP shape of the serving path (batch 8), the same at batch 1
+# (ragged), and M that make the host pick each cluster split on 132 SMs
+# (csrc/mlp_sm90.cuh::mlp_cluster_size: the fewest ranks whose hidden slice is
+# at most 512 wide and whose layout fits, doubled while the grid stays within
+# one block per SM): C 128 -> S 1 / 2 / 4, C 256 -> 2 / 4 / 8, C 512 -> 4 / 8,
+# C 1024 -> 8; C 1024 Hd 1024 -> 4 (S 2 would not fit); then Swin-T / S
+# stages 1-2 (C 96 and 192, not multiples of 128: partial K chunk and output
+# tile) at batch 8 and ragged
+MLP_SHAPES = [(25088, 128, 512, False), (4000, 128, 512, False), (200, 128, 512, False),
+              (408, 1024, 4096, False), (51, 1024, 4096, False), (6272, 256, 1024, False),
+              (1568, 256, 1024, False), (196, 256, 1024, True), (1568, 512, 2048, False),
+              (196, 512, 2048, False), (51, 768, 3072, True), (51, 1024, 1024, True),
+              (25088, 96, 384, False), (6272, 192, 768, False), (200, 96, 384, True),
+              (51, 192, 768, False), (100, 64, 256, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,C,Hd,post_ln", MLP_SHAPES)
+def test_ln_mlp_kernel_at_every_split(dev, M, C, Hd, post_ln):
+    """K2 on the wgmma MLP at the serving shapes, ragged M and every cluster
+    split, pre- and post-LN, within 4 bf16 ulps of the output."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    args = (_rand(gen, (M, C), dev), 1 + _rand(gen, (C,), dev, 0.1, torch.float32),
+            _rand(gen, (C,), dev, 0.1, torch.float32), _rand(gen, (Hd, C), dev, C ** -0.5),
+            _rand(gen, (Hd,), dev, 0.1), _rand(gen, (C, Hd), dev, Hd ** -0.5),
+            _rand(gen, (C,), dev, 0.1))
+    before = tfm.fused_ln_mlp_residual.launches
+    with torch.no_grad():
+        got = tfm.fused_ln_mlp_residual(*args, post_ln=post_ln)
+        want = tfm.ln_mlp_plain(*args, post_ln=post_ln)
+    torch.cuda.synchronize()
+    assert tfm.fused_ln_mlp_residual.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **SWIN_TOL)
+
+
+@pytest.mark.cuda
+def test_mlp_cluster_sizes_are_the_kernels_host_code(dev):
+    """The Python copies of the MLP kernels' cluster sizing (which
+    ``kernel_takes`` and the plan read) against the host code that launches
+    them, over a grid of widths, hidden widths, row tiles and SM counts."""
+    from mmrp_tpu_torch.ops import _build
+
+    lib = _build.library()
+    n = 0
+    for C in (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024):
+        for Hd in sorted({C, 2 * C, 3 * C, 4 * C, 8 * C, 384, 4096}):
+            for row_tiles in (1, 7, 25, 98, 392):
+                for sms in (0, 132):
+                    for staged in (2, 4):
+                        assert lib.mmrp_mlp_cluster(row_tiles, Hd, staged * C, sms) == \
+                            tfm.mlp_cluster_size(row_tiles, Hd, staged * C, sms), \
+                            (C, Hd, row_tiles, sms, staged)
+                    assert lib.mmrp_mlp_q8_cluster(4 * row_tiles, C, Hd, sms) == \
+                        tsb.q8_cluster_size(4 * row_tiles, C, Hd, sms), (C, Hd, row_tiles, sms)
+                    n += 1
+    assert n > 500
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_where_kernel_takes_refuses(dev):
+    """Each wrapper raises on CUDA tensors of a shape its ``kernel_takes``
+    refuses (no fallback), and runs one it takes."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    C, Hd = 64, 320  # K2 takes Hd % 128 == 0 only
+    assert not tfm.kernel_takes(C, Hd)
+    args = (_rand(gen, (16, C), dev), torch.ones(C, device=dev), torch.zeros(C, device=dev),
+            _rand(gen, (Hd, C), dev), _rand(gen, (Hd,), dev), _rand(gen, (C, Hd), dev),
+            _rand(gen, (C,), dev))
+    with pytest.raises(ValueError, match="the kernel takes"):
+        tfm.fused_ln_mlp_residual(*args)
+    blk, bias = _swin_block(gen, dev, 64, 4, 7, 0)  # head dim 16: no kernel
+    assert not tsb.kernel_takes(64, 4, 49, 256)
+    with pytest.raises(ValueError, match="the kernel takes"):
+        tsb.fused_swin_block_windows(_rand(gen, (1, 1, 49, 64), dev), *blk, bias, 4)
+    assert not tfw.kernel_takes(64, 4, 49)
+    with pytest.raises(ValueError, match="the kernel takes"):
+        tfw.fused_window_attention_windows(_rand(gen, (1, 1, 49, 64), dev), *blk[:6], bias, 4)
+    args, kw = _k3_inputs(gen, dev, "post", False, 1, 16, 16, 64, 2)
+    assert not tfa.kernel_takes(64, 2, 16)
+    with pytest.raises(ValueError, match="the kernel takes"):
+        tfa.fused_attention(*args, **kw)
+    with torch.no_grad():
+        blk, bias = _swin_block(gen, dev, 128, 4, 7, 0)
+        assert tsb.kernel_takes(128, 4, 49, 512)
+        tsb.fused_swin_block_windows(_rand(gen, (1, 1, 49, 128), dev), *blk, bias, 4)
+
+
+@pytest.mark.cuda
+def test_predict_runs_the_slice_model_through_its_plain_routes(dev):
+    """MMRPredictor.predict on the slice tests' model, whose attentions no
+    kernel takes (head dims 8 and 16, widths 16 to 64), in bf16 on the card:
+    every such call site on its plain route, counted, the fusion FFN (C 64)
+    on K2, every output finite, and the outputs against the same weights in
+    f32 on the CPU within a bf16 tolerance."""
+    import numpy as np
+
+    from mmrp_tpu_torch.api import MMRPredictor, serving_forward
+    from mmrp_tpu_torch.models.multimodal import (
+        MultiModalConfig,
+        MultiModalRetrievalModel,
+        plain_routes,
+    )
+    from mmrp_tpu_torch.models.swin import SwinConfig
+    from mmrp_tpu_torch.models.text_encoder import TextConfig
+    from mmrp_tpu_torch.utils.convert import init_params
+
+    cfg = MultiModalConfig(
+        swin=SwinConfig(img_size=56, embed_dim=16, depths=(2, 2), num_heads=(2, 2)),
+        text=TextConfig.small(hidden_dim=32, num_layers=1, num_heads=2, intermediate_dim=64),
+        joint_dim=64, num_fusion_layers=2, num_heads=4, num_classes=7, max_text_len=16)
+    assert len(plain_routes(cfg)) == 10
+    model = MultiModalRetrievalModel(cfg, dtype=torch.bfloat16, device=dev).eval()
+    init_params(model, seed=0)
+    rng = np.random.default_rng(0)
+    img = rng.random((2, 56, 56, 3), dtype=np.float32)
+    ids = rng.integers(0, cfg.text.vocab_size, (2, 16)).astype(np.int64)
+    mask = (np.arange(16)[None, :] < np.array([[16], [9]])).astype(np.int64)
+    counters = (tfw.fused_window_attention_windows, tfm.fused_ln_mlp_residual,
+                tfa.fused_attention)
+    before = [(fn.plain_calls, fn.launches) for fn in counters]
+    pred = MMRPredictor(model, [f"c{i}" for i in range(7)]).predict(img, ids, mask)
+    torch.cuda.synchronize()
+    # 4 Swin blocks (K1 + K2 each), 1 BERT attention, 2 fusion layers of 5
+    # attentions (plain) and one FFN (K2)
+    assert [(fn.plain_calls - b[0], fn.launches - b[1]) for fn, b in zip(counters, before)] \
+        == [(4, 0), (4, 2), (1 + 2 * 5, 0)]
+    assert all(np.isfinite(pred[k]).all() for k in ("probs", "joint_emb"))
+    ref = MultiModalRetrievalModel(cfg, device="cpu").eval()
+    ref.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+    want = serving_forward(ref)(torch.from_numpy(img), torch.from_numpy(ids),
+                                torch.from_numpy(mask))
+    # bf16 against f32: on the CPU the same bf16 model differs from f32 by at
+    # most 2.3e-3 (probs) and 1.9e-2 (joint_emb), cosine 0.99998
+    np.testing.assert_allclose(pred["probs"], want["probs"].numpy(), rtol=0, atol=1e-2)
+    np.testing.assert_allclose(pred["joint_emb"], want["joint_emb"].numpy(), rtol=0, atol=5e-2)
+    cos = torch.nn.functional.cosine_similarity(torch.as_tensor(pred["joint_emb"]).float(),
+                                                want["joint_emb"].float(), dim=-1)
+    assert cos.min().item() > 0.999
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("ln_mode,cross,B,Nq,Nk,C,heads", [
     ("post", False, 2, 64, 64, 768, 12),
@@ -246,6 +386,53 @@ def test_swin_block_kernel(dev, flavor, C, heads, H, roll):
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     torch.testing.assert_close(got.float(), want.float(), **SWIN_TOL)
+
+
+# the whole-block MLP epilogue at the serving path's shapes (batch 8), at
+# batch 1 (ragged row tiles: 196 / 784 / 49 rows) and the splits they give:
+# pair C 256 S 2 / 8, chain C 512 S 4 / 8, windows C 1024 S 8
+BLOCK_SHAPES = [("pair", 8, 256, 8, 28), ("pair", 1, 256, 8, 28), ("chain", 8, 512, 16, 14),
+                ("chain", 1, 512, 16, 14), ("windows", 8, 1024, 32, 7),
+                ("windows", 1, 1024, 32, 7), ("chain", 2, 96, 3, 14), ("pair", 1, 192, 6, 14),
+                ("windows", 2, 768, 24, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, "static"])
+@pytest.mark.parametrize("flavor,B,C,heads,H", BLOCK_SHAPES)
+def test_swin_block_epilogue_at_every_split(dev, flavor, B, C, heads, H, quant):
+    """The wgmma epilogue in bf16 and static W8A8 (calibrated scales) at the
+    serving shapes, within the bf16 / int8 bounds of chip_smoke.py."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    (blk0, bias0), (blk1, bias1) = (_swin_block(gen, dev, C, heads, H, s)
+                                    for s in (0, 3 if H > 7 else 0))
+    x = _rand(gen, (B, H, H, C), dev)
+    kw, tol = {}, SWIN_TOL
+    if quant:
+        (blk0, s0), (blk1, s1) = _int8_block(blk0), _int8_block(blk1)
+        acts = (4.5 / 127, 3.0 / 127, 5.0 / 127, 2.5 / 127)
+        kw = dict(quant="static", wscales=s0, act_scales=acts)
+        tol = INT8_PAIR_TOL if flavor == "pair" else INT8_TOL
+    with torch.no_grad():
+        if flavor == "pair":
+            pkw = {} if not quant else dict(quant="static", wscales0=s0, wscales1=s1,
+                                            act_scales0=kw["act_scales"],
+                                            act_scales1=kw["act_scales"])
+            fn = tsp.fused_swin_block_pair
+            got = fn(x, blk0, bias0, blk1, bias1, heads, 7, 3, **pkw)
+            want = tsp.pair_plain(x, blk0, bias0, blk1, bias1, heads, 7, 3, **pkw)
+        elif flavor == "chain":
+            fn = tsp.fused_swin_block_chain
+            got = fn(x, blk1, bias1, heads, 7, 3, **dict(kw, wscales=s1) if quant else {})
+            want = tsp.chain_plain(x, blk1, bias1, heads, 7, 3,
+                                   **dict(kw, wscales=s1) if quant else {})
+        else:
+            fn = tsb.fused_swin_block_windows
+            xw = x.reshape(B, 1, 49, C)
+            got = fn(xw, *blk0, bias0, heads, **kw)
+            want = tsb.swin_block_plain(xw, *blk0, bias0, heads, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
 @pytest.mark.cuda

@@ -504,11 +504,14 @@ def test_from_config_maps_serve_quant(tmp_path):
         ("int8_static", amax, "int8_kernel", "int8")
     assert mm.swin == SwinConfig.base(quant="int8_static", act_amax=amax)
     assert mm.text == TextConfig.clinicalbert(quant="int8_kernel")
-    mm = MultiModalConfig.from_config(Config(serve_quant="int8_static"), num_classes=7)
+    mm = MultiModalConfig.from_config(Config(serve_quant="int8_static",
+                                             image_backbone="swin_micro", image_size=28),
+                                      num_classes=7)
     assert mm.swin == SwinConfig.micro(quant="int8_static") and mm.num_classes == 7
-    mm = MultiModalConfig.from_config(Config(serve_quant="int8"))
+    assert (mm.text.quant, mm.text.hidden_dim) == ("int8_kernel", 32)
+    mm = MultiModalConfig.from_config(Config(serve_quant="int8"))  # Swin-B, TextConfig.small
     assert (mm.swin, mm.text.quant, mm.quant, mm.text.hidden_dim) == \
-        (SwinConfig.micro(), "int8_kernel", "int8", 32)
+        (SwinConfig.base(), "int8_kernel", "int8", 256)
     assert MultiModalConfig.from_config(Config(), flagship=True) == MultiModalConfig.flagship()
     with pytest.raises(ValueError, match="serve_quant"):
         MultiModalConfig.from_config(Config(serve_quant="int4"))

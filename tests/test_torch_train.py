@@ -458,5 +458,12 @@ def test_mlp_matches_jax(rng, out_dim):
 
 
 def test_config_refuses_augment():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        Config(augment=True)
+    """A config that asks for augmentation loads (a serving run reads the same
+    file), and the train step, where JAX augments, refuses it."""
+    from mmrp_tpu_torch.train.joint import compute_losses, make_train_step
+
+    cfg = Config(augment=True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        compute_losses(None, None, {}, torch.Generator(), cfg, None)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        make_train_step(None, cfg)
