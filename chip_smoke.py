@@ -17,8 +17,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    then the median CUDA-event time of each and its bound (bytes over 3.35
    TB/s, or bf16 FLOPs over 989 TFLOP/s plus int8 ops over 1,979 TOPS), and
    the device time of one call (the profiler's; the CUDA-event time also holds
-   the host's launch time where the card waits), and for each whole-block
-   flavor the device time of its MLP launch beside that launch's own bound. Each
+   the host's launch time where the card waits), and for K1 and each
+   whole-block flavor the device time of each of its launches (the attention
+   launch, K1's projection, the MLP launch) beside that launch's own bound. Each
    int8 case also computes planted faults with its plain version (bf16
    activations; the other kind of activation scale), each of which must break
    the case's limits, and the static pair's difference is split by block;
@@ -320,6 +321,33 @@ def mlp_launch_work(M: int, C: int, blocks: int, int8: bool):
     return (0, ops, nbytes) if int8 else (ops, 0, nbytes)
 
 
+def attn_launch_work(M: int, C: int, heads: int, nW: int, blocks: int = 1,
+                     int8: bool = False, N: int = 49):
+    """(bf16 FLOPs, int8 ops, bytes) of the K1 or whole-block call's attention
+    launch(es) (``window_attn_wgmma``) over M rows of width C in nW windows of
+    N tokens: the qkv GEMM, 6 C^2 a row (int8 ops in W8A8), and the scores and
+    P.V, 4 N C a row; the rows read and the context written once, W_qkv (int8:
+    one byte each, and its f32 scales) and b_qkv read once, and bias_full
+    (nW, heads, N, N) f32."""
+    gemm, att = 6 * M * C * C * blocks, 4 * M * N * C * blocks
+    wbytes = 3 * C * C + 3 * C * 4 if int8 else 3 * C * C * 2
+    nbytes = blocks * (2 * M * C * 2 + wbytes + 3 * C * 2 + nW * heads * N * N * 4)
+    return (att, gemm, nbytes) if int8 else (gemm + att, 0, nbytes)
+
+
+def proj_launch_work(M: int, C: int):
+    """(bf16 FLOPs, int8 ops, bytes) of K1's projection launch
+    (``k1_proj_wgmma``): 2 M C^2 FLOPs; the context and the residual read, W_o
+    and b_o read, the output written once."""
+    return 2 * M * C * C, 0, 3 * M * C * 2 + C * C * 2 + C * 2
+
+
+# a K1 or whole-block call's launches, timed apart by the profiler: kind ->
+# (short name of the record's keys, a substring of the CUDA kernel's name)
+LAUNCH_KINDS = {"attention": ("attn", "window_attn_wgmma"),
+                "projection": ("proj", "k1_proj_wgmma"), "mlp": ("mlp", "block_mlp")}
+
+
 def attn_flops(M: int, Nk: int, C: int, kv_rows: int) -> int:
     """q and out projections over M query rows, k and v over kv_rows key
     rows, and q k^T plus p v (4 M Nk C over all heads)."""
@@ -402,11 +430,20 @@ def main() -> int:
     def ln_params(C):
         return 1 + rnd((C,), 0.1, f32), rnd((C,), 0.1, f32)
 
-    # (kernel, shape label, (calls per run of the kernel's path (PATH_OF), per
-    #  predict on the K1 + K2 route[, {text length: calls per predict at that
-    #  length}]), kernel fn, plain fn, (bf16 FLOPs, int8 ops) of one call[, int8
-    #  only: {planted fault: its plain fn}])
     cases = []
+
+    def add_case(name, label, calls, kern, plain, flops, ops8=0, inputs=(), launches=None,
+                 faults=None):
+        """One kernel case. calls: (calls per run of the kernel's path
+        (PATH_OF), per predict on the K1 + K2 route[, {text length: calls per
+        predict at that length}]); flops, ops8: bf16 FLOPs and int8 ops of one
+        call; inputs: the tensors the wrapper is given, each read once for the
+        bound (int8 weights at one byte); launches: {kind (LAUNCH_KINDS): (bf16
+        FLOPs, int8 ops, bytes)} of the call's launches, timed and bounded apart;
+        faults (int8 only): {planted fault: its plain fn}."""
+        cases.append(dict(name=name, label=label, calls=calls, kern=kern, plain=plain,
+                          flops=flops, ops8=ops8, inputs=inputs, launches=launches or {},
+                          faults=faults or {}))
 
     def dequant(q, s):
         """The bf16 weight an int8 cache and its scales stand for."""
@@ -421,18 +458,19 @@ def main() -> int:
                 rnd((3 * C,), 0.1), rnd((C, C), C ** -0.5), rnd((C,), 0.1),
                 K1.build_bias_full(table, ws, res, res, shift), heads)
         M = B * nW * ws * ws
-        cases.append(("fused_window_attention", f"xw({B},{nW},49,{C}) h{heads}", calls,
-                      lambda a=args: K1.fused_window_attention_windows(*a),
-                      lambda a=args: K1.window_attention_plain(*a),
-                      (attn_flops(M, ws * ws, C, M), 0)))
+        add_case("fused_window_attention", f"xw({B},{nW},49,{C}) h{heads}", calls,
+                 lambda a=args: K1.fused_window_attention_windows(*a),
+                 lambda a=args: K1.window_attention_plain(*a), attn_flops(M, ws * ws, C, M),
+                 inputs=args, launches={"attention": attn_launch_work(M, C, heads, nW),
+                                        "projection": proj_launch_work(M, C)})
 
     for M, C, Hd, calls in ((B * 3136, 128, 512, (2, 2)), (B * 784, 256, 1024, (0, 2)),
                             (B * 51, 1024, 4096, (5, 5))):
         args = (rnd((M, C)), *ln_params(C), rnd((Hd, C), C ** -0.5), rnd((Hd,), 0.1),
                 rnd((C, Hd), Hd ** -0.5), rnd((C,), 0.1))
-        cases.append(("fused_ln_mlp", f"x({M},{C}) hidden {Hd}", calls,
-                      lambda a=args: K2.fused_ln_mlp_residual(*a),
-                      lambda a=args: K2.ln_mlp_plain(*a), (4 * M * C * Hd, 0)))
+        add_case("fused_ln_mlp", f"x({M},{C}) hidden {Hd}", calls,
+                 lambda a=args: K2.fused_ln_mlp_residual(*a),
+                 lambda a=args: K2.ln_mlp_plain(*a), 4 * M * C * Hd, inputs=args)
 
     def key_mask(n):
         valid = torch.rand((B, n), generator=gen, device=dev) < 0.8
@@ -465,10 +503,10 @@ def main() -> int:
                   alpha=alpha if enh else None, num_heads=heads, ln_mode=mode,
                   include_residual=not cross, residual_from_raw=enh)
         shape = f"L{L} {label} ({B},{Nq}<-{Nk},{C}) h{heads} {mode}"
-        cases.append(("fused_attention", shape, (main, main, by_len),
-                      lambda a=args, k=kw: K3.fused_attention(*a, **k),
-                      lambda a=args, k=kw: K3.attention_plain(*a, **k),
-                      (attn_flops(B * Nq, Nk, C, B * Nk), 0)))
+        add_case("fused_attention", shape, (main, main, by_len),
+                 lambda a=args, k=kw: K3.fused_attention(*a, **k),
+                 lambda a=args, k=kw: K3.attention_plain(*a, **k),
+                 attn_flops(B * Nq, Nk, C, B * Nk), inputs=(args, kw))
         if label == "bert":  # the int8 mixes' BERT: W8A8 projections, int8 weight caches
             w8 = [quantize_weight(t) for t in w[0::2]]
             args8 = (args[0], *args[1:3], *(t for (q, _), b in zip(w8, w[1::2]) for t in (q, b)))
@@ -478,13 +516,13 @@ def main() -> int:
             for form, n in ((mode, calls), ("none", 0))[:2 if L == TEXT_LENGTHS[0] else 1]:
                 k8 = dict(kw8, ln_mode=form, include_residual=form == mode)
                 kf = dict(kw, ln_mode=form, include_residual=form == mode)
-                cases.append(("fused_attention_int8", f"L{L} {label} ({B},{Nq}<-{Nk},{C}) "
-                              f"h{heads} {form}", (n * (L == TEXT_LENGTHS[0]), 0, {L: n}),
-                              lambda a=args8, k=k8: K3.fused_attention(*a, **k),
-                              lambda a=args8, k=k8: K3.attention_plain(*a, **k),
-                              (4 * B * Nq * Nk * C, 8 * B * Nq * C * C),
-                              {"bf16 activations": lambda a=argsf, k=kf: K3.attention_plain(*a,
-                                                                                            **k)}))
+                add_case("fused_attention_int8", f"L{L} {label} ({B},{Nq}<-{Nk},{C}) "
+                         f"h{heads} {form}", (n * (L == TEXT_LENGTHS[0]), 0, {L: n}),
+                         lambda a=args8, k=k8: K3.fused_attention(*a, **k),
+                         lambda a=args8, k=k8: K3.attention_plain(*a, **k),
+                         4 * B * Nq * Nk * C, 8 * B * Nq * C * C, inputs=(args8, k8),
+                         faults={"bf16 activations":
+                                 lambda a=argsf, k=kf: K3.attention_plain(*a, **k)})
 
     def swin_block(C, heads, res, shift):
         """12 block tensors (nn.Linear layout) and bias_full at one stage."""
@@ -495,22 +533,14 @@ def main() -> int:
         table = rnd(((2 * ws - 1) ** 2, heads), 0.5, f32)
         return blk, K1.build_bias_full(table, ws, res, res, shift)
 
-    def block_flops(M, C):
-        return attn_flops(M, ws * ws, C, M) + 16 * M * C * C
-
-    def block_ops8(M, C):
-        """(bf16 attention FLOPs, int8 GEMM ops) of one W8A8 block."""
-        return 4 * M * ws * ws * C, 24 * M * C * C
-
-    def block_work(M, C, blocks=1):
-        """(bf16 FLOPs, int8 ops, the MLP launch's work) of a whole-block
-        call over `blocks` bf16 blocks of M rows."""
-        return blocks * block_flops(M, C), 0, mlp_launch_work(M, C, blocks, False)
-
-    def block_work8(M, C, blocks=1):
-        """The same for W8A8 blocks."""
-        flops, ops8 = block_ops8(M, C)
-        return blocks * flops, blocks * ops8, mlp_launch_work(M, C, blocks, True)
+    def block_work(M, C, heads, nW, blocks=1, int8=False):
+        """flops, ops8 and launches (add_case) of a whole-block call over
+        `blocks` blocks of M rows in nW windows of 49 tokens a image: bf16 24
+        M C^2 + 4 M N C FLOPs a block, or in W8A8 the 24 M C^2 as int8 ops."""
+        gemm, att = 24 * M * C * C * blocks, 4 * M * ws * ws * C * blocks
+        return dict(flops=att if int8 else gemm + att, ops8=gemm if int8 else 0,
+                    launches={"attention": attn_launch_work(M, C, heads, nW, blocks, int8),
+                              "mlp": mlp_launch_work(M, C, blocks, int8)})
 
     def int8_block(blk):
         """The block with its GEMM weights as int8 caches, and their scales."""
@@ -532,13 +562,15 @@ def main() -> int:
 
     # stage 2: one pair per predict
     C, heads, res = 256, 8, 28
+    nW = (res // ws) ** 2
     blk0, bias0 = swin_block(C, heads, res, 0)
     blk1, bias1 = swin_block(C, heads, res, 3)
     x = rnd((B, res, res, C))
     pair_args = (x, blk0, bias0, blk1, bias1, heads, ws, 3)
-    cases.append(("fused_swin_block_pair", f"map({B},{res},{res},{C}) h{heads}", (1, 0),
-                  lambda a=pair_args: SP.fused_swin_block_pair(*a),
-                  lambda a=pair_args: SP.pair_plain(*a), block_work(B * res * res, C, 2)))
+    add_case("fused_swin_block_pair", f"map({B},{res},{res},{C}) h{heads}", (1, 0),
+             lambda a=pair_args: SP.fused_swin_block_pair(*a),
+             lambda a=pair_args: SP.pair_plain(*a), inputs=pair_args,
+             **block_work(B * res * res, C, heads, nW, 2))
     (q0, s0), (q1, s1) = int8_block(blk0), int8_block(blk1)
     pair8 = (x, q0, bias0, q1, bias1, heads, ws, 3)
     pairf = (x, float_block(q0, s0), bias0, float_block(q1, s1), bias1, heads, ws, 3)
@@ -547,13 +579,13 @@ def main() -> int:
     for label, a8, n in (("static scales", acts, 1), ("per-row scales", None, 0)):
         kw8 = dict(quant="static", wscales0=s0, wscales1=s1, act_scales0=a8, act_scales1=a8)
         other = dict(kw8, act_scales0=None if a8 else acts, act_scales1=None if a8 else acts)
-        cases.append(("fused_swin_block_pair_static", f"map({B},{res},{res},{C}) h{heads} "
-                      f"{label}", (n, 0),
-                      lambda a=pair8, k=kw8: SP.fused_swin_block_pair(*a, **k),
-                      lambda a=pair8, k=kw8: SP.pair_plain(*a, **k),
-                      block_work8(B * res * res, C, 2),
-                      {"bf16 activations": lambda a=pairf: SP.pair_plain(*a),
-                       "other activation scales": lambda a=pair8, k=other: SP.pair_plain(*a, **k)}))
+        add_case("fused_swin_block_pair_static", f"map({B},{res},{res},{C}) h{heads} {label}",
+                 (n, 0), lambda a=pair8, k=kw8: SP.fused_swin_block_pair(*a, **k),
+                 lambda a=pair8, k=kw8: SP.pair_plain(*a, **k), inputs=(pair8, kw8),
+                 faults={"bf16 activations": lambda a=pairf: SP.pair_plain(*a),
+                         "other activation scales":
+                         lambda a=pair8, k=other: SP.pair_plain(*a, **k)},
+                 **block_work(B * res * res, C, heads, nW, 2, int8=True))
     # where the static pair's difference arises: its first launch is the
     # chain kernel's with roll -3, so run the blocks one by one, and the second
     # block's plain version on the kernel's own first output
@@ -581,54 +613,58 @@ def main() -> int:
         args = (rnd((B, nW, ws * ws, C)), *q8, bias, heads)
         kw8 = dict(quant=True, wscales=sc)
         argsf = (args[0], *float_block(q8, sc), bias, heads)
-        cases.append(("fused_swin_block_windows_dynamic", f"xw({B},{nW},49,{C}) h{heads}",
-                      (n, 0), lambda a=args, k=kw8: SB.fused_swin_block_windows(*a, **k),
-                      lambda a=args, k=kw8: SB.swin_block_plain(*a, **k),
-                      block_work8(B * nW * ws * ws, C),
-                      {"bf16 activations": lambda a=argsf: SB.swin_block_plain(*a)}))
+        add_case("fused_swin_block_windows_dynamic", f"xw({B},{nW},49,{C}) h{heads}", (n, 0),
+                 lambda a=args, k=kw8: SB.fused_swin_block_windows(*a, **k),
+                 lambda a=args, k=kw8: SB.swin_block_plain(*a, **k), inputs=(args, kw8),
+                 faults={"bf16 activations": lambda a=argsf: SB.swin_block_plain(*a)},
+                 **block_work(B * nW * ws * ws, C, heads, nW, int8=True))
     # stage 3: 18 chain steps, rolling into the shifted frame and back
     C, heads, res = 512, 16, 14
+    nW = (res // ws) ** 2
     for roll, shift in ((-3, 0), (3, 3)):
         blk, bias = swin_block(C, heads, res, shift)
         args = (rnd((B, res, res, C)), blk, bias, heads, ws, roll)
-        cases.append(("fused_swin_block_chain", f"map({B},{res},{res},{C}) h{heads} "
-                      f"roll {roll:+d}", (9, 0),
-                      lambda a=args: SP.fused_swin_block_chain(*a),
-                      lambda a=args: SP.chain_plain(*a), block_work(B * res * res, C)))
+        add_case("fused_swin_block_chain", f"map({B},{res},{res},{C}) h{heads} roll {roll:+d}",
+                 (9, 0), lambda a=args: SP.fused_swin_block_chain(*a),
+                 lambda a=args: SP.chain_plain(*a), inputs=args,
+                 **block_work(B * res * res, C, heads, nW))
         q8, sc = int8_block(blk)
         argsf = (args[0], float_block(q8, sc), *args[2:])
         args = (args[0], q8, bias, heads, ws, roll)
         kw8 = dict(quant="static", wscales=sc, act_scales=acts)
-        cases.append(("fused_swin_block_chain_static", f"map({B},{res},{res},{C}) h{heads} "
-                      f"roll {roll:+d}", (9, 0),
-                      lambda a=args, k=kw8: SP.fused_swin_block_chain(*a, **k),
-                      lambda a=args, k=kw8: SP.chain_plain(*a, **k), block_work8(B * res * res, C),
-                      {"bf16 activations": lambda a=argsf: SP.chain_plain(*a),
-                       "per-row scales": lambda a=args, k=dict(kw8, act_scales=None):
-                       SP.chain_plain(*a, **k)}))
+        add_case("fused_swin_block_chain_static", f"map({B},{res},{res},{C}) h{heads} "
+                 f"roll {roll:+d}", (9, 0),
+                 lambda a=args, k=kw8: SP.fused_swin_block_chain(*a, **k),
+                 lambda a=args, k=kw8: SP.chain_plain(*a, **k), inputs=(args, kw8),
+                 faults={"bf16 activations": lambda a=argsf: SP.chain_plain(*a),
+                         "per-row scales": lambda a=args, k=dict(kw8, act_scales=None):
+                         SP.chain_plain(*a, **k)},
+                 **block_work(B * res * res, C, heads, nW, int8=True))
     # stage 3 geometry on the raw flavor, which no route of the model calls
     x3 = rnd((B, res, res, C))
     args = (x3, *blk, bias, heads, ws)
-    cases.append(("fused_swin_block_raw", f"map({B},{res},{res},{C}) h{heads}", (0, 0),
-                  lambda a=args: SB.fused_swin_block_raw(*a),
-                  lambda a=args: SB.raw_plain(*a[:-2], num_heads=a[-2], ws=a[-1]),
-                  block_work(B * res * res, C)))
+    add_case("fused_swin_block_raw", f"map({B},{res},{res},{C}) h{heads}", (0, 0),
+             lambda a=args: SB.fused_swin_block_raw(*a),
+             lambda a=args: SB.raw_plain(*a[:-2], num_heads=a[-2], ws=a[-1]), inputs=args,
+             **block_work(B * res * res, C, heads, nW))
     args = (x3, *q8, bias, heads, ws)
     argsf = (x3, *float_block(q8, sc), bias)
     kw8 = dict(quant=True, wscales=sc)
-    cases.append(("fused_swin_block_raw_dynamic", f"map({B},{res},{res},{C}) h{heads}", (0, 0),
-                  lambda a=args, k=kw8: SB.fused_swin_block_raw(*a, **k),
-                  lambda a=args, k=kw8: SB.raw_plain(*a[:-2], num_heads=a[-2], ws=a[-1], **k),
-                  block_work8(B * res * res, C),
-                  {"bf16 activations": lambda a=argsf, h=heads: SB.raw_plain(*a, num_heads=h,
-                                                                             ws=ws)}))
+    add_case("fused_swin_block_raw_dynamic", f"map({B},{res},{res},{C}) h{heads}", (0, 0),
+             lambda a=args, k=kw8: SB.fused_swin_block_raw(*a, **k),
+             lambda a=args, k=kw8: SB.raw_plain(*a[:-2], num_heads=a[-2], ws=a[-1], **k),
+             inputs=(args, kw8),
+             faults={"bf16 activations": lambda a=argsf, h=heads: SB.raw_plain(*a, num_heads=h,
+                                                                                ws=ws)},
+             **block_work(B * res * res, C, heads, nW, int8=True))
     # stage 4: the window is the whole 7 x 7 map, so no shift and no roll
     C, heads = 1024, 32
     blk, bias = swin_block(C, heads, 7, 0)
     args = (rnd((B, 1, 49, C)), *blk, bias, heads)
-    cases.append(("fused_swin_block_windows", f"xw({B},1,49,{C}) h{heads}", (2, 0),
-                  lambda a=args: SB.fused_swin_block_windows(*a),
-                  lambda a=args: SB.swin_block_plain(*a), block_work(B * 49, C)))
+    add_case("fused_swin_block_windows", f"xw({B},1,49,{C}) h{heads}", (2, 0),
+             lambda a=args: SB.fused_swin_block_windows(*a),
+             lambda a=args: SB.swin_block_plain(*a), inputs=args,
+             **block_work(B * 49, C, heads, 1))
     q8, sc = int8_block(blk)
     argsf = (args[0], *float_block(q8, sc), bias, heads)
     args = (args[0], *q8, bias, heads)
@@ -637,17 +673,20 @@ def main() -> int:
     for label, a8, n in (("static scales", acts, 2), ("per-row scales", None, 0)):
         kw8 = dict(quant="static", wscales=sc, act_scales=a8)
         other = dict(kw8, act_scales=None if a8 else acts)
-        cases.append(("fused_swin_block_windows_static", f"xw({B},1,49,{C}) h{heads} {label}",
-                      (n, 0), lambda a=args, k=kw8: SB.fused_swin_block_windows(*a, **k),
-                      lambda a=args, k=kw8: SB.swin_block_plain(*a, **k), block_work8(B * 49, C),
-                      {"bf16 activations": lambda a=argsf: SB.swin_block_plain(*a),
-                       "other activation scales": lambda a=args, k=other:
-                       SB.swin_block_plain(*a, **k)}))
+        add_case("fused_swin_block_windows_static", f"xw({B},1,49,{C}) h{heads} {label}",
+                 (n, 0), lambda a=args, k=kw8: SB.fused_swin_block_windows(*a, **k),
+                 lambda a=args, k=kw8: SB.swin_block_plain(*a, **k), inputs=(args, kw8),
+                 faults={"bf16 activations": lambda a=argsf: SB.swin_block_plain(*a),
+                         "other activation scales":
+                         lambda a=args, k=other: SB.swin_block_plain(*a, **k)},
+                 **block_work(B * 49, C, heads, 1, int8=True))
 
     per_kernel, problems = {}, []
     with torch.inference_mode():
-        for name, label, (calls, calls_k1k2, *by_len), kern, plain, (flops, ops8, *mlp), *faults \
-                in cases:
+        for case in cases:
+            name, label, kern, plain = case["name"], case["label"], case["kern"], case["plain"]
+            calls, calls_k1k2, *by_len = case["calls"]
+            flops, ops8 = case["flops"], case["ops8"]
             by_len = by_len[0] if by_len else {}
             got = kern()
             want = plain()
@@ -672,10 +711,10 @@ def main() -> int:
                 if ops8 else KERNEL_TOL
             ms, plain_ms = cuda_ms(torch, kern), cuda_ms(torch, plain)
             # each input read once and the output written once: the tensors
-            # the wrapper is given (kern's default args, int8 weights at one
+            # the wrapper is given (the case's inputs, int8 weights at one
             # byte each) and the result; operations: bf16 FLOPs at the bf16
             # rate plus int8 ops at the int8 rate
-            nbytes = tensor_bytes(torch, kern.__defaults__) + tensor_bytes(torch, got)
+            nbytes = tensor_bytes(torch, case["inputs"]) + tensor_bytes(torch, got)
             flop_ms = (flops / PEAK_FLOPS + ops8 / PEAK_INT8) * 1e3
             byte_ms = nbytes / PEAK_BYTES * 1e3
             per_call = ""
@@ -688,13 +727,15 @@ def main() -> int:
             split = device_ms_by_kernel(torch, kern)
             extra = dict(device_ms=sum(split.values()))
             per_call += f"  device {extra['device_ms']:.4f} ms"
-            if mlp:  # a whole-block call: its MLP launch on its own
-                (m_flops, m_ops8, m_bytes), = mlp
-                extra.update(mlp_ms=sum(v for k, v in split.items() if "block_mlp" in k),
-                             mlp_bound_ms=max((m_flops / PEAK_FLOPS + m_ops8 / PEAK_INT8),
-                                              m_bytes / PEAK_BYTES) * 1e3)
-                per_call += (f", MLP launch {extra['mlp_ms']:.4f} ms (its bound "
-                             f"{extra['mlp_bound_ms']:.4f} ms)")
+            # the launches of a K1 or whole-block call apart, each beside its own bound
+            for kind, (l_flops, l_ops8, l_bytes) in case["launches"].items():
+                short = LAUNCH_KINDS[kind][0]
+                extra[f"{short}_ms"] = sum(v for k, v in split.items()
+                                           if LAUNCH_KINDS[kind][1] in k)
+                extra[f"{short}_bound_ms"] = max(l_flops / PEAK_FLOPS + l_ops8 / PEAK_INT8,
+                                                 l_bytes / PEAK_BYTES) * 1e3
+                per_call += (f", {kind} launch {extra[f'{short}_ms']:.4f} ms (its bound "
+                             f"{extra[f'{short}_bound_ms']:.4f} ms)")
             log(f"kernel {name:24s} {label:36s} max_abs_err {err:.3e} max_rel_err "
                 f"{rel:.3e} (tol {tol:.3e})" + (f" share > {sharp:g} {share:.3e} (max "
                                                f"{share_max:g})" if ops8 else "") +
@@ -705,7 +746,7 @@ def main() -> int:
                 + "".join(f", L{n} {c}" for n, c in by_len.items()) + ")" + per_call)
             if rel > tol or (ops8 and share > share_max):
                 problems.append(f"{name} {label}: max_rel_err {rel}, share {share}")
-            for fault, fn in (faults[0] if faults else {}).items():
+            for fault, fn in case["faults"].items():
                 _, f_rel, f_share = errors(fn())
                 log(f"  planted fault ({fault}) vs plain: max_rel_err {f_rel:.3e} share > "
                     f"{sharp:g} {f_share:.3e}")
@@ -1267,7 +1308,8 @@ def main() -> int:
             "path": path or "none",
             "launches_by_path": {k: v.get(name, 0) for k, v in launches.items()},
             "launches_train": train_launches[name], "train_steps": steps,
-            **{k: agg[k] for k in ("device_ms", "mlp_ms", "mlp_bound_ms") if k in agg},
+            **{k: agg[k] for k in ("device_ms", "attn_ms", "attn_bound_ms", "proj_ms",
+                                   "proj_bound_ms", "mlp_ms", "mlp_bound_ms") if k in agg},
             **extra})
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -189,7 +189,8 @@ class Worker:
     def __init__(self, label: str, tree: Path):
         self.label = label
         self.proc = subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--worker", str(tree)],
+            # absolute: the worker changes into its tree before it imports
+            [sys.executable, str(Path(__file__).resolve()), "--worker", str(tree.resolve())],
             stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
 
     def ask(self, cmd: str) -> dict:

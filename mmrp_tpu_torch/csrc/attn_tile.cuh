@@ -1,6 +1,7 @@
-// One attention tile for Hopper (sm_90a), shared by K3 (seq_attention.cu)
-// and W (wattn_core.cu): softmax(q k^T * scale + add) v for a 64-query tile,
-// streamed over key tiles of 64 with an online softmax.
+// One attention tile for Hopper (sm_90a), shared by K3 (seq_attention.cu),
+// W (wattn_core.cu) and the Swin attention half (attention.cuh):
+// softmax(q k^T * scale + add) v for a 64-query tile, streamed over key tiles
+// of 64 with an online softmax.
 //
 // A warpgroup (4 warps) owns the tile, 16 query rows a warp. The q rows are
 // read once into mma.sync fragments (ldmatrix); each key tile's scores
@@ -18,7 +19,11 @@
 //     before P.V; here the unnormalized p = exp(s - m') is rounded to bf16
 //     for the product, l sums the unrounded f32 p, and o / l is rounded once
 //     at the end. Both keep p to a bf16 ulp, so an output differs from the
-//     plain version's by a few bf16 ulps of its magnitude.
+//     plain version's by a few bf16 ulps of its magnitude. Where a row has
+//     one key tile (tile_step's `only`: the Swin windows, N <= 64), p is
+//     normalized first and rounded as the plain version rounds it, which the
+//     int8 forms need: their context is quantized again downstream, and a
+//     context an ulp off lands on the other side of an int8 step.
 //
 // Shared-memory tiles are 64 rows of D bf16 with rows D + 8 elements apart
 // (ldmatrix row addresses then fall in distinct banks); tile_rows_async fills
@@ -107,12 +112,26 @@ __device__ inline void tile_begin(TileState<D>& st, const bf16* qs) {
 }
 
 // One key tile: keys key0 .. key0 + 63 (k and v tiles ks, vs); key0 < nk.
-// add(r, key) is the additive term of tile row r (0..63) and key.
+// add(r, key) is the additive term of tile row r (0..63) and key. only: the
+// row's only key tile (nk <= 64), whose p is then normalized before P.V and
+// rounded to bf16 as attention_plain rounds p = e / sum e (here e times the
+// rounded reciprocal of the sum, within an f32 ulp of the quotient); st.o is
+// then the context itself (tile_finish does not apply).
 template <int D, typename Add>
 __device__ inline void tile_step(TileState<D>& st, const bf16* ks, const bf16* vs, int key0,
-                                 int nk, float scale, Add add) {
+                                 int nk, float scale, Add add, bool only = false) {
   constexpr int kLd = TileLd<D>::kLd;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // the additive terms first, every load in flight at once behind the products
+  float addv[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = key0 + j * 8 + 2 * t + (i & 1), r = warp * 16 + g + (i >> 1) * 8;
+      addv[j][i] = key < nk ? add(r, key) : 0.f;
+    }
+  }
   float s[8][4];
 #pragma unroll
   for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
@@ -134,8 +153,8 @@ __device__ inline void tile_step(TileState<D>& st, const bf16* ks, const bf16* v
   for (int j = 0; j < 8; ++j) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int key = key0 + j * 8 + 2 * t + (i & 1), r = warp * 16 + g + (i >> 1) * 8;
-      s[j][i] = key < nk ? __fadd_rn(__fmul_rn(s[j][i], scale), add(r, key)) : -INFINITY;
+      const int key = key0 + j * 8 + 2 * t + (i & 1);
+      s[j][i] = key < nk ? __fadd_rn(__fmul_rn(s[j][i], scale), addv[j][i]) : -INFINITY;
       mx[i >> 1] = fmaxf(mx[i >> 1], s[j][i]);
     }
   }
@@ -160,6 +179,19 @@ __device__ inline void tile_step(TileState<D>& st, const bf16* ks, const bf16* v
       s[j][i] = expf(s[j][i] - st.m[i >> 1]);  // exactly 0 for excluded keys
       st.l[i >> 1] += s[j][i];
     }
+  }
+  if (only) {  // the row's sum over the quad, then p = e / sum (by its reciprocal)
+    float rl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      st.l[h] += __shfl_xor_sync(0xffffffffu, st.l[h], 1);
+      st.l[h] += __shfl_xor_sync(0xffffffffu, st.l[h], 2);
+      rl[h] = __frcp_rn(st.l[h]);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] *= rl[i >> 1];
   }
   // o += bf16(p) v: the score fragments of two 8-key tiles are one A fragment
   const bf16* vrow = vs + ((lane & 7) + ((lane >> 3) & 1) * 8) * kLd + (lane >> 4) * 8;

@@ -1,19 +1,17 @@
 // Shared device helpers for the port's Hopper kernels (sm_90a).
 //
-// The GEMMs of the attention phases (attention.cuh, wattn_core.cu) are WMMA
-// bf16 16x16x16 tile products with f32 accumulation (mma.sync on the tensor
-// cores); the projections and MLPs run on wgmma (gemm_sm90.cuh,
-// mlp_sm90.cuh). B operands are nn.Linear
-// weights, (out_features, in_features) row-major, which is a column-major
-// (in, out) matrix: element (k, n) of B sits at w[n * ldb + k]. That lets the
-// kernels read weight tiles straight from global memory (L2-resident at
-// these sizes) without a transpose.
+// The GEMMs of the training core (wattn_core.cu) are WMMA bf16 16x16x16 tile
+// products with f32 accumulation (mma.sync on the tensor cores); the
+// projections, the Swin attention half and the MLPs run on wgmma
+// (gemm_sm90.cuh, attention.cuh, mlp_sm90.cuh), the attention tiles on
+// mma.sync (attn_tile.cuh), and the per-row int8 MLP epilogue on int8
+// mma.sync (mma_s8 below). B operands are nn.Linear weights, (out_features,
+// in_features) row-major, which is a column-major (in, out) matrix: element
+// (k, n) of B sits at w[n * ldb + k].
 //
 // WMMA requires 256-bit aligned tile pointers and leading dimensions that
-// are multiples of 8 (bf16) or 4 (f32) elements: every shared-memory buffer
-// below is padded by 8 bf16 / 4 f32 elements per row and starts on a
-// 128-byte boundary, and the Python wrappers refuse weights whose data
-// pointer is not 32-byte aligned.
+// are multiples of 8 (bf16) or 4 (f32) elements: the Python wrappers refuse
+// tensors whose data pointer is not 32-byte aligned.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,12 +26,9 @@ namespace mmrp {
 using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-constexpr int kThreads = 256;  // 8 warps per block in every kernel
+constexpr int kThreads = 256;  // 8 warps a block: wattn_core's, block_mlp_q8_kernel
 constexpr int kWarps = kThreads / 32;
 
 __host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
@@ -60,28 +55,19 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return x * (0.5f * (1.0f + tanhf(k * (x + 0.044715f * (x * x * x)))));
 }
 
-// acc += A[16 x K] @ B[K x 16]; A row-major (lda), B column-major (ldb).
-__device__ __forceinline__ void mma_bcol(FragAcc& acc, const bf16* a, int lda,
-                                         const bf16* b, int ldb, int K) {
-  FragA fa;
-  FragBCol fb;
-  for (int k = 0; k < K; k += 16) {
-    wmma::load_matrix_sync(fa, a + k, lda);
-    wmma::load_matrix_sync(fb, b + k, ldb);
-    wmma::mma_sync(acc, fa, fb, acc);
-  }
-}
-
-// acc += A[16 x K] @ B[K x 16]; A row-major (lda), B row-major (ldb).
-__device__ __forceinline__ void mma_brow(FragAcc& acc, const bf16* a, int lda,
-                                         const bf16* b, int ldb, int K) {
-  FragA fa;
-  FragBRow fb;
-  for (int k = 0; k < K; k += 16) {
-    wmma::load_matrix_sync(fa, a + k, lda);
-    wmma::load_matrix_sync(fb, b + (size_t)k * ldb, ldb);
-    wmma::mma_sync(acc, fa, fb, acc);
-  }
+// Row of a (B, H, W, C) map that holds token t of window g (windows row-major
+// per image, g / nW the image, tokens row-major in the ws x ws window), moved
+// by (roll_h, roll_w) with wrap-around as jnp.roll(y, (roll_h, roll_w), (1, 2))
+// moves it. Rolls are taken in [0, H) and [0, W).
+__host__ __device__ inline size_t map_row(int g, int t, int nW, int H, int W, int ws,
+                                          int roll_h, int roll_w) {
+  const int b = g / nW, w = g % nW, nWw = W / ws;
+  int i = (w / nWw) * ws + t / ws, j = (w % nWw) * ws + t % ws;
+  i += roll_h;
+  if (i >= H) i -= H;
+  j += roll_w;
+  if (j >= W) j -= W;
+  return ((size_t)b * H + i) * W + j;
 }
 
 // Two-pass LayerNorm statistics of one row held by one warp: each lane reads
@@ -160,20 +146,6 @@ __device__ inline void quantize_row_inplace(bf16* row, int n, float s, float inv
     if (c < n) q[c] = quant1(v, s, inv);
     __syncwarp();
   }
-}
-
-// Rows [0, rows) of a bf16 tile (ld elements) quantized in place, one warp
-// per row, their scales in rs; ends with __syncthreads.
-__device__ inline void quantize_rows(bf16* tile, int ld, int rows, int n, float sa, float inv,
-                                     float* rs) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < rows; r += kWarps) {
-    bf16* row = tile + (size_t)r * ld;
-    const float s = row_scale([&](int c) { return to_f(row[c]); }, n, sa, inv);
-    quantize_row_inplace(row, n, s, inv);
-    if (lane == 0) rs[r] = s;
-  }
-  __syncthreads();
 }
 
 // acc[16 x 8] (s32, mma fragment) += A[16 x K] . B[K x 8]: A int8 row-major

@@ -1,5 +1,7 @@
 // A 64 x 128 tile GEMM for Hopper (sm_90a) on warpgroup MMA (wgmma): the
-// projections of K3 (seq_attention.cu), bf16 and W8A8.
+// projections of K3 (seq_attention.cu), bf16 and W8A8, and the layout and
+// instructions of the Swin attention half (attention.cuh) and the MLP half
+// (mlp_sm90.cuh).
 //
 // One warpgroup (128 threads) owns a 64-row block of the GEMM input, staged
 // once in shared memory by cp.async (then LayerNorm'ed, added to pos or
@@ -135,17 +137,37 @@ __device__ __forceinline__ void gemm_prologue(uint32_t ring, const unsigned char
   }
 }
 
+using RowAffine = float[kMaxRowChunks][8];  // a lane's share of a LayerNorm affine
+
+// The LayerNorm scale (or bias) of the pieces a lane rewrites in transform_row
+// (lane + 32 i), loaded once a warp; 32-byte aligned f32 (C,).
+__device__ inline void load_affine(RowAffine& g, const float* src, int C) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < kMaxRowChunks; ++i) {
+    const int c0 = (lane + 32 * i) * 8;
+    float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+    if (c0 < C) {
+      lo = *reinterpret_cast<const float4*>(src + c0);
+      hi = *reinterpret_cast<const float4*>(src + c0 + 4);
+    }
+    g[i][0] = lo.x, g[i][1] = lo.y, g[i][2] = lo.z, g[i][3] = lo.w;
+    g[i][4] = hi.x, g[i][5] = hi.y, g[i][6] = hi.z, g[i][7] = hi.w;
+  }
+}
+
 // One row of the staged block, rewritten in place by one warp: the bf16 row
-// (already in A) [+ the pos row p], LayerNorm'ed in f32 and rounded to bf16
-// when ln (K3's x + pos and LN(x + pos), as the TPU kernel casts them); with
-// Q8 quantized per row, int8 = rint(v / s), s = max(amax, 1e-8) / 127
-// (rs[r] <- s), as _qdot's activations are. The int8 row keeps the bf16
-// row's footprint (piece j of 16 bytes of bf16 at the address of bytes
-// [16 j, 16 j + 16); int8 byte c at the address of byte c), so every lane
-// reads its whole row before any lane writes.
+// (already in A) [+ the pos row p], LayerNorm'ed in f32 with the affine gs, gb
+// (load_affine) and rounded to bf16 when ln (K3's x + pos and LN(x + pos), as
+// the TPU kernel casts them); with Q8 quantized per row, int8 = rint(v / s),
+// s = max(amax, 1e-8) / 127 (rs[r] <- s), as _qdot's activations are. The
+// int8 row keeps the bf16 row's footprint (piece j of 16 bytes of bf16 at the
+// address of bytes [16 j, 16 j + 16); int8 byte c at the address of byte c),
+// so every lane reads its whole row before any lane writes.
 template <bool Q8>
 __device__ inline void transform_row(unsigned char* a, float* rs, int r, int C, const bf16* p,
-                                     const float* ln_s, const float* ln_b, float eps, bool ln) {
+                                     const RowAffine& gs, const RowAffine& gb, float eps,
+                                     bool ln) {
   const int lane = threadIdx.x & 31, pieces = C / 8;
   float v[kMaxRowChunks][8];
   float sum = 0.f;
@@ -181,7 +203,7 @@ __device__ inline void transform_row(unsigned char* a, float* rs, int r, int C, 
       if (c0 < C) {
 #pragma unroll
         for (int e = 0; e < 8; ++e)
-          v[i][e] = to_f(to_bf((v[i][e] - mean) * rstd * ln_s[c0 + e] + ln_b[c0 + e]));
+          v[i][e] = to_f(to_bf((v[i][e] - mean) * rstd * gs[i][e] + gb[i][e]));
       }
     }
   }
@@ -232,6 +254,11 @@ __device__ inline void stage_a(unsigned char* a, unsigned char* ring, float* rs,
                                const float* ln_b, float eps, bool ln, const unsigned char* w,
                                size_t ldw, int kchunks) {
   const int warp = threadIdx.x >> 5, pieces = C / 8;
+  RowAffine gs, gb;
+  if (ln) {
+    load_affine(gs, ln_s, C);
+    load_affine(gb, ln_b, C);
+  }
   for (int i = threadIdx.x; i < kTileM * pieces; i += kGemmThreads) {
     const int r = i / pieces, pc = i % pieces;
     unsigned char* dst = a + swz(r, pc * 16, kChunkA);
@@ -247,7 +274,7 @@ __device__ inline void stage_a(unsigned char* a, unsigned char* ring, float* rs,
     cp_async_wait<kStages - 2>();  // the rows, not the weights
     __syncthreads();
     for (int r = warp; r < rows; r += kGemmThreads / 32)
-      transform_row<Q8>(a, rs, r, C, nullptr, ln_s, ln_b, eps, ln);
+      transform_row<Q8>(a, rs, r, C, nullptr, gs, gb, eps, ln);
     return;
   }
   constexpr int kHalf = kTileM / 2;
@@ -262,8 +289,8 @@ __device__ inline void stage_a(unsigned char* a, unsigned char* ring, float* rs,
     __syncthreads();
     for (int r = r0 + warp; r < r0 + n; r += kGemmThreads / 32)
       transform_row<Q8>(a, rs, r, C,
-                        reinterpret_cast<const bf16*>(ring + (size_t)(r - r0) * C * 2), ln_s,
-                        ln_b, eps, ln);
+                        reinterpret_cast<const bf16*>(ring + (size_t)(r - r0) * C * 2), gs, gb,
+                        eps, ln);
     __syncthreads();  // the pos rows are read before the ring is refilled
   }
   gemm_prologue(smem_u32(ring), w, ldw, kchunks);

@@ -8,15 +8,15 @@
 //   mmrp_tpu/ops/fused_swin_pair.py:197  fused_swin_block_pair     (two chain steps)
 // in bf16 and in their W8A8 forms (_block_body's quant: the dynamic _qdot of
 // windows and raw, the _static_gemm of windows, pair and chain): with a
-// QuantArgs the qkv GEMM runs int8 in attention_kernel on the LN0 rows it
-// holds, and block_mlp_q8_kernel (below) runs proj, FC1 and FC2 in int8.
-// which all compute, per ws x ws window of the (pre-rolled) map,
+// QuantArgs the qkv GEMM runs int8 in window_attn_wgmma on the LN0 rows it
+// holds, and the MLP launch runs proj, FC1 and FC2 in int8. They all compute,
+// per ws x ws window of the (pre-rolled) map,
 //   y   = x + proj(softmax(q k^T * d^-1/2 + bias_full) v),  q/k/v = LN0(x) W_qkv + b_qkv
 //   out = y + W2 gelu_tanh(W1 LN1(y) + b1) + b2
 // with y kept in f32 between the halves and rounded once at the end
 // (_block_body, fused_swin_block.py:144). The flavors differ only in where a
 // window's rows come from and where they go; here that is index arithmetic
-// (map_row, attention.cuh), so no roll, partition or reverse copy of the map
+// (map_row, common.cuh), so no roll, partition or reverse copy of the map
 // exists. The pair's shifted block reads rows of up to four windows of the
 // first block's output, so it needs a barrier across the whole map: two
 // launches of this kernel family, the map between them in L2.
@@ -27,10 +27,12 @@
 // 989 TFLOP/s bf16 peak; its weights are 1.6 / 6.3 / 25.2 MB (0.5 / 1.9 /
 // 7.5 us at 3.35 TB/s). So every flavor is compute-bound, and two thirds of
 // the FLOPs are the MLP's. Design, two launches per block:
-//   attention_kernel (attention.cuh, K1's attention phase) — one block per
-//     (window, head), LN0 rows gathered from the map into shared memory, this
-//     head's q/k/v, scores and softmax in shared memory; the C-wide context
-//     (bf16, as the TPU kernel casts it) is the one intermediate in memory;
+//   window_attn_wgmma (attention.cuh, K1's attention launch) — one block per
+//     window and split of its head groups: LN0 rows gathered from the map by
+//     cp.async and LayerNorm'ed in shared memory once, q/k/v of each 128-column
+//     head group on wgmma with the weights streamed through a ring, scores,
+//     softmax and P.V in registers; the C-wide context (bf16, as the TPU
+//     kernel casts it) is the one intermediate in memory;
 //   block_mlp_kernel — the MLP half on wgmma (mlp_sm90.cuh): a cluster of S
 //     blocks, one warpgroup each, per 64 window-ordered rows, S splitting the
 //     hidden dimension. Rank q computes proj column tiles q, q + S, ... on
@@ -470,19 +472,13 @@ int mmrp_swin_block(const void* x, const void* ln0_s, const void* ln0_b, const v
   if (map_h && (ws < 1 || map_h % ws || map_w % ws || N != ws * ws ||
                 nW != (map_h / ws) * (map_w / ws)))
     return (int)cudaErrorInvalidValue;
-  const bf16* w = static_cast<const bf16*>(w_qkv);
-  const bf16* b = static_cast<const bf16*>(b_qkv);
-
   AttnParams a{};
   a.x = static_cast<const bf16*>(x);
   a.ln_s = static_cast<const float*>(ln0_s);
   a.ln_b = static_cast<const float*>(ln0_b);
-  a.wq = w;
-  a.wk = w + (size_t)C * C;
-  a.wv = w + (size_t)2 * C * C;
-  a.bq = b;
-  a.bk = b + C;
-  a.bv = b + 2 * C;
+  a.w = static_cast<const unsigned char*>(qmode ? qa->w[0] : w_qkv);
+  a.sw = qmode ? static_cast<const float*>(qa->s[0]) : nullptr;
+  a.b = static_cast<const bf16*>(b_qkv);
   a.bias = static_cast<const float*>(bias);
   a.ctx = static_cast<bf16*>(ctx);
   a.G = B * nW;
@@ -497,18 +493,10 @@ int mmrp_swin_block(const void* x, const void* ln0_s, const void* ln0_b, const v
   a.ws = ws;
   a.qmode = qmode;
   if (qmode) {
-    const signed char* w8 = static_cast<const signed char*>(qa->w[0]);
-    const float* s8 = static_cast<const float*>(qa->s[0]);
-    a.wq8 = w8;
-    a.wk8 = w8 + (size_t)C * C;
-    a.wv8 = w8 + (size_t)2 * C * C;
-    a.swq = s8;
-    a.swk = s8 + C;
-    a.swv = s8 + 2 * C;
     a.act_s = qa->act[0];
     a.act_inv = qa->inv[0];
   }
-  cudaError_t e = launch_attention(a, st);
+  cudaError_t e = launch_attention<true>(a, st);
   if (e != cudaSuccess) return (int)e;
 
   BlockParams p{};

@@ -19,7 +19,7 @@
 // never store the roll, the window partition or the probabilities in device
 // memory; so is this design's:
 //   - one block per (window, head) gathers its 49 q/k/v (and dO) rows straight
-//     from the raw map at their rolled positions (map_row, attention.cuh), 64
+//     from the raw map at their rolled positions (map_row, common.cuh), 64
 //     bytes per row and head, and scatters its result rows the same way: no
 //     rolled or partitioned copy of the map exists in either direction, and
 //     every output element is written exactly once;
@@ -37,11 +37,10 @@
 //     The wrapper picks the chunk so that there are ~1024 blocks.
 #include <type_traits>
 
-#include "attention.cuh"
 #include "attn_tile.cuh"
 
 namespace mmrp {
-// the same anonymous namespace as attention.cuh's: a second one at global
+// the same anonymous namespace as attn_tile.cuh's: a second one at global
 // scope makes the kernel registration stub's namespace name ambiguous
 namespace {
 

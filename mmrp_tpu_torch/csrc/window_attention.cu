@@ -1,24 +1,23 @@
 // K1 — fused Swin window attention for Hopper (sm_90a).
 //
 // Replaces mmrp_tpu/ops/fused_window_attention.py:fused_window_attention_windows
-// (Pallas _kernel / _pallas_impl): for every 7x7 window of the partitioned,
-// pre-rolled feature map, out = x + proj(softmax(q k^T * d^-1/2 + bias_full) v)
-// with q/k/v = LN(x) @ W_qkv + b_qkv.
+// (Pallas _kernel / _pallas_impl, pallas_call at :152): for every 7x7 window
+// of the partitioned, pre-rolled feature map, out = x + proj(softmax(q k^T *
+// d^-1/2 + bias_full) v) with q/k/v = LN(x) @ W_qkv + b_qkv.
 //
-// What bounds it on the H100: at the Swin-B stages the qkv and proj GEMMs
-// (8 C^2 flops per token) dominate, with C = 128..1024; the 49 x 49 scores per
-// window and head are small. The TPU kernel's point was to keep qkv and the
-// scores out of HBM; so does this one. Design:
-//   - one block per (window, head): 64 blocks per image at stage 1, and still
-//     B * 32 blocks at stage 4, where one window holds the whole image;
-//   - the window's 49 rows are LayerNorm'ed into shared memory once per block
-//     (64 x (C + 8) bf16, 132 KB at C = 1024) and this head's q/k/v are
-//     computed from there, so the window's full qkv (64 x 3072 bf16 at
-//     stage 4) never has to fit anywhere;
-//   - scores, softmax and P.V stay in shared memory; the C-wide context is
-//     written to device memory once, and proj_epilogue (attention.cuh) adds
-//     the projection, bias and residual.
-// GEMMs are WMMA bf16 tiles with f32 accumulation; LN and softmax are f32.
+// What bounds it on the H100: the qkv and proj GEMMs, 8 C^2 FLOPs per token
+// at C = 96 .. 1024, against 196 C for the 49 x 49 scores and P.V: the
+// tensor cores, fed from L2 by the weight stream. The TPU kernel's point was
+// to keep qkv and the scores out of HBM; so does this one. Two launches, both
+// on wgmma (attention.cuh):
+//   window_attn_wgmma  per window (and split of its head groups): the rows
+//     staged and LayerNorm'ed once, q/k/v of each 128-column head group on
+//     wgmma with the weights streamed through a cp.async ring, the scores,
+//     softmax and P.V of each head in registers (attn_tile.cuh); the C-wide
+//     context (bf16, as the TPU kernel casts it) is the one intermediate in
+//     device memory;
+//   k1_proj_wgmma      per 64 rows x 128 columns: context @ W_o^T + b_o [+ x]
+//     in f32, rounded once.
 #include "attention.cuh"
 
 using namespace mmrp;
@@ -34,19 +33,13 @@ int mmrp_window_attention(const void* xw, const void* ln_s, const void* ln_b, co
                           int C, int heads, int include_residual, float eps, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (heads < 1 || C % heads) return (int)cudaErrorInvalidValue;
-  const bf16* w = static_cast<const bf16*>(w_qkv);
-  const bf16* b = static_cast<const bf16*>(b_qkv);
 
   AttnParams a{};
   a.x = static_cast<const bf16*>(xw);
   a.ln_s = static_cast<const float*>(ln_s);
   a.ln_b = static_cast<const float*>(ln_b);
-  a.wq = w;
-  a.wk = w + (size_t)C * C;
-  a.wv = w + (size_t)2 * C * C;
-  a.bq = b;
-  a.bk = b + C;
-  a.bv = b + 2 * C;
+  a.w = static_cast<const unsigned char*>(w_qkv);
+  a.b = static_cast<const bf16*>(b_qkv);
   a.bias = static_cast<const float*>(bias_full);
   a.ctx = static_cast<bf16*>(ctx);
   a.G = B * nW;
@@ -56,10 +49,10 @@ int mmrp_window_attention(const void* xw, const void* ln_s, const void* ln_b, co
   a.nW = nW;
   a.scale = (float)(1.0 / sqrt((double)(C / heads)));
   a.eps = eps;
-  cudaError_t e = launch_attention(a, st);
+  cudaError_t e = launch_attention<false>(a, st);
   if (e != cudaSuccess) return (int)e;
 
-  EpiParams q{};
+  ProjParams q{};
   q.ctx = a.ctx;
   q.wo = static_cast<const bf16*>(w_proj);
   q.bo = static_cast<const bf16*>(b_proj);
@@ -68,9 +61,17 @@ int mmrp_window_attention(const void* xw, const void* ln_s, const void* ln_b, co
   q.M = B * nW * N;
   q.C = C;
   q.residual = include_residual;
-  e = launch_epilogue(q, st);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return (int)launch_proj(q, st);
+}
+
+// The launch geometry of window_attn_wgmma, for the tests to hold the Python
+// copies (ops/fused_window_attention.py::attn_splits / attention_smem) to:
+// blocks per window over `windows` windows of width C on sms SMs, and the
+// shared memory of a block at width C and head dim D (0: no layout fits).
+int mmrp_attn_splits(int windows, int C, int sms) { return attn_splits(windows, C, sms); }
+int mmrp_attention_smem(int C, int D) {
+  const size_t smem = attn_layout(C, D).total;
+  return smem <= kMaxSmem ? (int)smem : 0;
 }
 
 // Message of a code returned by any entry of this library.

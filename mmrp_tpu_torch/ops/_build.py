@@ -39,6 +39,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of every C entry, in the order of its definition in csrc/
 _SIGNATURES = {
     "mmrp_window_attention": [_P] * 10 + [_I] * 6 + [_F, _P],
+    "mmrp_attn_splits": [_I] * 3,
+    "mmrp_attention_smem": [_I] * 2,
     "mmrp_ln_mlp": [_P] * 10 + [_I] * 5 + [_F, _P],
     "mmrp_mlp_cluster": [_I] * 4,
     "mmrp_seq_attention": [_P] * 18 + [_I] * 8 + [_F, _P, _P],

@@ -1,15 +1,19 @@
 """K1: fused Swin window attention — LN + qkv + biased softmax + proj [+ x].
 
 Counterpart of ``mmrp_tpu/ops/fused_window_attention.py``. On a CUDA tensor
-:func:`fused_window_attention_windows` launches the hand-written kernel in
-``csrc/window_attention.cu``; on a CPU tensor it runs
+:func:`fused_window_attention_windows` launches the hand-written kernels in
+``csrc/window_attention.cu``: the wgmma attention launch of
+``csrc/attention.cuh`` (``window_attn_wgmma``, which the whole Swin block
+shares) and the wgmma projection (``k1_proj_wgmma``); on a CPU tensor it runs
 :func:`window_attention_plain`, the same function in plain PyTorch with the
 dtype discipline of the JAX ``xla_equivalent``: LN, softmax and every
 accumulation in f32, GEMM operands in the activation dtype.
 
-:func:`kernel_takes` holds the kernel's shape limits: the wrapper raises on a
-CUDA tensor it refuses, and the Swin encoder's plan routes such stages to the
-plain version, counted in ``fused_window_attention_windows.plain_calls``.
+:func:`kernel_takes` holds the kernel's shape limits (:func:`attention_smem` and
+:func:`attn_splits` copy the header's layout and the host's split of a
+window's head groups): the wrapper raises on a CUDA tensor it refuses, and
+the Swin encoder's plan routes such stages to the plain version, counted in
+``fused_window_attention_windows.plain_calls``.
 
 Weights use the nn.Linear layout: ``w_qkv`` is (3C, C) with rows [q | k | v]
 (the transpose of the Flax (C, 3C) kernel), ``w_proj`` is (C, C).
@@ -26,14 +30,46 @@ from mmrp_tpu_torch.ops.window_attention import build_rel_bias, shift_attn_mask_
 
 HEAD_DIMS = (32, 64, 128)
 MAX_WINDOW_TOKENS = 64
+# the limits and layout of csrc/attention.cuh (window_attn_wgmma), on the
+# constants of csrc/gemm_sm90.cuh
+MAX_C = 1024  # a LayerNorm row on one warp: 32 lanes of 4 pieces of 8 (ln_rows)
+TILE_M, TILE_N = 64, 128  # rows of a window tile; columns of a head group
+CHUNK_A, CHUNK_W = TILE_M * 128, TILE_N * 128  # bytes of a row chunk, a weight chunk
+SLOTS = 3  # weight chunks in the ring
+MAX_SMEM = 232448  # bytes of shared memory one block may use on sm_90 (common.cuh)
+
+
+def attention_smem(C: int, D: int) -> int:
+    """Shared memory of one attention block (``attention.cuh::attn_layout``):
+    the staged rows (64 x C bf16 in 8 KB chunks), the ring of :data:`SLOTS`
+    weight chunks, the k and v tiles of one 128-column head group (64 x
+    (D + 8) bf16 a head), 64 row scales and the base's alignment."""
+    rows = (C * 2 + 127) // 128 * CHUNK_A
+    kv = 2 * (TILE_N // D) * TILE_M * (D + 8) * 2
+    return rows + SLOTS * CHUNK_W + kv + TILE_M * 4 + 1024
+
+
+def attn_splits(windows: int, C: int, sms: int) -> int:
+    """Blocks per window (``attention.cuh::attn_splits``): the fewest splits of
+    the C / 128 head groups with windows x splits >= sms, at most one per
+    group."""
+    groups = -(-C // TILE_N)
+    splits = 1
+    while splits < groups and windows * splits < sms:
+        splits += 1
+    return splits
 
 
 def kernel_takes(C: int, num_heads: int, N: int) -> bool:
     """Whether the CUDA window attention (K1, and the whole Swin block's
-    attention phase) takes width C, ``num_heads`` heads and N tokens per
-    window: head dims 32, 64 or 128 and 1 to 64 tokens."""
+    attention launch) takes width C, ``num_heads`` heads and N tokens per
+    window: head dims 32, 64 or 128, 1 to 64 tokens, C % 16 == 0 up to
+    :data:`MAX_C`, and a shared-memory layout (:func:`attention_smem`) that fits
+    one block. The int8 forms also need C % 32 == 0
+    (``fused_swin_block.kernel_takes``)."""
     return (num_heads > 0 and C % num_heads == 0 and C // num_heads in HEAD_DIMS
-            and 1 <= N <= MAX_WINDOW_TOKENS)
+            and 1 <= N <= MAX_WINDOW_TOKENS and C % 16 == 0 and C <= MAX_C
+            and attention_smem(C, C // num_heads) <= MAX_SMEM)
 
 
 def _ln(xf, scale, bias, eps):
@@ -91,8 +127,9 @@ def fused_window_attention_windows(xw, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
     B, nW, N, C = xw.shape
     if not kernel_takes(C, num_heads, N):
         raise ValueError(
-            "fused_window_attention_windows: the kernel takes head dims 32/64/128 "
-            f"and at most 64 tokens per window, got C={C}, heads={num_heads}, N={N}")
+            "fused_window_attention_windows: the kernel takes head dims 32/64/128, "
+            "at most 64 tokens per window and C % 16 == 0 up to 1024, "
+            f"got C={C}, heads={num_heads}, N={N}")
     bf16, f32 = torch.bfloat16, torch.float32
     _build.check_cuda_inputs("fused_window_attention_windows", xw.device, [
         ("xw", xw, bf16, (B, nW, N, C)),

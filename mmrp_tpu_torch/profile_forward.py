@@ -12,10 +12,10 @@ f32 Swin forward, and ``int8``; ``MultiModalConfig.from_config``). For each
 text length (default 64), batch and route it prints the
 forward time without the profiler (median of 10 CUDA-event timings), then
 profiles 5 forwards after 3 warm-ups with ``torch.profiler`` and sums the
-device time of every kernel by kind: the attention phase of the Swin blocks
-(K1's and the whole-block kernel's ``attention_kernel``), K3's three
+device time of every kernel by kind: the attention launch of the Swin blocks
+(K1's and the whole-block kernel's ``window_attn_wgmma``), K3's three
 launches (the q/k/v GEMM, the attention tile, the output GEMM and its
-epilogue), K1's projection epilogue, K2, the whole-block MLP epilogue,
+epilogue), K1's projection (``k1_proj_wgmma``), K2, the whole-block MLP epilogue,
 library GEMMs of the plain layers, and everything else (copies, casts,
 elementwise), the int8 forms of the whole-block epilogue counted apart.
 Device busy is the sum over kernels; the idle share is set
@@ -52,11 +52,11 @@ from mmrp_tpu_torch.utils.convert import init_params
 KINDS = (  # (kind, test on the kernel name), first match wins
     ("wattn core forward (C-F)", lambda n: "core_fwd_kernel" in n),
     ("wattn core backward (C-B)", lambda n: "core_bwd_kernel" in n or "sum_chunks_kernel" in n),
-    ("swin attention phase", lambda n: "attention_kernel" in n),
+    ("swin attention phase", lambda n: "window_attn_wgmma" in n),
     ("K3 q/k/v GEMM", lambda n: "qkv_kernel<" in n),
     ("K3 attention tile", lambda n: "attn_kernel<" in n),
     ("K3 output GEMM + epilogue", lambda n: "out_kernel<" in n),
-    ("K1 projection epilogue", lambda n: "proj_epilogue_kernel" in n),
+    ("K1 projection epilogue", lambda n: "k1_proj_wgmma" in n),
     ("K2 ln_mlp", lambda n: "ln_mlp_kernel" in n),
     ("whole-block MLP epilogue, int8", lambda n: "block_mlp_q8_kernel" in n
      or "block_mlp_kernel<true" in n),

@@ -344,9 +344,10 @@ def test_predict_at_128_tokens(dev):
     assert np.abs(pred["probs"] - want["probs"].numpy()).max() < 1e-2
 
 
-def _swin_block(gen, dev, C, heads, H, shift):
-    """12 block tensors (nn.Linear layout) and the (nW, h, 49, 49) bias_full."""
-    ws, Hd = 7, 4 * C
+def _swin_block(gen, dev, C, heads, H, shift, ws=7):
+    """12 block tensors (nn.Linear layout) and the (nW, h, N, N) bias_full of
+    ws x ws windows (N = ws^2)."""
+    Hd = 4 * C
     blk = (1 + _rand(gen, (C,), dev, 0.1, torch.float32), _rand(gen, (C,), dev, 0.1, torch.float32),
            _rand(gen, (3 * C, C), dev, C ** -0.5), _rand(gen, (3 * C,), dev, 0.1),
            _rand(gen, (C, C), dev, C ** -0.5), _rand(gen, (C,), dev, 0.1),
@@ -677,3 +678,128 @@ def test_int_mm_matches_exact_product(dev):
         xq = torch.randint(-127, 128, (M, 3072), generator=gen, device=dev).to(torch.int8)
         wq = torch.randint(-127, 128, (768, 3072), generator=gen, device=dev).to(torch.int8)
         assert torch.equal(int_mm(xq, wq), exact_int_matmul(xq, wq))
+
+
+# The attention launch that K1 and the whole Swin block share
+# (csrc/attention.cuh::window_attn_wgmma) and K1's projection (k1_proj_wgmma).
+
+
+def _k1_inputs(gen, dev, B, nW, ws, C, heads, shift=0):
+    """K1's arguments on B images of nW ws x ws windows."""
+    H = int(round(nW ** 0.5)) * ws
+    table = _rand(gen, ((2 * ws - 1) ** 2, heads), dev, 0.5, torch.float32)
+    return (_rand(gen, (B, nW, ws * ws, C), dev), 1 + _rand(gen, (C,), dev, 0.1, torch.float32),
+            _rand(gen, (C,), dev, 0.1, torch.float32), _rand(gen, (3 * C, C), dev, C ** -0.5),
+            _rand(gen, (3 * C,), dev, 0.1), _rand(gen, (C, C), dev, C ** -0.5),
+            _rand(gen, (C,), dev, 0.1), tfw.build_bias_full(table, ws, H, H, shift), heads)
+
+
+def _k1_check(args, residual=True):
+    fn = tfw.fused_window_attention_windows
+    before = fn.launches
+    with torch.no_grad():
+        got = fn(*args, include_residual=residual)
+        want = tfw.window_attention_plain(*args, include_residual=residual)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **SWIN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", range(1, 9))
+def test_attention_kernel_at_every_split(dev, splits):
+    """C 1024 (8 head groups of 4 heads, the tight shared-memory layout) over
+    as many windows as make the host split each window's groups over
+    ``splits`` blocks."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    windows = -(-sms // splits)
+    assert tfw.attn_splits(windows, 1024, sms) == splits
+    gen = torch.Generator(device=dev).manual_seed(17)
+    _k1_check(_k1_inputs(gen, dev, windows, 1, 7, 1024, 32))
+
+
+# (C, heads, ws, B, nW, residual): head dims 32 / 64 / 128; C 96, 64, 192 and
+# 320 (a zero-filled last K chunk, a last head group of fewer heads); N 49 and 9
+ATTN_FORMS = [(96, 3, 7, 2, 4, True), (96, 3, 3, 3, 4, True), (192, 6, 7, 2, 1, False),
+              (64, 1, 7, 2, 4, True), (320, 5, 3, 2, 4, True), (1024, 16, 7, 3, 1, True),
+              (1024, 8, 3, 5, 1, True), (512, 4, 7, 2, 4, True), (128, 4, 7, 2, 16, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,heads,ws,B,nW,residual", ATTN_FORMS)
+def test_attention_kernel_forms(dev, C, heads, ws, B, nW, residual):
+    gen = torch.Generator(device=dev).manual_seed(18)
+    _k1_check(_k1_inputs(gen, dev, B, nW, ws, C, heads, shift=ws // 2 if nW > 1 else 0),
+              residual)
+
+
+# the whole block's attention launch on the map (rows gathered by map_row, the
+# output rolled), in bf16, static W8A8 with calibrated scales ("static") or
+# per-row scales ("per_row"), and the dynamic _qdot (True): (flavor, C, heads,
+# ws, H, roll, quant)
+BLOCK_ATTN_FORMS = [("chain", 96, 3, 7, 14, 3, False), ("chain", 96, 3, 3, 9, -1, False),
+                    ("chain", 1024, 32, 7, 14, -3, False),
+                    ("chain", 1024, 32, 7, 14, 3, "static"),
+                    ("chain", 256, 8, 7, 28, -3, "per_row"),
+                    ("windows", 1024, 32, 7, 7, 0, "per_row"),
+                    ("windows", 192, 6, 3, 6, 0, "static"), ("raw", 96, 3, 7, 14, 0, True),
+                    ("raw", 128, 2, 3, 6, 0, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flavor,C,heads,ws,H,roll,quant", BLOCK_ATTN_FORMS)
+def test_swin_block_attention_forms(dev, flavor, C, heads, ws, H, roll, quant):
+    gen = torch.Generator(device=dev).manual_seed(19)
+    blk, bias = _swin_block(gen, dev, C, heads, H, ws // 2 if roll > 0 else 0, ws)
+    x = _rand(gen, (2, H, H, C), dev)
+    kw, tol, counter = {}, SWIN_TOL, "launches"
+    if quant in ("static", "per_row"):
+        blk, scales = _int8_block(blk)
+        acts = (4.5 / 127, 3.0 / 127, 5.0 / 127, 2.5 / 127) if quant == "static" else None
+        kw = dict(quant="static", wscales=scales, act_scales=acts)
+        tol, counter = INT8_TOL, "launches_static"
+    elif quant:
+        kw = dict(quant=True)
+        tol, counter = INT8_TOL, "launches_dynamic"
+    with torch.no_grad():
+        if flavor == "chain":
+            fn = tsp.fused_swin_block_chain
+            before = getattr(fn, counter)
+            got = fn(x, blk, bias, heads, ws, roll, **kw)
+            want = tsp.chain_plain(x, blk, bias, heads, ws, roll, **kw)
+        elif flavor == "raw":
+            fn = tsb.fused_swin_block_raw
+            before = getattr(fn, counter)
+            got = fn(x, *blk, bias, heads, ws, **kw)
+            want = tsb.raw_plain(x, *blk, bias, num_heads=heads, ws=ws, **kw)
+        else:
+            fn = tsb.fused_swin_block_windows
+            xw = x.reshape(2, H // ws, ws, H // ws, ws, C).permute(0, 1, 3, 2, 4, 5) \
+                .reshape(2, (H // ws) ** 2, ws * ws, C).contiguous()
+            before = getattr(fn, counter)
+            got = fn(xw, *blk, bias, heads, **kw)
+            want = tsb.swin_block_plain(xw, *blk, bias, heads, **kw)
+    torch.cuda.synchronize()
+    assert getattr(fn, counter) == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_attention_layout_is_the_kernels_host_code(dev):
+    """The Python copies of the attention launch's shared-memory layout and
+    split (which ``kernel_takes`` and chip_smoke.py read) against the host code
+    that launches it."""
+    from mmrp_tpu_torch.ops import _build
+
+    lib = _build.library()
+    n = 0
+    for C in range(16, 1024 + 1, 16):
+        for D in (32, 64, 128):
+            smem = tfw.attention_smem(C, D)
+            assert lib.mmrp_attention_smem(C, D) == (smem if smem <= tfw.MAX_SMEM else 0), (C, D)
+        for windows in (1, 7, 8, 17, 33, 64, 132, 512, 4096):
+            for sms in (1, 114, 132):
+                assert lib.mmrp_attn_splits(windows, C, sms) == \
+                    tfw.attn_splits(windows, C, sms), (windows, C, sms)
+                n += 1
+    assert n > 1500

@@ -126,7 +126,7 @@ def _header_constants():
 
     csrc = Path(K2.__file__).resolve().parent.parent / "csrc"
     names = {}
-    for header in ("common.cuh", "gemm_sm90.cuh", "mlp_sm90.cuh"):
+    for header in ("common.cuh", "gemm_sm90.cuh", "mlp_sm90.cuh", "attention.cuh"):
         for decl in re.findall(r"^constexpr (?:int|size_t) ([^;]*);", (csrc / header).read_text(),
                                re.M):
             for item in decl.split(","):
@@ -163,6 +163,61 @@ def test_mlp_kernel_takes_is_the_layout_limit(staged):
                 taken += 1
                 assert K2.mlp_cluster_size(1, Hd, staged * C) == fits[0], (C, Hd)
     assert taken > 400
+
+
+# (C, heads) of every stage of the Swin presets at 224 px: Swin-T / Swin-S
+# (and medclip), Swin-B, Swin-micro
+SWIN_STAGES = [(96, 3), (192, 6), (384, 12), (768, 24), (128, 4), (256, 8), (512, 16),
+               (1024, 32), (16, 2)]
+
+
+def test_attention_kernel_takes_is_the_layout_limit():
+    """``fused_window_attention`` copies csrc/attention.cuh's limits: its
+    constants are the headers', its predicate says yes exactly where the head
+    dim is 32, 64 or 128, 1 <= N <= 64, C % 16 == 0 up to kAttnMaxC and
+    ``attn_layout`` fits kMaxSmem, and it takes every shape the earlier
+    predicate (head dim and N only) took up to C 1024; the whole block keeps
+    every preset stage in every precision."""
+    k = _header_constants()
+    assert (K1.TILE_M, K1.TILE_N, K1.CHUNK_A, K1.CHUNK_W, K1.SLOTS, K1.MAX_SMEM, K1.MAX_C) == \
+        (k["kTileM"], k["kTileN"], k["kChunkA"], k["kChunkW"], k["kAttnSlots"], k["kMaxSmem"],
+         k["kAttnMaxC"])
+
+    def layout(C, D):  # attention.cuh::attn_layout: [total] if it fits one block
+        total = ((C * 2 + 127) // 128 * k["kChunkA"] + k["kAttnSlots"] * k["kChunkW"]
+                 + 2 * (k["kTileN"] // D) * k["kTileM"] * (D + 8) * 2 + k["kTileM"] * 4 + 1024)
+        return [total] if total <= k["kMaxSmem"] else []
+
+    widths = sorted(set(range(16, 1104 + 1, 16)) | {C for C, _ in SWIN_STAGES} | {40, 1000})
+    taken = 0
+    for C in widths:
+        for heads in sorted({1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 32, 33}
+                            | {C // d for d in (32, 64, 128)}):
+            if heads < 1 or C % heads:
+                continue
+            D = C // heads
+            fits = layout(C, D) if D in (32, 64, 128) else []
+            if fits:
+                assert K1.attention_smem(C, D) == fits[0], (C, D)
+            for N in (0, 1, 9, 49, 64, 65):
+                want = (D in (32, 64, 128) and 1 <= N <= 64 and C % 16 == 0
+                        and C <= k["kAttnMaxC"] and bool(fits))
+                assert K1.kernel_takes(C, heads, N) == want, (C, heads, N)
+                taken += want
+                if D in (32, 64, 128) and 1 <= N <= 64 and C <= 1024:  # the earlier predicate
+                    assert K1.kernel_takes(C, heads, N), (C, heads, N)
+    assert taken > 200
+    # the split of a window's head groups over blocks: the fewest with
+    # windows x splits >= the SMs, at most one a group (Swin-B at batch 8 and 64)
+    for windows, C, splits in ((512, 128, 1), (128, 256, 2), (32, 512, 4), (8, 1024, 8),
+                               (4096, 128, 1), (256, 512, 1), (64, 1024, 3)):
+        assert K1.attn_splits(windows, C, 132) == splits, (windows, C)
+    acts = (0.1,) * 4
+    for C, heads in SWIN_STAGES[:-1]:
+        assert K1.kernel_takes(C, heads, 49)
+        for quant, a in ((False, None), ("static", acts), ("static", None), (True, None)):
+            assert SB.kernel_takes(C, heads, 49, 4 * C, quant, a), (C, quant, a)
+    assert not K1.kernel_takes(*SWIN_STAGES[-1], 49)  # head dim 8
 
 
 @pytest.mark.parametrize("name", ["swin_tiny", "swin_small", "medclip"])
