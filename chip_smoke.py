@@ -12,8 +12,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    shape of a predict at text length 64, 128 and 512, with the CUDA launches
    of one call counted by the profiler; K3's W8A8 form at the BERT shape of
    each length; the whole-block kernel's static W8A8 pair, chain
-   and windows, the pair and windows with calibrated and with per-row
-   activation scales; its dynamic windows at stages 2-4 and raw at stage 3),
+   and windows with calibrated and with per-row activation scales; its
+   dynamic windows at stages 2-4 and raw at stage 3),
    then the median CUDA-event time of each and its bound (bytes over 3.35
    TB/s, or bf16 FLOPs over 989 TFLOP/s plus int8 ops over 1,979 TOPS), and
    the device time of one call (the profiler's; the CUDA-event time also holds
@@ -43,7 +43,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    ``"int8"``: launch counts per predict (int8 and bf16 K3 counted apart),
    each request's own id at rank 1 of a gallery that holds its int8
    embedding, and joint_emb cosine > 0.995 against the f32 unquantized plain
-   path, and ``int8_static`` again at text length 512. Then one Swin-B
+   path, and ``int8_static`` again at text length 512; then the same at
+   ``serve_quant="int8_static"`` without a calibration file
+   (``int8_static_per_row``: Swin stages 2-4 in static W8A8 with per-row
+   activation scales). Then one Swin-B
    forward at ``SwinConfig(quant="int8")``: 22 dynamic whole-block launches,
    and one Swin-T forward (C 96 / 192 / 384 / 768: K1 + K2 at widths that
    are not multiples of 128) with every step on a kernel, its launches
@@ -125,7 +128,10 @@ INT8_PAIR_TOL = 2.0 ** -3
 # 6.0e-2 / 4.0e-2 / 2.4e-2 at L64 / L128 / L512 against faults of 0.22 /
 # 0.14 / 0.055; each limit sits between the two.
 INT8_SHARE = {"fused_attention_int8": (2.0 ** -8, {64: 0.12, 128: 0.08, 512: 0.037}),
-              "fused_swin_block_pair_static": (2.0 ** -5, 2e-2)}
+              "fused_swin_block_pair_static": (2.0 ** -5, 2e-2),
+              "fused_swin_block_pair_per_row": (2.0 ** -5, 2e-2)}
+# the two blocks deep pair, held to INT8_PAIR_TOL
+PAIRS_INT8 = ("fused_swin_block_pair_static", "fused_swin_block_pair_per_row")
 INT8_SHARE_BLOCK = (2.0 ** -5, 7e-4)  # (threshold, largest share) of the others
 # int8 serving mixes against the f32 unquantized plain path: the JAX package's
 # gate (tests/test_quant_model.py, tests/test_quant_static.py)
@@ -141,14 +147,18 @@ TEXT_LENGTHS = (64, 128, 512)
 # and their MLPs on K2 at C <= 256. The int8 mixes run BERT's attention on
 # K3-int8 and the fusion stack without a kernel (W8A8 GEMMs through
 # torch._int_mm and plain attention, as JAX's XLA branches); "int8_static"
-# runs Swin stages 2-4 in static W8A8, "int8" in bf16. "swin_int8" is one
-# SwinEncoder forward at quant="int8": dynamic W8A8 windows at stages 2-4.
+# runs Swin stages 2-4 in static W8A8 with the calibrated scales,
+# "int8_static_per_row" (no calibration file) with per-row scales, "int8" in
+# bf16. "swin_int8" is one SwinEncoder forward at quant="int8": dynamic W8A8
+# windows at stages 2-4.
 SERVING = ("fused_window_attention", "fused_ln_mlp", "fused_attention",
            "fused_attention_int8", "fused_swin_block_windows",
-           "fused_swin_block_windows_static", "fused_swin_block_windows_dynamic",
-           "fused_swin_block_raw", "fused_swin_block_raw_dynamic", "fused_swin_block_chain",
-           "fused_swin_block_chain_static", "fused_swin_block_pair",
-           "fused_swin_block_pair_static")
+           "fused_swin_block_windows_static", "fused_swin_block_windows_per_row",
+           "fused_swin_block_windows_dynamic", "fused_swin_block_raw",
+           "fused_swin_block_raw_dynamic", "fused_swin_block_chain",
+           "fused_swin_block_chain_static", "fused_swin_block_chain_per_row",
+           "fused_swin_block_pair", "fused_swin_block_pair_static",
+           "fused_swin_block_pair_per_row")
 ZERO = {name: 0 for name in SERVING}
 EXPECTED = {
     "whole": {**ZERO, "fused_window_attention": 2, "fused_ln_mlp": 7, "fused_attention": 37,
@@ -159,6 +169,10 @@ EXPECTED = {
                     "fused_attention_int8": 12, "fused_swin_block_pair_static": 1,
                     "fused_swin_block_chain_static": 18,
                     "fused_swin_block_windows_static": 2},
+    "int8_static_per_row": {**ZERO, "fused_window_attention": 2, "fused_ln_mlp": 2,
+                            "fused_attention_int8": 12, "fused_swin_block_pair_per_row": 1,
+                            "fused_swin_block_chain_per_row": 18,
+                            "fused_swin_block_windows_per_row": 2},
     "int8": {**ZERO, "fused_window_attention": 2, "fused_ln_mlp": 2,
              "fused_attention_int8": 12, "fused_swin_block_pair": 1,
              "fused_swin_block_chain": 18, "fused_swin_block_windows": 2},
@@ -177,6 +191,9 @@ PATH_OF = {name: "whole" for name in SERVING}
 PATH_OF.update({name: "int8_static" for name in (
     "fused_attention_int8", "fused_swin_block_windows_static", "fused_swin_block_chain_static",
     "fused_swin_block_pair_static")})
+PATH_OF.update({name: "int8_static_per_row" for name in (
+    "fused_swin_block_windows_per_row", "fused_swin_block_chain_per_row",
+    "fused_swin_block_pair_per_row")})
 PATH_OF.update({"fused_swin_block_windows_dynamic": "swin_int8", "fused_swin_block_raw": None,
                 "fused_swin_block_raw_dynamic": None, "wattn_core_fwd": "train",
                 "wattn_core_bwd": "train", "window_attention_heads": None})
@@ -192,6 +209,8 @@ SOURCES = {  # kernel -> (CUDA source, the pallas_call of the TPU kernel it repl
                                  "mmrp_tpu/ops/fused_swin_block.py:435"),
     "fused_swin_block_windows_static": ("mmrp_tpu_torch/csrc/swin_block.cu",
                                         "mmrp_tpu/ops/fused_swin_block.py:435"),
+    "fused_swin_block_windows_per_row": ("mmrp_tpu_torch/csrc/swin_block.cu",
+                                         "mmrp_tpu/ops/fused_swin_block.py:435"),
     "fused_swin_block_windows_dynamic": ("mmrp_tpu_torch/csrc/swin_block.cu",
                                          "mmrp_tpu/ops/fused_swin_block.py:435"),
     "fused_swin_block_raw": ("mmrp_tpu_torch/csrc/swin_block.cu",
@@ -202,10 +221,14 @@ SOURCES = {  # kernel -> (CUDA source, the pallas_call of the TPU kernel it repl
                                "mmrp_tpu/ops/fused_swin_pair.py:384"),
     "fused_swin_block_chain_static": ("mmrp_tpu_torch/csrc/swin_block.cu",
                                       "mmrp_tpu/ops/fused_swin_pair.py:384"),
+    "fused_swin_block_chain_per_row": ("mmrp_tpu_torch/csrc/swin_block.cu",
+                                       "mmrp_tpu/ops/fused_swin_pair.py:384"),
     "fused_swin_block_pair": ("mmrp_tpu_torch/csrc/swin_block.cu",
                               "mmrp_tpu/ops/fused_swin_pair.py:197"),
     "fused_swin_block_pair_static": ("mmrp_tpu_torch/csrc/swin_block.cu",
                                      "mmrp_tpu/ops/fused_swin_pair.py:197"),
+    "fused_swin_block_pair_per_row": ("mmrp_tpu_torch/csrc/swin_block.cu",
+                                      "mmrp_tpu/ops/fused_swin_pair.py:197"),
     "wattn_core_fwd": ("mmrp_tpu_torch/csrc/wattn_core.cu", "mmrp_tpu/ops/wattn_core.py:260"),
     "wattn_core_bwd": ("mmrp_tpu_torch/csrc/wattn_core.cu", "mmrp_tpu/ops/wattn_core.py:283"),
     "window_attention_heads": ("mmrp_tpu_torch/csrc/wattn_core.cu",
@@ -312,7 +335,7 @@ def device_ms_by_kernel(torch, fn, reps: int = 5) -> dict:
 
 def mlp_launch_work(M: int, C: int, blocks: int, int8: bool):
     """(bf16 FLOPs, int8 ops, bytes) of the whole-block call's MLP launch(es)
-    (``block_mlp_kernel`` / ``block_mlp_q8_kernel``) over M rows of width C:
+    (``block_mlp_kernel``) over M rows of width C:
     proj, FC1 and FC2, 18 M C^2 operations a block; the context and the
     residual read once, the weights read once (int8: one byte each), the
     output written once."""
@@ -575,12 +598,13 @@ def main() -> int:
     pair8 = (x, q0, bias0, q1, bias1, heads, ws, 3)
     pairf = (x, float_block(q0, s0), bias0, float_block(q1, s1), bias1, heads, ws, 3)
     # calibrated-like scales: 1 per predict at int8_static; per-row scales (no
-    # calibration file): no path of this run
-    for label, a8, n in (("static scales", acts, 1), ("per-row scales", None, 0)):
+    # calibration file): 1 per predict at int8_static_per_row
+    for name, a8 in (("fused_swin_block_pair_static", acts),
+                     ("fused_swin_block_pair_per_row", None)):
         kw8 = dict(quant="static", wscales0=s0, wscales1=s1, act_scales0=a8, act_scales1=a8)
         other = dict(kw8, act_scales0=None if a8 else acts, act_scales1=None if a8 else acts)
-        add_case("fused_swin_block_pair_static", f"map({B},{res},{res},{C}) h{heads} {label}",
-                 (n, 0), lambda a=pair8, k=kw8: SP.fused_swin_block_pair(*a, **k),
+        add_case(name, f"map({B},{res},{res},{C}) h{heads}",
+                 (1, 0), lambda a=pair8, k=kw8: SP.fused_swin_block_pair(*a, **k),
                  lambda a=pair8, k=kw8: SP.pair_plain(*a, **k), inputs=(pair8, kw8),
                  faults={"bf16 activations": lambda a=pairf: SP.pair_plain(*a),
                          "other activation scales":
@@ -631,15 +655,18 @@ def main() -> int:
         q8, sc = int8_block(blk)
         argsf = (args[0], float_block(q8, sc), *args[2:])
         args = (args[0], q8, bias, heads, ws, roll)
-        kw8 = dict(quant="static", wscales=sc, act_scales=acts)
-        add_case("fused_swin_block_chain_static", f"map({B},{res},{res},{C}) h{heads} "
-                 f"roll {roll:+d}", (9, 0),
-                 lambda a=args, k=kw8: SP.fused_swin_block_chain(*a, **k),
-                 lambda a=args, k=kw8: SP.chain_plain(*a, **k), inputs=(args, kw8),
-                 faults={"bf16 activations": lambda a=argsf: SP.chain_plain(*a),
-                         "per-row scales": lambda a=args, k=dict(kw8, act_scales=None):
-                         SP.chain_plain(*a, **k)},
-                 **block_work(B * res * res, C, heads, nW, int8=True))
+        # calibrated-like scales (int8_static) and per-row scales (int8_static_per_row)
+        for name, a8 in (("fused_swin_block_chain_static", acts),
+                         ("fused_swin_block_chain_per_row", None)):
+            kw8 = dict(quant="static", wscales=sc, act_scales=a8)
+            add_case(name, f"map({B},{res},{res},{C}) h{heads} roll {roll:+d}", (9, 0),
+                     lambda a=args, k=kw8: SP.fused_swin_block_chain(*a, **k),
+                     lambda a=args, k=kw8: SP.chain_plain(*a, **k), inputs=(args, kw8),
+                     faults={"bf16 activations": lambda a=argsf: SP.chain_plain(*a),
+                             "other activation scales":
+                             lambda a=args, k=dict(kw8, act_scales=None if a8 else acts):
+                             SP.chain_plain(*a, **k)},
+                     **block_work(B * res * res, C, heads, nW, int8=True))
     # stage 3 geometry on the raw flavor, which no route of the model calls
     x3 = rnd((B, res, res, C))
     args = (x3, *blk, bias, heads, ws)
@@ -669,12 +696,13 @@ def main() -> int:
     argsf = (args[0], *float_block(q8, sc), bias, heads)
     args = (args[0], *q8, bias, heads)
     # calibrated scales: 2 per predict at int8_static; per-row scales (no
-    # calibration file): no path of this run
-    for label, a8, n in (("static scales", acts, 2), ("per-row scales", None, 0)):
+    # calibration file): 2 per predict at int8_static_per_row
+    for name, a8 in (("fused_swin_block_windows_static", acts),
+                     ("fused_swin_block_windows_per_row", None)):
         kw8 = dict(quant="static", wscales=sc, act_scales=a8)
         other = dict(kw8, act_scales=None if a8 else acts)
-        add_case("fused_swin_block_windows_static", f"xw({B},1,49,{C}) h{heads} {label}",
-                 (n, 0), lambda a=args, k=kw8: SB.fused_swin_block_windows(*a, **k),
+        add_case(name, f"xw({B},1,49,{C}) h{heads}",
+                 (2, 0), lambda a=args, k=kw8: SB.fused_swin_block_windows(*a, **k),
                  lambda a=args, k=kw8: SB.swin_block_plain(*a, **k), inputs=(args, kw8),
                  faults={"bf16 activations": lambda a=argsf: SB.swin_block_plain(*a),
                          "other activation scales":
@@ -707,8 +735,7 @@ def main() -> int:
                         (d > sharp * ref).float().mean().item())
 
             err, rel, share = errors(got)
-            tol = (INT8_PAIR_TOL if name == "fused_swin_block_pair_static" else INT8_TOL) \
-                if ops8 else KERNEL_TOL
+            tol = (INT8_PAIR_TOL if name in PAIRS_INT8 else INT8_TOL) if ops8 else KERNEL_TOL
             ms, plain_ms = cuda_ms(torch, kern), cuda_ms(torch, plain)
             # each input read once and the output written once: the tensors
             # the wrapper is given (the case's inputs, int8 weights at one
@@ -822,13 +849,16 @@ def main() -> int:
         "fused_attention_int8": (K3.fused_attention, "launches_int8"),
         "fused_swin_block_windows": (SB.fused_swin_block_windows, "launches"),
         "fused_swin_block_windows_static": (SB.fused_swin_block_windows, "launches_static"),
+        "fused_swin_block_windows_per_row": (SB.fused_swin_block_windows, "launches_per_row"),
         "fused_swin_block_windows_dynamic": (SB.fused_swin_block_windows, "launches_dynamic"),
         "fused_swin_block_raw": (SB.fused_swin_block_raw, "launches"),
         "fused_swin_block_raw_dynamic": (SB.fused_swin_block_raw, "launches_dynamic"),
         "fused_swin_block_chain": (SP.fused_swin_block_chain, "launches"),
         "fused_swin_block_chain_static": (SP.fused_swin_block_chain, "launches_static"),
+        "fused_swin_block_chain_per_row": (SP.fused_swin_block_chain, "launches_per_row"),
         "fused_swin_block_pair": (SP.fused_swin_block_pair, "launches"),
         "fused_swin_block_pair_static": (SP.fused_swin_block_pair, "launches_static"),
+        "fused_swin_block_pair_per_row": (SP.fused_swin_block_pair, "launches_per_row"),
     }
 
     plain_counters = (K1.fused_window_attention_windows, K2.fused_ln_mlp_residual,
@@ -934,7 +964,7 @@ def main() -> int:
     del ref
     phase_done("slice")
 
-    # -- 4b. int8 serving: calibration, the two int8 mixes, dynamic Swin ------
+    # -- 4b. int8 serving: calibration, the int8 mixes, dynamic Swin ----------
     t0 = time.perf_counter()
     amax = calibrate_swin_act_amax(model.backbones.swin, images, batch_size=B)
     amax_path = _build.BUILD_DIR / "swin_act_amax.json"
@@ -946,9 +976,10 @@ def main() -> int:
     state = model.state_dict()
     for route, serve_quant in (("int8_static", dict(serve_quant="int8_static",
                                                     swin_act_amax_path=str(amax_path))),
+                               ("int8_static_per_row", dict(serve_quant="int8_static")),
                                ("int8", dict(serve_quant="int8"))):
         qcfg = MultiModalConfig.from_config(Config(**serve_quant), flagship=True)
-        if qcfg.swin.act_amax is not None and qcfg.swin.act_amax != amax:
+        if qcfg.swin.act_amax != (amax if route == "int8_static" else None):
             fail(f"{route}: act_amax did not round-trip through {amax_path}")
         m8 = MultiModalRetrievalModel(qcfg, dtype=bf16, device=dev).eval()
         m8.load_state_dict(state)
@@ -1282,7 +1313,8 @@ def main() -> int:
     # attention [+ MLP] in one, in bf16 or W8A8) or the core's (roll,
     # partition, attention and reverse in one), so their library_ms is null;
     # W's is scaled_dot_product_attention's.
-    per_label = {"whole": "predict", "int8_static": "predict", "swin_int8": "encoder forward",
+    per_label = {"whole": "predict", "int8_static": "predict", "int8_static_per_row": "predict",
+                 "swin_int8": "encoder forward",
                  "train": "train step", None: "call"}
     launches["train"] = step_launches
     records = []

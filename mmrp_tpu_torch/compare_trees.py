@@ -4,13 +4,14 @@
 
 Starts one worker process per checkout (each imports its own
 ``mmrp_tpu_torch`` and builds its own kernels) and builds in each, from the
-same seed, the flagship in bf16 on the default Swin route and on the K1 + K2
-route (``whole_block=False``), and the flagship train step (f32 masters,
+same seed, the flagship in bf16 on the default Swin route, on the K1 + K2
+route (``whole_block=False``) and at ``serve_quant="int8_static"`` without a
+calibration file (per-row activation scales), and the flagship train step (f32 masters,
 batch 64, text length 64). Then, for ``--rounds`` rounds, each worker in turn
 (A B B A, then B A A B, ...) times, while the other waits:
 
 - the serving forward at batch 8 (default and K1 + K2 routes) and at batch 64
-  (default route), text length 64: per forward, the CUDA-event time (what a
+  (default and per-row int8 routes), text length 64: per forward, the CUDA-event time (what a
   caller waits for) and the host issue time (from the call until it returns,
   the card left to finish); the round's median of 10 forwards after 2 warm-ups;
 - the train step: the median of 3 steps after 1 warm-up.
@@ -36,7 +37,8 @@ import sys
 from pathlib import Path
 
 METRICS = ("b8_whole_ms", "b8_whole_host_ms", "b8_k1k2_ms", "b8_k1k2_host_ms",
-           "b64_whole_ms", "b64_whole_host_ms", "train_step_ms")
+           "b64_whole_ms", "b64_whole_host_ms", "b64_int8_per_row_ms",
+           "b64_int8_per_row_host_ms", "train_step_ms")
 
 
 # -- the worker (one per checkout) -------------------------------------------
@@ -69,6 +71,10 @@ def _worker(tree: str) -> None:
         dataclasses.replace(cfg, swin=dataclasses.replace(cfg.swin, whole_block=False)),
         dtype=torch.bfloat16, device=dev).eval()
     k1k2.load_state_dict(whole.state_dict())
+    per_row = MultiModalRetrievalModel(
+        MultiModalConfig.from_config(Config(serve_quant="int8_static"), flagship=True),
+        dtype=torch.bfloat16, device=dev).eval()
+    per_row.load_state_dict(whole.state_dict())
     gen = torch.Generator(device=dev).manual_seed(1)
 
     def inputs(batch):
@@ -78,7 +84,8 @@ def _worker(tree: str) -> None:
 
     forwards = {"b8_whole": (serving_forward(whole), inputs(8)),
                 "b8_k1k2": (serving_forward(k1k2), inputs(8)),
-                "b64_whole": (serving_forward(whole), inputs(64))}
+                "b64_whole": (serving_forward(whole), inputs(64)),
+                "b64_int8_per_row": (serving_forward(per_row), inputs(64))}
 
     trained = MultiModalRetrievalModel(cfg, dtype=torch.bfloat16, device=dev)
     trained.load_state_dict(whole.state_dict())

@@ -3,11 +3,10 @@
 // The GEMMs of the training core (wattn_core.cu) are WMMA bf16 16x16x16 tile
 // products with f32 accumulation (mma.sync on the tensor cores); the
 // projections, the Swin attention half and the MLPs run on wgmma
-// (gemm_sm90.cuh, attention.cuh, mlp_sm90.cuh), the attention tiles on
-// mma.sync (attn_tile.cuh), and the per-row int8 MLP epilogue on int8
-// mma.sync (mma_s8 below). B operands are nn.Linear weights, (out_features,
-// in_features) row-major, which is a column-major (in, out) matrix: element
-// (k, n) of B sits at w[n * ldb + k].
+// (gemm_sm90.cuh, attention.cuh, mlp_sm90.cuh), bf16 and int8, and the
+// attention tiles on mma.sync (attn_tile.cuh). B operands are nn.Linear
+// weights, (out_features, in_features) row-major, which is a column-major
+// (in, out) matrix: element (k, n) of B sits at w[n * ldb + k].
 //
 // WMMA requires 256-bit aligned tile pointers and leading dimensions that
 // are multiples of 8 (bf16) or 4 (f32) elements: the Python wrappers refuse
@@ -28,7 +27,7 @@ namespace wmma = nvcuda::wmma;
 
 using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-constexpr int kThreads = 256;  // 8 warps a block: wattn_core's, block_mlp_q8_kernel
+constexpr int kThreads = 256;  // 8 warps a block: wattn_core's
 constexpr int kWarps = kThreads / 32;
 
 __host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
@@ -70,28 +69,12 @@ __host__ __device__ inline size_t map_row(int g, int t, int nW, int H, int W, in
   return ((size_t)b * H + i) * W + j;
 }
 
-// Two-pass LayerNorm statistics of one row held by one warp: each lane reads
-// its own columns c = lane, lane + 32, ... through `get(c)`.
-template <typename Get>
-__device__ __forceinline__ void row_stats(Get get, int n, float eps, float& mean, float& rstd) {
-  const int lane = threadIdx.x & 31;
-  float s = 0.f;
-  for (int c = lane; c < n; c += 32) s += get(c);
-  mean = warp_sum(s) / (float)n;
-  float q = 0.f;
-  for (int c = lane; c < n; c += 32) {
-    const float d = get(c) - mean;
-    q += d * d;
-  }
-  rstd = rsqrtf(warp_sum(q) / (float)n + eps);
-}
-
 // ---------------------------------------------------------------------------
 // W8A8: the int8 bodies of the TPU kernels (fused_attention.py:_qdot,
 // fused_swin_block.py:_static_gemm). Weights arrive quantized per output
 // channel (ops/quant.py), nn.Linear layout (N, K) int8 + f32 scales (N,);
-// activations are quantized here, per row or with a static scale, and the
-// products run on the int8 tensor cores (mma.sync m16n8k32, s32 sums: exact).
+// activations are quantized in the kernels, per row or with a static scale,
+// and the products run on the int8 tensor cores (wgmma s8, s32 sums: exact).
 
 // Host-side operands of one W8A8 launch (ops/_build.py::QuantArgs).
 struct QuantArgs {
@@ -118,59 +101,6 @@ __device__ __forceinline__ float dequant(int acc, float sx, float sw, int mode) 
 __device__ __forceinline__ signed char quant1(float x, float s, float inv) {
   const float q = inv > 0.f ? rintf(x * inv) : rintf(x / s);
   return (signed char)__float2int_rn(fminf(fmaxf(q, -127.f), 127.f));
-}
-
-// The scale of a row held by one warp (per-row: max(amax, 1e-8) / 127, as
-// quant.py) or the static one; every lane returns it.
-template <typename Get>
-__device__ __forceinline__ float row_scale(Get get, int n, float sa, float inv) {
-  if (inv > 0.f) return sa;
-  const int lane = threadIdx.x & 31;
-  float m = 0.f;
-  for (int c = lane; c < n; c += 32) m = fmaxf(m, fabsf(get(c)));
-  return fmaxf(warp_max(m), 1e-8f) / 127.f;
-}
-
-// Quantize bf16 row[0, n) in place with scale s (or inv), one warp: int8
-// element c lands on byte c of the row, so the int8 row keeps the bf16 row's
-// start and a leading dimension of twice its bf16 one. Each step reads 32
-// elements and then writes 32 bytes, which cover bf16 elements the step or
-// an earlier one has read.
-__device__ inline void quantize_row_inplace(bf16* row, int n, float s, float inv) {
-  const int lane = threadIdx.x & 31;
-  signed char* q = reinterpret_cast<signed char*>(row);
-  for (int c0 = 0; c0 < n; c0 += 32) {
-    const int c = c0 + lane;
-    const float v = c < n ? to_f(row[c]) : 0.f;
-    __syncwarp();
-    if (c < n) q[c] = quant1(v, s, inv);
-    __syncwarp();
-  }
-}
-
-// acc[16 x 8] (s32, mma fragment) += A[16 x K] . B[K x 8]: A int8 row-major
-// (lda bytes, 4-byte aligned rows), B the int8 nn.Linear rows n0..n0+7
-// ((k, n) at b[n * ldb + k]); K a multiple of 32. Fragment c_i of lane
-// (g = lane / 4, t = lane % 4) is element (g + 8 (i / 2), 2 t + i % 2).
-__device__ __forceinline__ void mma_s8(int acc[4], const signed char* a, int lda,
-                                       const signed char* b, int ldb, int K) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const signed char* a0 = a + (size_t)g * lda + 4 * t;
-  const signed char* a1 = a0 + (size_t)8 * lda;
-  const signed char* b0 = b + (size_t)g * ldb + 4 * t;
-  for (int k = 0; k < K; k += 32) {
-    const unsigned A0 = *reinterpret_cast<const unsigned*>(a0 + k);
-    const unsigned A1 = *reinterpret_cast<const unsigned*>(a1 + k);
-    const unsigned A2 = *reinterpret_cast<const unsigned*>(a0 + k + 16);
-    const unsigned A3 = *reinterpret_cast<const unsigned*>(a1 + k + 16);
-    const unsigned B0 = __ldg(reinterpret_cast<const unsigned*>(b0 + k));
-    const unsigned B1 = __ldg(reinterpret_cast<const unsigned*>(b0 + k + 16));
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3])
-        : "r"(A0), "r"(A1), "r"(A2), "r"(A3), "r"(B0), "r"(B1));
-  }
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

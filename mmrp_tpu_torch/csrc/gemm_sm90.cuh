@@ -187,7 +187,7 @@ __device__ inline void transform_row(unsigned char* a, float* rs, int r, int C, 
       sum += v[i][e];
     }
   }
-  if (ln) {  // two-pass statistics over the row, as row_stats
+  if (ln) {  // two-pass statistics over the row
     const float mean = warp_sum(sum) / (float)C;
     float q = 0.f;
 #pragma unroll

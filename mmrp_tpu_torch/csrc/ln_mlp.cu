@@ -41,7 +41,7 @@ struct MlpParams {
 };
 
 // One warp LayerNorms one row of C <= 1024 values held 8 to a lane-piece:
-// two passes in f32, as row_stats; returns the normalized values in v.
+// two passes in f32; returns the normalized values in v.
 __device__ inline void ln_row(float (&v)[4][8], int C, const float* ln_s, const float* ln_b,
                               float eps) {
   const int lane = threadIdx.x & 31, pieces = C / 8;
@@ -125,7 +125,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1) ln_mlp_kernel(MlpParams p) {
   t.Hd = p.Hd;
   t.span = span;
   t.h0 = rank * span;
-  mlp_tile<false, kPart>(t, base + L.h, base + L.ring, reinterpret_cast<float*>(base + L.red), S, rank,
+  mlp_tile<false, false, kPart>(t, base + L.h, base + L.ring, reinterpret_cast<float*>(base + L.red), S, rank,
                   [&](int r, int c, const float (&f)[4]) {
                     const size_t at = (size_t)(row0 + r) * p.C + c;
                     const uint2 xraw =

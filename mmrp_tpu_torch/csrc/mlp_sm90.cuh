@@ -39,6 +39,19 @@
 // rounded to bf16 and quantized with the FC2 input's scale as it leaves the
 // registers, FC2 runs in s8, and the ranks add their exact s32 partial sums
 // before one dequantization.
+//
+// W8A8 with per-row activation scales (kRow: the dynamic _qdot, or
+// _static_gemm without sa), s = max(|row|, 1e-8) / 127 and round(v / s): A
+// arrives as int8 with its 64 row scales, which FC1's epilogue dequantizes
+// with. FC2's input is a row of the whole Hd-wide hidden activation, which
+// no rank holds, so FC1's epilogue writes its slice in bf16 and keeps each
+// row's running |h| maximum in registers (a row's columns lie on the four
+// lanes of a quad); the ranks exchange their 64 partial maxima through
+// distributed shared memory at one cluster barrier, and each quantizes its
+// slice in place, one 128-column int8 chunk at a time in ascending order
+// (int8 chunk k covers bf16 chunks 2k and 2k + 1 and lands on bf16 chunk k,
+// which chunk k / 2 <= k has read). FC2 then runs in s8 as above and
+// dequantizes the exact s32 sum once with the row's scale.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -56,6 +69,14 @@ constexpr int kSpanMax = 512;              // hidden columns a rank keeps on chi
 constexpr int kSlot = kChunkA + kChunkW;   // a streamed-GEMM ring slot: A chunk + weight chunk
 constexpr int kRingBytes = 4 * kSlot;      // the ring: 4 such slots, or 6 weight chunks
 constexpr int kRedLd = kTileN + 4;         // row stride (4-byte words) of the partial-sum tile
+
+// FC2's partial sums fill the first kTileN words of each row of the
+// partial-sum tile; the per-row int8 forms keep two scales of each tile row
+// in its padding: word kTileN + which of row r.
+static_assert(kRedLd >= kTileN + 2, "scale_slot needs two padding words a row");
+__device__ __forceinline__ float* scale_slot(float* red, int which, int r) {
+  return red + r * kRedLd + kTileN + which;
+}
 
 // Dynamic shared memory of an MLP block from its 1024-aligned base: the
 // hidden slice (64 x span bf16, or int8 in its first half), the ring, the
@@ -242,6 +263,7 @@ struct MlpTile {
   const float* s2;
   float sa1;               // Q8: FC1's input scale, FC2's input scale and f32(1 / it)
   float sa2, inv2;
+  int qmode;               // kRow: kQuantDyn or kQuantStatic (the order of dequant's products)
   int C, Hd, span, h0;     // h0: this rank's first hidden column
 };
 
@@ -249,14 +271,19 @@ struct MlpTile {
 // the sum v[0..3] (f32, W8A8 dequantized) of output columns c .. c + 3 of the
 // tile's row r, for each of this rank's rows r in [rank 64 / S, (rank + 1)
 // 64 / S) and every c < C. All 128 threads call it; rows >= t.rows are
-// skipped. kPart: C % 128 != 0 (stream_tiles).
-template <bool Q8, bool kPart, typename Fin>
+// skipped. kRow: per-row activation scales, FC1's input's in scale slot 1 of
+// red (every tile row, finite); slot 0 is free and ends as this rank's
+// partial |h| maxima, slot 1 as FC2's input's scales. kPart: C % 128 != 0
+// (stream_tiles).
+template <bool Q8, bool kRow, bool kPart, typename Fin>
 __device__ inline void mlp_tile(const MlpTile& t, unsigned char* hs, unsigned char* ring,
                                 float* red, int S, int rank, Fin fin) {
+  static_assert(Q8 || !kRow, "per-row scales are a W8A8 form");
   using Acc = typename std::conditional<Q8, int, float>::type;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   const int esize = Q8 ? 1 : 2;
   Acc acc[64];
+  float hmax[2] = {0.f, 0.f};  // kRow: |h| maxima of this thread's rows warp 16 + g (+ 8)
 
   // FC1 over this rank's hidden columns, 128 at a time, into the slice
   stream_tiles<true, kPart>(
@@ -266,30 +293,78 @@ __device__ inline void mlp_tile(const MlpTile& t, unsigned char* hs, unsigned ch
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = warp * 16 + g + 8 * h;
+          const float sx = kRow ? *scale_slot(red, 1, r) : t.sa1;
+          const int mode = kRow ? t.qmode : kQuantStatic;
 #pragma unroll
           for (int j = 0; j < 16; ++j) {
             const int c = j0 + j * 8 + 2 * tq, n = t.h0 + c;
             float v0, v1;
             if (Q8) {
-              v0 = dequant((int)acc[4 * j + 2 * h], t.sa1, t.s1[n], kQuantStatic);
-              v1 = dequant((int)acc[4 * j + 2 * h + 1], t.sa1, t.s1[n + 1], kQuantStatic);
+              v0 = dequant((int)acc[4 * j + 2 * h], sx, t.s1[n], mode);
+              v1 = dequant((int)acc[4 * j + 2 * h + 1], sx, t.s1[n + 1], mode);
             } else {
               v0 = (float)acc[4 * j + 2 * h];
               v1 = (float)acc[4 * j + 2 * h + 1];
             }
             v0 = gelu_tanh(v0 + to_f(t.b1[n]));
             v1 = gelu_tanh(v1 + to_f(t.b1[n + 1]));
-            if (Q8) {  // bf16 first, as the TPU kernel casts it, then int8 with FC2's scale
+            // static: bf16 first, as the TPU kernel casts it, then int8 with FC2's scale
+            if (Q8 && !kRow) {
               const char2 q = make_char2(quant1(to_f(to_bf(v0)), t.sa2, t.inv2),
                                          quant1(to_f(to_bf(v1)), t.sa2, t.inv2));
               *reinterpret_cast<char2*>(hs + swz(r, c, kChunkA)) = q;
             } else {
-              *reinterpret_cast<__nv_bfloat162*>(hs + swz(r, c * 2, kChunkA)) =
-                  __floats2bfloat162_rn(v0, v1);
+              const __nv_bfloat162 hv = __floats2bfloat162_rn(v0, v1);
+              *reinterpret_cast<__nv_bfloat162*>(hs + swz(r, c * 2, kChunkA)) = hv;
+              if (kRow) hmax[h] = fmaxf(hmax[h], fmaxf(fabsf(to_f(hv.x)), fabsf(to_f(hv.y))));
             }
           }
         }
       });
+
+  if (kRow) {  // FC2's input scales: each row's |h| maximum over every rank's slice
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      hmax[h] = fmaxf(hmax[h], __shfl_xor_sync(0xffffffffu, hmax[h], 1));
+      hmax[h] = fmaxf(hmax[h], __shfl_xor_sync(0xffffffffu, hmax[h], 2));
+      if (tq == 0) *scale_slot(red, 0, warp * 16 + g + 8 * h) = hmax[h];
+    }
+    cluster_or_block_sync(S);  // every rank's partial maxima are written
+    if (threadIdx.x < kTileM) {
+      float m = 0.f;
+      for (int q = 0; q < S; ++q)
+        m = fmaxf(m, *scale_slot(S > 1 ? cgm::this_cluster().map_shared_rank(red, q) : red, 0,
+                                 threadIdx.x));
+      *scale_slot(red, 1, threadIdx.x) = fmaxf(m, 1e-8f) / 127.f;
+    }
+    __syncthreads();
+    // the slice to int8 in place, 128 columns (16 bytes a piece) at a time
+    for (int k = 0; k < t.span / kTileN; ++k) {
+      uint4 q[kChunkA / 16 / kGemmThreads];
+#pragma unroll
+      for (int j = 0; j < kChunkA / 16 / kGemmThreads; ++j) {
+        const int i = threadIdx.x + j * kGemmThreads, r = i >> 3, c = k * kTileN + (i & 7) * 16;
+        const float s = *scale_slot(red, 1, r);
+        const uint4 lo = *reinterpret_cast<const uint4*>(hs + swz(r, c * 2, kChunkA));
+        const uint4 hi = *reinterpret_cast<const uint4*>(hs + swz(r, c * 2 + 16, kChunkA));
+        const bf16* lv = reinterpret_cast<const bf16*>(&lo);
+        const bf16* hv = reinterpret_cast<const bf16*>(&hi);
+        __align__(16) signed char q8[16];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          q8[e] = quant1(to_f(lv[e]), s, 0.f);
+          q8[8 + e] = quant1(to_f(hv[e]), s, 0.f);
+        }
+        q[j] = *reinterpret_cast<const uint4*>(q8);
+      }
+      __syncthreads();  // int8 chunk k overwrites bf16 chunk k: every thread has read it
+#pragma unroll
+      for (int j = 0; j < kChunkA / 16 / kGemmThreads; ++j) {
+        const int i = threadIdx.x + j * kGemmThreads, r = i >> 3, c = k * kTileN + (i & 7) * 16;
+        *reinterpret_cast<uint4*>(hs + swz(r, c, kChunkA)) = q[j];
+      }
+    }
+  }
   // (the pipeline fences the slice's stores into wgmma's view before its first product)
 
   // FC2 of the slice for each 128 output columns; the partial sums of every
@@ -324,8 +399,9 @@ __device__ inline void mlp_tile(const MlpTile& t, unsigned char* hs, unsigned ch
           float v[4];
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            v[e] = Q8 ? dequant((int)s4[e], t.sa2, t.s2[n0 + c + e], kQuantStatic)
-                      : (float)s4[e];
+            v[e] = kRow ? dequant((int)s4[e], *scale_slot(red, 1, r), t.s2[n0 + c + e], t.qmode)
+                 : Q8   ? dequant((int)s4[e], t.sa2, t.s2[n0 + c + e], kQuantStatic)
+                        : (float)s4[e];
           fin(r, n0 + c, v);
         }
         cluster_or_block_sync(S);  // no rank rewrites its tile while another still reads it

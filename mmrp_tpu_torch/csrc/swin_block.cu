@@ -44,14 +44,13 @@
 //     the ranks' partial sums added in rank order, and each rank writes
 //     bf16(y + FC2 + b2) of its rows to their destination rows. The scratch
 //     rows stay in L2; the 4C-wide hidden never leaves the chip.
-// The static W8A8 form with calibrated activation scales runs the same
-// kernel in int8 (the context and LN1(y) quantized as they are written to
-// the scratch, the hidden as it leaves FC1). The forms that need a row's
-// scale first (per-row static scales, the dynamic _qdot) run
-// block_mlp_q8_kernel: a cluster of S blocks per 16 rows on int8 mma.sync,
-// described below.
-#include <cooperative_groups.h>
-
+// The W8A8 forms run the same kernel in int8: the context and LN1(y)
+// quantized as they are written to the scratch, with the calibrated static
+// scales of _static_gemm, or (kRow: the dynamic _qdot, or _static_gemm
+// without them) with each row's own scale, which the rank that quantizes the
+// row keeps in shared memory and every rank of the cluster gathers through
+// distributed shared memory before the GEMM that dequantizes with it; the
+// hidden activation's row scales are mlp_sm90.cuh's.
 #include "attention.cuh"
 #include "mlp_sm90.cuh"
 
@@ -59,10 +58,6 @@ namespace mmrp {
 // the same anonymous namespace as attention.cuh's: a second one at global
 // scope makes the names nvcc generates for the kernel stubs ambiguous
 namespace {
-
-namespace cg = cooperative_groups;
-
-constexpr int kRows = 16;  // rows per block of the int8 per-row epilogue
 
 struct BlockParams {
   const bf16* x;       // block input: (B * nW * N, C) windows, or the (B, H, W, C) map
@@ -78,7 +73,7 @@ struct BlockParams {
   bf16* out;           // like x
   float* y;            // (M, C) f32 scratch: x + proj + b_proj
   unsigned char* z;    // (M, C) scratch: bf16 LN1(y), or its int8 form
-  signed char* ctx8;   // (M, C) scratch: the int8 context (static W8A8)
+  signed char* ctx8;   // (M, C) scratch: the int8 context (W8A8)
   int M, C, Hd, N, nW;
   int map_h, map_w, ws, roll_h, roll_w;  // map_h == 0: rows in window order, no roll
   float eps;
@@ -97,10 +92,23 @@ __device__ inline size_t block_row(const BlockParams& p, int r, bool dst) {
                  dst ? p.roll_w : 0);
 }
 
-// The MLP half of the block on one 64-row tile and one cluster rank; Q8: the
-// static W8A8 form with static activation scales for proj, FC1 and FC2;
-// kPart: C % 128 != 0 (mlp_sm90.cuh::stream_tiles).
-template <bool Q8, bool kPart>
+// Every tile row's scale in scale slot `which` of this rank's partial-sum
+// tile (mlp_sm90.cuh::scale_slot), each rank having written those of its own
+// 64 / S rows there before a cluster barrier: the other ranks' copied in.
+__device__ inline void gather_row_scales(float* red, int which, int S, int rank) {
+  const int R = kTileM / S;
+  if (S > 1)
+    for (int r = threadIdx.x; r < kTileM; r += kGemmThreads)
+      if (r / R != rank)
+        *scale_slot(red, which, r) =
+            *scale_slot(cgm::this_cluster().map_shared_rank(red, r / R), which, r);
+  __syncthreads();
+}
+
+// The MLP half of the block on one 64-row tile and one cluster rank. Q8: the
+// W8A8 forms, with the static activation scales of proj, FC1 and FC2, or
+// (kRow) per-row scales; kPart: C % 128 != 0 (mlp_sm90.cuh::stream_tiles).
+template <bool Q8, bool kRow, bool kPart>
 __global__ void __launch_bounds__(kGemmThreads, 1) block_mlp_kernel(BlockParams p) {
   using Acc = typename std::conditional<Q8, int, float>::type;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -113,23 +121,52 @@ __global__ void __launch_bounds__(kGemmThreads, 1) block_mlp_kernel(BlockParams 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   const int esize = Q8 ? 1 : 2, C = p.C;
   float* yb = reinterpret_cast<float*>(base + L.rows);  // this rank's rows of y
+  float* red = reinterpret_cast<float*>(base + L.red);  // kRow: the row scales' slots
+  constexpr float kZeroRowScale = 1e-8f / 127.f;        // an all-zero row's (rows past M)
 
-  if (Q8) {  // this rank's context rows in int8, with the proj input's static scale
+  if (Q8) {  // this rank's context rows in int8: proj's static input scale, or each row's
     const bf16* cs = reinterpret_cast<const bf16*>(yb);  // staged in the rows' buffer first
     stage_rows(base + L.rows,
                reinterpret_cast<const unsigned char*>(p.ctx + (size_t)(row0 + r0) * C),
                (size_t)C * 2, live, C * 2);
-    for (int i = threadIdx.x; i < live * (C / 8); i += kGemmThreads) {
-      const int lr = i / (C / 8), pc = i % (C / 8);
-      const uint4 raw = *reinterpret_cast<const uint4*>(cs + (size_t)lr * C + pc * 8);
+    auto put8 = [&](int lr, int pc, const uint4& raw, float sx, float inv) {
       const bf16* v = reinterpret_cast<const bf16*>(&raw);
       __align__(8) signed char q8[8];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) q8[e] = quant1(to_f(v[e]), p.act[0], p.inv[0]);
+      for (int e = 0; e < 8; ++e) q8[e] = quant1(to_f(v[e]), sx, inv);
       *reinterpret_cast<uint2*>(p.ctx8 + (size_t)(row0 + r0 + lr) * C + pc * 8) =
           *reinterpret_cast<uint2*>(q8);
+    };
+    if (!kRow) {  // the static scale: 8 values a thread at a time
+      for (int i = threadIdx.x; i < live * (C / 8); i += kGemmThreads) {
+        const int lr = i / (C / 8), pc = i % (C / 8);
+        put8(lr, pc, *reinterpret_cast<const uint4*>(cs + (size_t)lr * C + pc * 8), p.act[0],
+             p.inv[0]);
+      }
     }
+    for (int lr = warp; kRow && lr < live; lr += kGemmThreads / 32) {  // a row on a warp
+      uint4 raw[kMaxRowChunks];
+      float m = 0.f;
+#pragma unroll
+      for (int i = 0; i < kMaxRowChunks; ++i) {
+        const int pc = lane + 32 * i;
+        raw[i] = make_uint4(0u, 0u, 0u, 0u);
+        if (pc < C / 8) raw[i] = *reinterpret_cast<const uint4*>(cs + (size_t)lr * C + pc * 8);
+        const bf16* v = reinterpret_cast<const bf16*>(&raw[i]);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(to_f(v[e])));
+      }
+      const float sx = fmaxf(warp_max(m), 1e-8f) / 127.f;
+#pragma unroll
+      for (int i = 0; i < kMaxRowChunks; ++i)
+        if (lane + 32 * i < C / 8) put8(lr, lane + 32 * i, raw[i], sx, 0.f);
+      if (lane == 0) *scale_slot(red, 0, r0 + lr) = sx;
+    }
+    if (kRow)
+      for (int lr = live + threadIdx.x; lr < R; lr += kGemmThreads)
+        *scale_slot(red, 0, r0 + lr) = kZeroRowScale;
     cluster_or_block_sync(S);
+    if (kRow) gather_row_scales(red, 0, S, rank);
   }
 
   // proj column tiles rank, rank + S, ...: y = x + (ctx Wproj^T + b_proj), f32
@@ -157,9 +194,10 @@ __global__ void __launch_bounds__(kGemmThreads, 1) block_mlp_kernel(BlockParams 
               if (kPart && c >= C) continue;  // past C in the last tile
               float v0 = (float)acc[4 * j + 2 * h], v1 = (float)acc[4 * j + 2 * h + 1];
               if (Q8) {
-                v0 = dequant((int)acc[4 * j + 2 * h], p.act[0], p.sproj[c], kQuantStatic);
-                v1 = dequant((int)acc[4 * j + 2 * h + 1], p.act[0], p.sproj[c + 1],
-                             kQuantStatic);
+                const float sx = kRow ? *scale_slot(red, 0, r) : p.act[0];
+                const int mode = kRow ? p.qmode : kQuantStatic;
+                v0 = dequant((int)acc[4 * j + 2 * h], sx, p.sproj[c], mode);
+                v1 = dequant((int)acc[4 * j + 2 * h + 1], sx, p.sproj[c + 1], mode);
               }
               const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(xr + c);
               *reinterpret_cast<float2*>(p.y + (size_t)(row0 + r) * C + c) =
@@ -172,7 +210,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1) block_mlp_kernel(BlockParams 
   cluster_or_block_sync(S);  // every column of the tile's y is written
 
   // this rank's rows of y, staged (they are also the residual of the end), and
-  // LN1(y) of them in bf16 (Q8: then int8 with FC1's input scale)
+  // LN1(y) of them in bf16 (Q8: then int8 with FC1's input scale, or the row's)
   stage_rows(base + L.rows, reinterpret_cast<const unsigned char*>(p.y + (size_t)(row0 + r0) * C),
              (size_t)C * 4, live, C * 4);
   for (int lr = warp; lr < live; lr += kGemmThreads / 32) {
@@ -197,27 +235,43 @@ __global__ void __launch_bounds__(kGemmThreads, 1) block_mlp_kernel(BlockParams 
       }
     const float rstd = rsqrtf(warp_sum(q) / (float)C + p.eps);
     const size_t zrow = (size_t)(row0 + r0 + lr) * C;
+    auto put4 = [&](int i, float sz, float inv) {  // v[i] to the scratch
+      const int c0 = (lane + 32 * i) * 4;
+      if (Q8) {
+        char4 q8 = make_char4(quant1(v[i][0], sz, inv), quant1(v[i][1], sz, inv),
+                              quant1(v[i][2], sz, inv), quant1(v[i][3], sz, inv));
+        *reinterpret_cast<char4*>(p.z + zrow + c0) = q8;
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(p.z + (zrow + c0) * 2) =
+            __floats2bfloat162_rn(v[i][0], v[i][1]);
+        *reinterpret_cast<__nv_bfloat162*>(p.z + (zrow + c0 + 2) * 2) =
+            __floats2bfloat162_rn(v[i][2], v[i][3]);
+      }
+    };
+    float m = 0.f;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int c0 = (lane + 32 * i) * 4;
       if (c0 >= C) continue;
-      float zf[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        zf[e] = to_f(to_bf((v[i][e] - mean) * rstd * p.ln1_s[c0 + e] + p.ln1_b[c0 + e]));
-      if (Q8) {
-        char4 q8 = make_char4(quant1(zf[0], p.act[1], p.inv[1]), quant1(zf[1], p.act[1], p.inv[1]),
-                              quant1(zf[2], p.act[1], p.inv[1]), quant1(zf[3], p.act[1], p.inv[1]));
-        *reinterpret_cast<char4*>(p.z + zrow + c0) = q8;
-      } else {
-        *reinterpret_cast<__nv_bfloat162*>(p.z + (zrow + c0) * 2) =
-            __floats2bfloat162_rn(zf[0], zf[1]);
-        *reinterpret_cast<__nv_bfloat162*>(p.z + (zrow + c0 + 2) * 2) =
-            __floats2bfloat162_rn(zf[2], zf[3]);
+      for (int e = 0; e < 4; ++e) {
+        v[i][e] = to_f(to_bf((v[i][e] - mean) * rstd * p.ln1_s[c0 + e] + p.ln1_b[c0 + e]));
+        m = fmaxf(m, fabsf(v[i][e]));
       }
+      if (!kRow) put4(i, p.act[1], p.inv[1]);  // a static scale: stored as it is made
     }
+    // kRow: the row's scale, then the row
+    const float sz = kRow ? fmaxf(warp_max(m), 1e-8f) / 127.f : 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (kRow && (lane + 32 * i) * 4 < C) put4(i, sz, 0.f);
+    if (kRow && lane == 0) *scale_slot(red, 1, r0 + lr) = sz;
   }
+  if (kRow)
+    for (int lr = live + threadIdx.x; lr < R; lr += kGemmThreads)
+      *scale_slot(red, 1, r0 + lr) = kZeroRowScale;
   cluster_or_block_sync(S);  // the tile's LN1 rows are in the scratch before FC1 streams them
+  if (kRow) gather_row_scales(red, 1, S, rank);
 
   MlpTile t{};
   t.a = p.z + (size_t)row0 * C * esize;
@@ -233,11 +287,12 @@ __global__ void __launch_bounds__(kGemmThreads, 1) block_mlp_kernel(BlockParams 
   t.sa1 = p.act[1];
   t.sa2 = p.act[2];
   t.inv2 = p.inv[2];
+  t.qmode = p.qmode;
   t.C = C;
   t.Hd = p.Hd;
   t.span = span;
   t.h0 = rank * span;
-  mlp_tile<Q8, kPart>(t, base + L.h, base + L.ring, reinterpret_cast<float*>(base + L.red), S, rank,
+  mlp_tile<Q8, kRow, kPart>(t, base + L.h, base + L.ring, red, S, rank,
                [&](int r, int c, const float (&f)[4]) {
                  const float4 y = *reinterpret_cast<const float4*>(yb + (size_t)(r - r0) * C + c);
                  __align__(8) bf16 o[4];
@@ -248,190 +303,6 @@ __global__ void __launch_bounds__(kGemmThreads, 1) block_mlp_kernel(BlockParams 
                  *reinterpret_cast<uint2*>(p.out + block_row(p, row0 + r, true) * C + c) =
                      *reinterpret_cast<uint2*>(o);
                });
-}
-
-// ---------------------------------------------------------------------------
-// The int8 epilogue: _block_body with quant (the dynamic _qdot, or
-// _static_gemm with static or per-row activation scales) on a 16-row tile.
-// The one real difference from the bf16 epilogue is FC2's input: a per-row
-// scale of gelu(FC1) needs the abs-max over the whole hidden row (Hd = 4C)
-// before any FC2 product, and no block holds that row. So each rank keeps
-// its bf16 hidden slice (16 x Hd / S) whole in shared memory, the ranks
-// exchange their partial row maxima through distributed shared memory, each
-// quantizes its slice in place, and each rank then computes FC2 for its own
-// output columns over all S slices, reading the other ranks' int8 slices
-// through distributed shared memory. The int32 sums are exact, so the order
-// of the slices does not matter; y stays f32 and the block rounds once.
-struct MlpQ8Smem {
-  size_t a8, acc, z, hs, rs, total;
-};
-
-// At C = 1024 the slice needs S >= 2 (S = 1: 246 KB).
-__host__ __device__ inline MlpQ8Smem mlp_q8_smem(int C, int span) {
-  MlpQ8Smem s;
-  size_t off = 0;
-  s.a8 = off;  // int8 context rows
-  off += align128((size_t)kRows * (C + 16));
-  s.acc = off;  // f32 y
-  off += align128((size_t)kRows * (C + 4) * sizeof(float));
-  s.z = off;  // bf16 LN1(y), then int8 in place
-  off += align128((size_t)kRows * (C + 8) * sizeof(bf16));
-  s.hs = off;  // bf16 gelu(FC1) slice, then int8 in place
-  off += align128((size_t)kRows * (span + 8) * sizeof(bf16));
-  s.rs = off;  // row scales: context, z, partial |h| max, h
-  off += 4 * kRows * sizeof(float);
-  s.total = off;
-  return s;
-}
-
-__global__ void __launch_bounds__(kThreads) block_mlp_q8_kernel(BlockParams p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int span = p.Hd / S, h0 = rank * span;  // this rank's hidden columns
-  const MlpQ8Smem L = mlp_q8_smem(p.C, span);
-  signed char* a8 = reinterpret_cast<signed char*>(smem + L.a8);
-  float* acc = reinterpret_cast<float*>(smem + L.acc);
-  bf16* z = reinterpret_cast<bf16*>(smem + L.z);
-  bf16* hs = reinterpret_cast<bf16*>(smem + L.hs);
-  float* rs = reinterpret_cast<float*>(smem + L.rs);
-  const int lda = p.C + 4, ldz = p.C + 8, ldh = span + 8, lda8 = p.C + 16;
-  const int row0 = (blockIdx.x / S) * kRows;
-  const int cols = p.C / S, c0 = rank * cols;  // this rank's proj and output columns
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-
-  // the context rows in int8 (rows past M quantize to 0)
-  for (int lr = warp; lr < kRows; lr += kWarps) {
-    const bool live = row0 + lr < p.M;
-    const bf16* src = p.ctx + (size_t)(row0 + lr) * p.C;
-    const float s = row_scale([&](int c) { return live ? to_f(src[c]) : 0.f; }, p.C,
-                              p.act[0], p.inv[0]);
-    for (int c = lane; c < p.C; c += 32)
-      a8[(size_t)lr * lda8 + c] = live ? quant1(to_f(src[c]), s, p.inv[0]) : (signed char)0;
-    if (lane == 0) rs[lr] = s;
-  }
-  __syncthreads();
-  // proj, this rank's columns, dequantized into acc
-  for (int n0 = c0 + warp * 8; n0 < c0 + cols; n0 += kWarps * 8) {
-    int d[4] = {0, 0, 0, 0};
-    mma_s8(d, a8, lda8, p.wproj8 + (size_t)n0 * p.C, p.C, p.C);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = g + (i >> 1) * 8, n = n0 + 2 * t + (i & 1);
-      acc[(size_t)r * lda + n] = dequant(d[i], rs[r], p.sproj[n], p.qmode);
-    }
-  }
-  if (S > 1) {  // the other ranks' columns, from their shared memory
-    cluster.sync();
-    for (int q = 1; q < S; ++q) {
-      const int src = (rank + q) % S;
-      const float* racc = cluster.map_shared_rank(acc, src);
-      for (int i = threadIdx.x; i < kRows * cols; i += kThreads) {
-        const size_t at = (size_t)(i / cols) * lda + src * cols + i % cols;
-        acc[at] = racc[at];
-      }
-    }
-    cluster.sync();
-  } else {
-    __syncthreads();
-  }
-
-  // y = x + (proj + b_proj) in f32; z = bf16(LN1(y)), then quantized in place
-  for (int lr = warp; lr < kRows; lr += kWarps) {
-    const int r = row0 + lr;
-    float* a = acc + (size_t)lr * lda;
-    bf16* zr = z + (size_t)lr * ldz;
-    if (r >= p.M) {
-      for (int c = lane; c < p.C; c += 32) {
-        a[c] = 0.f;
-        zr[c] = to_bf(0.f);
-      }
-    } else {
-      const bf16* xr = p.x + block_row(p, r, false) * p.C;
-      for (int c = lane; c < p.C; c += 32) a[c] = to_f(xr[c]) + (a[c] + to_f(p.bproj[c]));
-      float mean, rstd;
-      row_stats([&](int c) { return a[c]; }, p.C, p.eps, mean, rstd);
-      for (int c = lane; c < p.C; c += 32)
-        zr[c] = to_bf((a[c] - mean) * rstd * p.ln1_s[c] + p.ln1_b[c]);
-    }
-    __syncwarp();
-    const float s = row_scale([&](int c) { return to_f(zr[c]); }, p.C, p.act[1], p.inv[1]);
-    quantize_row_inplace(zr, p.C, s, p.inv[1]);
-    if (lane == 0) rs[kRows + lr] = s;
-  }
-  __syncthreads();
-
-  // FC1 on this rank's hidden columns: + b1, GELU in f32, bf16 into the slice
-  const signed char* z8 = reinterpret_cast<const signed char*>(z);
-  for (int j0 = warp * 8; j0 < span; j0 += kWarps * 8) {
-    int d[4] = {0, 0, 0, 0};
-    mma_s8(d, z8, 2 * ldz, p.w18 + (size_t)(h0 + j0) * p.C, p.C, p.C);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = g + (i >> 1) * 8, j = j0 + 2 * t + (i & 1), n = h0 + j;
-      hs[(size_t)r * ldh + j] =
-          to_bf(gelu_tanh(dequant(d[i], rs[kRows + r], p.s1[n], p.qmode) + to_f(p.b1[n])));
-    }
-  }
-  __syncthreads();
-
-  // the hidden rows' scales: static, or the abs-max over every rank's slice
-  float* hmax = rs + 2 * kRows;
-  float* hsc = rs + 3 * kRows;
-  if (p.inv[2] > 0.f) {
-    if (threadIdx.x < kRows) hsc[threadIdx.x] = p.act[2];
-  } else {
-    for (int lr = warp; lr < kRows; lr += kWarps) {
-      float m = 0.f;
-      for (int j = lane; j < span; j += 32) m = fmaxf(m, fabsf(to_f(hs[(size_t)lr * ldh + j])));
-      m = warp_max(m);
-      if (lane == 0) hmax[lr] = m;
-    }
-    if (S > 1) cluster.sync(); else __syncthreads();
-    if (threadIdx.x < kRows) {
-      float m = 0.f;
-      for (int q = 0; q < S; ++q)
-        m = fmaxf(m, (S > 1 ? cluster.map_shared_rank(hmax, q) : hmax)[threadIdx.x]);
-      hsc[threadIdx.x] = fmaxf(m, 1e-8f) / 127.f;
-    }
-  }
-  __syncthreads();
-  for (int lr = warp; lr < kRows; lr += kWarps)
-    quantize_row_inplace(hs + (size_t)lr * ldh, span, hsc[lr], p.inv[2]);
-  if (S > 1) cluster.sync(); else __syncthreads();  // every slice is int8 before FC2 reads it
-
-  // FC2 on this rank's output columns over the whole hidden row (rank q's
-  // slice holds hidden columns [q span, (q + 1) span)); out = bf16(y + (FC2 + b2))
-  for (int n0 = c0 + warp * 8; n0 < c0 + cols; n0 += kWarps * 8) {
-    int d[4] = {0, 0, 0, 0};
-    for (int q = 0; q < S; ++q) {
-      const bf16* hq = S > 1 ? cluster.map_shared_rank(hs, q) : hs;
-      mma_s8(d, reinterpret_cast<const signed char*>(hq), 2 * ldh,
-             p.w28 + (size_t)n0 * p.Hd + (size_t)q * span, p.Hd, span);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = g + (i >> 1) * 8, n = n0 + 2 * t + (i & 1);
-      if (row0 + r < p.M)
-        p.out[block_row(p, row0 + r, true) * p.C + n] =
-            to_bf(acc[(size_t)r * lda + n] +
-                  (dequant(d[i], hsc[r], p.s2[n], p.qmode) + to_f(p.b2[n])));
-    }
-  }
-  if (S > 1) cluster.sync();  // no rank leaves while another still reads its shared memory
-}
-
-// Blocks per row tile of the int8 per-row epilogue: the fewest whose hidden
-// slice fits in shared memory, then twice as many up to 8 while the grid stays
-// within about four blocks per SM; each rank's output columns a multiple of 8
-// and its slice of 32. 0: no fit.
-inline int cluster_size_q8(int row_tiles, int C, int Hd, int sms) {
-  auto ok = [&](int S) { return (C / 8) % S == 0 && (Hd / 32) % S == 0; };
-  int S = 1;
-  while (S <= 8 && (!ok(S) || mlp_q8_smem(C, Hd / S).total > kMaxSmem)) S *= 2;
-  if (S > 8) return 0;
-  while (S < 8 && row_tiles * 2 * S <= 4 * sms && ok(2 * S)) S *= 2;
-  return S;
 }
 
 }  // namespace
@@ -450,10 +321,9 @@ extern "C" {
 // context), used by block_mlp_kernel. out must not overlap x. quant: null, or
 // a QuantArgs (common.cuh) whose w/s are the int8 qkv / proj / FC1 / FC2
 // weights and their scales and whose act/inv are the four GEMMs' static
-// activation scales (0: per row); the bf16 weight pointers are then unused.
-// bf16 and static W8A8 with every scale static take C % 16 == 0 (int8: 32),
-// C <= 1024 and Hd that mlp_cluster_size splits; the per-row forms C % 32 ==
-// 0 and Hd % 128 == 0 with a slice cluster_size_q8 fits (block_mlp_q8_kernel).
+// activation scales (0: per row; proj, FC1 and FC2 all static or all per
+// row); the bf16 weight pointers are then unused. C % 16 == 0 (int8: 32),
+// C <= 1024 and Hd that mlp_cluster_size splits.
 int mmrp_swin_block(const void* x, const void* ln0_s, const void* ln0_b, const void* w_qkv,
                     const void* b_qkv, const void* w_proj, const void* b_proj, const void* ln1_s,
                     const void* ln1_b, const void* w1, const void* b1, const void* w2,
@@ -463,11 +333,13 @@ int mmrp_swin_block(const void* x, const void* ln0_s, const void* ln0_b, const v
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const QuantArgs* qa = static_cast<const QuantArgs*>(quant);
   const int qmode = qa ? qa->mode : kQuantOff;
-  // the wgmma epilogue: bf16, or static W8A8 whose proj, FC1 and FC2 inputs all have static scales
-  const bool wg = qmode == kQuantOff ||
-                  (qmode == kQuantStatic && qa->inv[1] > 0.f && qa->inv[2] > 0.f && qa->inv[3] > 0.f);
+  // the MLP launch's form: bf16, W8A8 with the static scales of proj, FC1 and
+  // FC2, or W8A8 with per-row scales (the dynamic form, or static ones without)
+  const int statics = qmode == kQuantStatic
+                          ? (qa->inv[1] > 0.f) + (qa->inv[2] > 0.f) + (qa->inv[3] > 0.f) : 0;
+  const int form = qmode == kQuantOff ? 0 : statics == 3 ? 1 : 2;
   if (B < 1 || nW < 1 || heads < 1 || C % heads || C % 16 || Hd % kTileN || qmode < 0 ||
-      qmode > kQuantStatic || (qmode && C % 32) || (wg && C > 8 * kTileN))
+      qmode > kQuantStatic || (qmode && C % 32) || C > 8 * kTileN || statics % 3 || !scratch)
     return (int)cudaErrorInvalidValue;
   if (map_h && (ws < 1 || map_h % ws || map_w % ws || N != ws * ws ||
                 nW != (map_h / ws) * (map_w / ws)))
@@ -541,28 +413,26 @@ int mmrp_swin_block(const void* x, const void* ln0_s, const void* ln0_b, const v
   p.y = reinterpret_cast<float*>(sc);
   p.z = sc + (size_t)p.M * C * 4;
   p.ctx8 = reinterpret_cast<signed char*>(p.z + (size_t)p.M * C * 2);
-  const int rows = wg ? kTileM : kRows, row_tiles = (p.M + rows - 1) / rows;
+  const int row_tiles = (p.M + kTileM - 1) / kTileM;
   int sms = 0;
   e = sm_count(&sms);
   if (e != cudaSuccess) return (int)e;
-  const int S = wg ? mlp_cluster_size(row_tiles, Hd, (size_t)C * 4, sms)
-                   : cluster_size_q8(row_tiles, C, Hd, sms);
-  if (!S || (wg && !scratch)) return (int)cudaErrorInvalidValue;
-  const size_t smem = wg ? mlp_layout(Hd / S, (size_t)(kTileM / S) * C * 4).total
-                         : mlp_q8_smem(C, Hd / S).total;
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const bool part = C % kTileN != 0;
-  const void* kernel =
-      !wg                  ? (const void*)block_mlp_q8_kernel
-      : qmode == kQuantOff ? (part ? (const void*)block_mlp_kernel<false, true>
-                                   : (const void*)block_mlp_kernel<false, false>)
-                           : (part ? (const void*)block_mlp_kernel<true, true>
-                                   : (const void*)block_mlp_kernel<true, false>);
+  const int S = mlp_cluster_size(row_tiles, Hd, (size_t)C * 4, sms);
+  if (!S) return (int)cudaErrorInvalidValue;
+  const size_t smem = mlp_layout(Hd / S, (size_t)(kTileM / S) * C * 4).total;
+  const void* const kernels[3][2] = {
+      {(const void*)block_mlp_kernel<false, false, false>,
+       (const void*)block_mlp_kernel<false, false, true>},
+      {(const void*)block_mlp_kernel<true, false, false>,
+       (const void*)block_mlp_kernel<true, false, true>},
+      {(const void*)block_mlp_kernel<true, true, false>,
+       (const void*)block_mlp_kernel<true, true, true>}};
+  const void* kernel = kernels[form][C % kTileN != 0];
   e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(row_tiles * S);
-  cfg.blockDim = dim3(wg ? kGemmThreads : kThreads);
+  cfg.blockDim = dim3(kGemmThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute cluster;
@@ -576,12 +446,6 @@ int mmrp_swin_block(const void* x, const void* ln0_s, const void* ln0_b, const v
   e = cudaLaunchKernelExC(&cfg, kernel, args);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
-}
-
-// The cluster size of block_mlp_q8_kernel (cluster_size_q8) for row_tiles
-// tiles of 16 rows on sms SMs; 0: no fit. The tests hold the Python copy to it.
-int mmrp_mlp_q8_cluster(int row_tiles, int C, int Hd, int sms) {
-  return cluster_size_q8(row_tiles, C, Hd, sms);
 }
 
 }  // extern "C"

@@ -219,8 +219,6 @@ def swin_plan(cfg: SwinConfig) -> List[List[Step]]:
         raise ValueError(f"SwinConfig.quant must be one of {QUANTS}, got {cfg.quant!r}")
     wbytes = 1 if cfg.quant == "int8_static" else 2
     flavor = {"none": False, "int8": True, "int8_static": "static"}[cfg.quant]
-    # the static form's activation scales: calibrated, or per row
-    acts = (1.0,) * 4 if cfg.act_amax is not None else None
     plan = []
     for stage, (dim, res, ws) in enumerate(stage_geometry(cfg)):
         depth, heads = cfg.depths[stage], cfg.num_heads[stage]
@@ -234,7 +232,7 @@ def swin_plan(cfg: SwinConfig) -> List[List[Step]]:
                                                           cfg.mlp_ratio, weight_bytes=wbytes)
         k1k2 = cfg.use_pallas and K1.kernel_takes(dim, heads, ws * ws) and (
             dim > FUSED_MLP_MAX_DIM or K2.kernel_takes(dim, hidden))
-        block_ok = SB.kernel_takes(dim, heads, ws * ws, hidden, flavor, acts)
+        block_ok = SB.kernel_takes(dim, heads, ws * ws, hidden, flavor)
         steps, blk = [], 0
         while blk < depth:
             if use_pair and blk % 2 == 0 and blk + 1 < depth:

@@ -45,7 +45,6 @@ _SIGNATURES = {
     "mmrp_mlp_cluster": [_I] * 4,
     "mmrp_seq_attention": [_P] * 18 + [_I] * 8 + [_F, _P, _P],
     "mmrp_swin_block": [_P] * 17 + [_I] * 10 + [_F, _P, _P],
-    "mmrp_mlp_q8_cluster": [_I] * 4,
     "mmrp_wattn_core_fwd": [_P] * 3 + [_I] * 7 + [_F, _P],
     "mmrp_wattn_core_bwd": [_P] * 6 + [_I] * 8 + [_F, _P],
     "mmrp_window_attention_heads": [_P] * 5 + [_I] * 4 + [_F, _P],

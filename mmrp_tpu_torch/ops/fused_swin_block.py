@@ -37,14 +37,16 @@ W8A8 (``quant``), the int8 forms of ``_block_body``, for all four GEMMs:
   dequantized ``acc * sw * sa``) or is None for per-row scales (``acc * sw *
   sx``).
 
-Launches are counted per flavor: ``launches`` (bf16), ``launches_dynamic``
-and, on the windows flavor, ``launches_static``. The MLP half runs on the
-wgmma epilogue of ``csrc/mlp_sm90.cuh`` in bf16 and in static W8A8 with
-calibrated activation scales; the forms that need per-row activation
-scales (static without ``act_scales``, dynamic) on ``block_mlp_q8_kernel``.
-:func:`kernel_takes` holds the shape limits of both launches: the wrapper
-raises on CUDA tensors it refuses, and the Swin encoder's plan routes such
-steps to their plain version, counted in each flavor's ``plain_calls``.
+Launches are counted per flavor and form: ``launches`` (bf16),
+``launches_dynamic`` and, on the windows flavor, ``launches_static``
+(calibrated ``act_scales``) and ``launches_per_row`` (static without them).
+The MLP half of every form runs on the wgmma epilogue of
+``csrc/mlp_sm90.cuh``; the forms with per-row activation scales (static
+without ``act_scales``, dynamic) exchange the row scales of the hidden
+activation across the cluster. :func:`kernel_takes` holds the shape limits
+of both launches, the same for every form: the wrapper raises on CUDA
+tensors it refuses, and the Swin encoder's plan routes such steps to their
+plain version, counted in each flavor's ``plain_calls``.
 """
 
 from __future__ import annotations
@@ -67,60 +69,20 @@ GEMM_WEIGHTS = (2, 4, 8, 10)
 QUANT_MODES = {False: 0, True: 1, "static": 2}
 
 
-def wgmma_epilogue(quant=False, act_scales=None) -> bool:
-    """Whether the MLP half runs on the wgmma epilogue: bf16, or static W8A8
-    with a static scale for every GEMM input."""
-    return quant is False or (quant == "static" and act_scales is not None
-                              and all(float(a) > 0 for a in act_scales[1:]))
-
-
-def _q8_smem(C: int, span: int) -> int:
-    """Shared memory of ``block_mlp_q8_kernel`` (``swin_block.cu::mlp_q8_smem``)."""
-    def a128(n):
-        return (n + 127) // 128 * 128
-    return (a128(16 * (C + 16)) + a128(16 * (C + 4) * 4) + a128(16 * (C + 8) * 2)
-            + a128(16 * (span + 8) * 2) + 4 * 16 * 4)
-
-
-def q8_cluster_size(row_tiles: int, C: int, Hd: int, sms: int = 0) -> int:
-    """The cluster size ``swin_block.cu::cluster_size_q8`` picks for the
-    per-row int8 epilogue over ``row_tiles`` tiles of 16 rows on ``sms`` SMs:
-    the fewest ranks whose slice fits, then twice as many while the grid
-    stays within about four blocks per SM (``sms`` 0: the fewest). 0: no fit."""
-    def ok(S):
-        return (C // 8) % S == 0 and (Hd // 32) % S == 0
-    S = 1
-    while S <= fused_mlp.MAX_CLUSTER and (not ok(S)
-                                          or _q8_smem(C, Hd // S) > fused_mlp.MAX_SMEM):
-        S *= 2
-    if S > fused_mlp.MAX_CLUSTER:
-        return 0
-    while S < fused_mlp.MAX_CLUSTER and row_tiles * 2 * S <= 4 * sms and ok(2 * S):
-        S *= 2
-    return S
-
-
-def kernel_takes(C: int, num_heads: int, N: int, Hd: int, quant=False,
-                 act_scales=None) -> bool:
+def kernel_takes(C: int, num_heads: int, N: int, Hd: int, quant=False) -> bool:
     """Whether the whole-block kernel takes a block of width C, ``num_heads``
     heads, N tokens per window and hidden width Hd in the W8A8 form
-    ``quant`` (with ``act_scales`` or per-row scales): the attention phase's
-    limits (``fused_window_attention.kernel_takes``), C % 32 == 0 in int8;
-    then the wgmma epilogue's (``fused_mlp.kernel_takes``, staging f32 rows),
-    or for the per-row int8 forms Hd % 128 == 0 and a cluster whose hidden
-    slice fits one block (:func:`q8_cluster_size`)."""
-    return _takes(C, num_heads, N, Hd, quant, wgmma_epilogue(quant, act_scales))
+    ``quant``: the attention phase's limits
+    (``fused_window_attention.kernel_takes``), C % 32 == 0 in int8, and the
+    wgmma epilogue's (``fused_mlp.kernel_takes``, staging f32 rows)."""
+    return _takes(C, num_heads, N, Hd, quant)
 
 
 @functools.lru_cache(maxsize=None)
-def _takes(C: int, num_heads: int, N: int, Hd: int, quant, wgmma: bool) -> bool:
+def _takes(C: int, num_heads: int, N: int, Hd: int, quant) -> bool:
     if quant not in QUANT_MODES or not fused_window_attention.kernel_takes(C, num_heads, N):
         return False
-    if quant and C % 32:
-        return False
-    if wgmma:
-        return fused_mlp.kernel_takes(C, Hd, staged=4)
-    return Hd > 0 and Hd % 128 == 0 and q8_cluster_size(1, C, Hd) > 0
+    return not (quant and C % 32) and fused_mlp.kernel_takes(C, Hd, staged=4)
 
 
 def static_gemm(x, w8, sw, sa, b) -> torch.Tensor:
@@ -223,14 +185,12 @@ def launch_block(op: str, x: torch.Tensor, blk: Sequence[torch.Tensor],
         B, nW, N, C = x.shape
         H = W = 0
     Hd = blk[8].shape[0]
-    wgmma = wgmma_epilogue(quant, act_scales)
-    if not _takes(C, num_heads, N, Hd, quant, wgmma):
+    if not _takes(C, num_heads, N, Hd, quant):
         raise ValueError(
             f"{op}: the kernel takes head dims 32/64/128, at most 64 tokens per window, and "
             "C % 16 == 0 (int8: 32) up to 1024 with a hidden width that a cluster of up to 8 "
-            "splits into multiples of 128 of at most 512 (the per-row int8 forms: C % 32 "
-            f"== 0, Hd % 128 == 0), got C={C}, heads={num_heads}, N={N}, Hd={Hd}, "
-            f"quant={quant!r}")
+            f"splits into multiples of 128 of at most 512, got C={C}, heads={num_heads}, "
+            f"N={N}, Hd={Hd}, quant={quant!r}")
     bf16, f32 = torch.bfloat16, torch.float32
     names = ("ln0_scale", "ln0_bias", "w_qkv", "b_qkv", "w_proj", "b_proj",
              "ln1_scale", "ln1_bias", "w1", "b1", "w2", "b2")
@@ -247,11 +207,10 @@ def launch_block(op: str, x: torch.Tensor, blk: Sequence[torch.Tensor],
     ])
     M = B * nW * N
     # one allocation: the attention context (bf16, round16(M) rows), then the
-    # wgmma epilogue's y (f32), LN1(y) and int8 context, by rows
+    # MLP launch's y (f32), LN1(y) and int8 context, by rows
     nctx = _build.round16(M) * C * 2
-    buf = torch.empty(nctx + (M * C * 7 if wgmma else 0), dtype=torch.uint8,
-                      device=x.device)
-    ctx, scratch = buf[:nctx], buf[nctx:] if wgmma else None
+    buf = torch.empty(nctx + M * C * 7, dtype=torch.uint8, device=x.device)
+    ctx, scratch = buf[:nctx], buf[nctx:]
     out = torch.empty_like(x)
     _build.launch(
         "mmrp_swin_block", x.device,
@@ -261,9 +220,11 @@ def launch_block(op: str, x: torch.Tensor, blk: Sequence[torch.Tensor],
     return out
 
 
-def count_launch(fn, quant) -> None:
-    """One more launch of ``fn``'s kernel in the flavor ``quant``."""
-    name = {False: "launches", True: "launches_dynamic", "static": "launches_static"}[quant]
+def count_launch(fn, quant, per_row: bool = False) -> None:
+    """One more launch of ``fn``'s kernel in the flavor ``quant`` (static:
+    ``per_row`` without calibrated activation scales)."""
+    name = {False: "launches", True: "launches_dynamic",
+            "static": "launches_per_row" if per_row else "launches_static"}[quant]
     setattr(fn, name, getattr(fn, name) + 1)
 
 
@@ -279,13 +240,14 @@ def fused_swin_block_windows(xw, ln0_scale, ln0_bias, w_qkv, b_qkv, w_proj, b_pr
     if xw.device.type == "cpu":
         return swin_block_plain(xw, *blk, bias_full, num_heads, ln_eps, **q)
     out = launch_block("fused_swin_block_windows", xw, blk, bias_full, num_heads, ln_eps, **q)
-    count_launch(fused_swin_block_windows, quant)
+    count_launch(fused_swin_block_windows, quant, act_scales is None)
     return out
 
 
 fused_swin_block_windows.launches = 0
 fused_swin_block_windows.launches_dynamic = 0
 fused_swin_block_windows.launches_static = 0
+fused_swin_block_windows.launches_per_row = 0
 fused_swin_block_windows.plain_calls = 0
 
 

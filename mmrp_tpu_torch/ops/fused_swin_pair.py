@@ -41,11 +41,10 @@ from mmrp_tpu_torch.ops import fused_swin_block
 from mmrp_tpu_torch.ops.fused_swin_block import count_launch, launch_block, raw_plain
 
 
-def kernel_takes(C: int, num_heads: int, ws: int, Hd: int, quant=False,
-                 act_scales=None) -> bool:
+def kernel_takes(C: int, num_heads: int, ws: int, Hd: int, quant=False) -> bool:
     """Whether the kernel takes a block on the map in ws x ws windows (the
     pair: each of its two blocks)."""
-    return fused_swin_block.kernel_takes(C, num_heads, ws * ws, Hd, quant, act_scales)
+    return fused_swin_block.kernel_takes(C, num_heads, ws * ws, Hd, quant)
 
 
 def pair_vmem_ok(C: int, H: int, W: int, num_heads: int, ws: int,
@@ -115,19 +114,21 @@ def fused_swin_block_chain(x, blk: Sequence[torch.Tensor], bias, num_heads: int,
     """One whole block on the map ``x`` (B, H, W, C), pre-rolled for this
     block's frame (``bias`` is this block's (nW, h, N, N) bias_full), then
     the roll by ``roll_after = this_shift - next_shift``. Launches are
-    counted as ``launches`` (bf16) and ``launches_static``."""
+    counted as ``launches`` (bf16), ``launches_static`` (calibrated
+    ``act_scales``) and ``launches_per_row`` (static without them)."""
     if x.device.type == "cpu":
         return chain_plain(x, blk, bias, num_heads, ws, roll_after, ln_eps, quant, wscales,
                            act_scales)
     out = launch_block("fused_swin_block_chain", x, blk, bias, num_heads, ln_eps,
                        map_ws=ws, roll=roll_after, quant=_static(quant), wscales=wscales,
                        act_scales=act_scales)
-    count_launch(fused_swin_block_chain, quant)
+    count_launch(fused_swin_block_chain, quant, act_scales is None)
     return out
 
 
 fused_swin_block_chain.launches = 0
 fused_swin_block_chain.launches_static = 0
+fused_swin_block_chain.launches_per_row = 0
 fused_swin_block_chain.plain_calls = 0
 
 
@@ -137,8 +138,9 @@ def fused_swin_block_pair(x, blk0: Sequence[torch.Tensor], bias0,
                           wscales1=None, act_scales0=None, act_scales1=None) -> torch.Tensor:
     """A block (bias0, no shift) and its shifted partner (bias1, ``shift``)
     on the map ``x`` (B, H, W, C); returns the map in the unshifted frame.
-    Launches are counted per pair as ``launches`` (bf16) and
-    ``launches_static``."""
+    Launches are counted per pair as ``launches`` (bf16), ``launches_static``
+    (both blocks with calibrated ``act_scales``) and ``launches_per_row``
+    (static, a block without them)."""
     if x.device.type == "cpu":
         return pair_plain(x, blk0, bias0, blk1, bias1, num_heads, ws, shift, ln_eps, quant,
                           wscales0, wscales1, act_scales0, act_scales1)
@@ -148,10 +150,11 @@ def fused_swin_block_pair(x, blk0: Sequence[torch.Tensor], bias0,
                      quant=quant, wscales=wscales0, act_scales=act_scales0)
     out = launch_block(op, y, blk1, bias1, num_heads, ln_eps, map_ws=ws, roll=shift,
                        quant=quant, wscales=wscales1, act_scales=act_scales1)
-    count_launch(fused_swin_block_pair, quant)
+    count_launch(fused_swin_block_pair, quant, act_scales0 is None or act_scales1 is None)
     return out
 
 
 fused_swin_block_pair.launches = 0
 fused_swin_block_pair.launches_static = 0
+fused_swin_block_pair.launches_per_row = 0
 fused_swin_block_pair.plain_calls = 0

@@ -8,7 +8,9 @@ dims, 5 fusion layers at 1024) in bf16 from a seeded init, on each route with
 the same weights: the default Swin route (``whole``), the
 K1 + K2 route (``k1k2``, ``whole_block=False``) and the int8 serving mixes
 (``int8_static``, with act_amax calibrated on 8 seeded images by the plain
-f32 Swin forward, and ``int8``; ``MultiModalConfig.from_config``). For each
+f32 Swin forward; ``int8_static_per_row``, the same without a calibration
+file, so per-row activation scales; and ``int8``;
+``MultiModalConfig.from_config``). For each
 text length (default 64), batch and route it prints the
 forward time without the profiler (median of 10 CUDA-event timings), then
 profiles 5 forwards after 3 warm-ups with ``torch.profiler`` and sums the
@@ -17,7 +19,8 @@ device time of every kernel by kind: the attention launch of the Swin blocks
 launches (the q/k/v GEMM, the attention tile, the output GEMM and its
 epilogue), K1's projection (``k1_proj_wgmma``), K2, the whole-block MLP epilogue,
 library GEMMs of the plain layers, and everything else (copies, casts,
-elementwise), the int8 forms of the whole-block epilogue counted apart.
+elementwise), the int8 forms of the whole-block epilogue (calibrated and
+per-row scales) counted apart from the bf16 one.
 Device busy is the sum over kernels; the idle share is set
 against the unprofiled forward time, since the profiler's own host cost
 stretches the profiled wall time. A kind whose launch count is not a whole
@@ -58,8 +61,8 @@ KINDS = (  # (kind, test on the kernel name), first match wins
     ("K3 output GEMM + epilogue", lambda n: "out_kernel<" in n),
     ("K1 projection epilogue", lambda n: "k1_proj_wgmma" in n),
     ("K2 ln_mlp", lambda n: "ln_mlp_kernel" in n),
-    ("whole-block MLP epilogue, int8", lambda n: "block_mlp_q8_kernel" in n
-     or "block_mlp_kernel<true" in n),
+    ("whole-block MLP epilogue, int8", lambda n: "block_mlp" in n
+     and "block_mlp_kernel<false" not in n),
     ("whole-block MLP epilogue", lambda n: "block_mlp_kernel" in n),
     ("library GEMMs", lambda n: any(k in n.lower() for k in ("gemm", "cutlass", "xmma",
                                                              "nvjet", "sm90_", "cublas"))),
@@ -126,7 +129,7 @@ def report(rec: dict, ms: float) -> str:
     return line
 
 
-ROUTES = ("whole", "k1k2", "int8_static", "int8")
+ROUTES = ("whole", "k1k2", "int8_static", "int8", "int8_static_per_row")
 
 
 def route_models(dev: torch.device) -> dict:
@@ -145,6 +148,7 @@ def route_models(dev: torch.device) -> dict:
     static = MultiModalConfig.from_config(Config(serve_quant="int8_static"), flagship=True)
     cfgs["int8_static"] = dataclasses.replace(
         static, swin=dataclasses.replace(static.swin, act_amax=amax))
+    cfgs["int8_static_per_row"] = static
     models = {}
     for route in ROUTES:
         if route == "whole":

@@ -118,7 +118,11 @@ def test_ln_mlp_kernel_at_every_split(dev, M, C, Hd, post_ln):
 def test_mlp_cluster_sizes_are_the_kernels_host_code(dev):
     """The Python copies of the MLP kernels' cluster sizing (which
     ``kernel_takes`` and the plan read) against the host code that launches
-    them, over a grid of widths, hidden widths, row tiles and SM counts."""
+    them, over a grid of widths, hidden widths, row tiles and SM counts; and
+    the whole block's predicate, the same for every form (bf16, static and
+    per-row W8A8 all launch the wgmma epilogue, whose host code sizes the
+    cluster by mlp_cluster_size with f32 rows staged), against that host
+    code's answer."""
     from mmrp_tpu_torch.ops import _build
 
     lib = _build.library()
@@ -131,9 +135,10 @@ def test_mlp_cluster_sizes_are_the_kernels_host_code(dev):
                         assert lib.mmrp_mlp_cluster(row_tiles, Hd, staged * C, sms) == \
                             tfm.mlp_cluster_size(row_tiles, Hd, staged * C, sms), \
                             (C, Hd, row_tiles, sms, staged)
-                    assert lib.mmrp_mlp_q8_cluster(4 * row_tiles, C, Hd, sms) == \
-                        tsb.q8_cluster_size(4 * row_tiles, C, Hd, sms), (C, Hd, row_tiles, sms)
                     n += 1
+            fits = lib.mmrp_mlp_cluster(1, Hd, 4 * C, 0) > 0
+            for quant in (False, "static", True):
+                assert tsb.kernel_takes(C, C // 32, 49, Hd, quant) == fits, (C, Hd, quant)
     assert n > 500
 
 
@@ -399,40 +404,56 @@ BLOCK_SHAPES = [("pair", 8, 256, 8, 28), ("pair", 1, 256, 8, 28), ("chain", 8, 5
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("quant", [False, "static"])
+@pytest.mark.parametrize("quant", [False, "static", "per_row", True])
 @pytest.mark.parametrize("flavor,B,C,heads,H", BLOCK_SHAPES)
 def test_swin_block_epilogue_at_every_split(dev, flavor, B, C, heads, H, quant):
-    """The wgmma epilogue in bf16 and static W8A8 (calibrated scales) at the
-    serving shapes, within the bf16 / int8 bounds of chip_smoke.py."""
+    """The wgmma epilogue in bf16, static W8A8 (calibrated scales), static
+    W8A8 with per-row scales, and the dynamic form (True; JAX has it on the
+    windows and raw flavors only, so a pair or chain shape runs raw on the
+    same map) at the serving shapes, within the bf16 / int8 bounds of
+    chip_smoke.py, with the launch counted in its form."""
     gen = torch.Generator(device=dev).manual_seed(16)
     (blk0, bias0), (blk1, bias1) = (_swin_block(gen, dev, C, heads, H, s)
                                     for s in (0, 3 if H > 7 else 0))
     x = _rand(gen, (B, H, H, C), dev)
-    kw, tol = {}, SWIN_TOL
-    if quant:
+    kw, tol, counter = {}, SWIN_TOL, "launches"
+    if quant is True:
+        kw, tol, counter = dict(quant=True), INT8_TOL, "launches_dynamic"
+        flavor = "raw" if flavor != "windows" else flavor
+    elif quant:
         (blk0, s0), (blk1, s1) = _int8_block(blk0), _int8_block(blk1)
-        acts = (4.5 / 127, 3.0 / 127, 5.0 / 127, 2.5 / 127)
+        acts = (4.5 / 127, 3.0 / 127, 5.0 / 127, 2.5 / 127) if quant == "static" else None
         kw = dict(quant="static", wscales=s0, act_scales=acts)
         tol = INT8_PAIR_TOL if flavor == "pair" else INT8_TOL
+        counter = "launches_static" if acts else "launches_per_row"
     with torch.no_grad():
-        if flavor == "pair":
+        if flavor == "raw":
+            fn = tsb.fused_swin_block_raw
+            before = getattr(fn, counter)
+            got = fn(x, *blk0, bias0, heads, 7, **kw)
+            want = tsb.raw_plain(x, *blk0, bias0, num_heads=heads, ws=7, **kw)
+        elif flavor == "pair":
             pkw = {} if not quant else dict(quant="static", wscales0=s0, wscales1=s1,
                                             act_scales0=kw["act_scales"],
                                             act_scales1=kw["act_scales"])
             fn = tsp.fused_swin_block_pair
+            before = getattr(fn, counter)
             got = fn(x, blk0, bias0, blk1, bias1, heads, 7, 3, **pkw)
             want = tsp.pair_plain(x, blk0, bias0, blk1, bias1, heads, 7, 3, **pkw)
         elif flavor == "chain":
             fn = tsp.fused_swin_block_chain
+            before = getattr(fn, counter)
             got = fn(x, blk1, bias1, heads, 7, 3, **dict(kw, wscales=s1) if quant else {})
             want = tsp.chain_plain(x, blk1, bias1, heads, 7, 3,
                                    **dict(kw, wscales=s1) if quant else {})
         else:
             fn = tsb.fused_swin_block_windows
             xw = x.reshape(B, 1, 49, C)
+            before = getattr(fn, counter)
             got = fn(xw, *blk0, bias0, heads, **kw)
             want = tsb.swin_block_plain(xw, *blk0, bias0, heads, **kw)
     torch.cuda.synchronize()
+    assert getattr(fn, counter) == before + 1
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
@@ -629,9 +650,10 @@ def test_swin_block_int8_kernel(dev, flavor, C, heads, H, roll):
             got, want = fn(xw, *blk, bias, heads, **kw), tsb.swin_block_plain(xw, *blk, bias,
                                                                               heads, **kw)
         elif flavor.startswith("windows"):
-            fn, counter = tsb.fused_swin_block_windows, "launches_static"
-            kw = dict(quant="static", wscales=scales,
-                      act_scales=acts if flavor == "windows_static" else None)
+            per_row = flavor == "windows_per_row"
+            fn = tsb.fused_swin_block_windows
+            counter = "launches_per_row" if per_row else "launches_static"
+            kw = dict(quant="static", wscales=scales, act_scales=None if per_row else acts)
             before = getattr(fn, counter)
             got, want = fn(xw, *q8, bias, heads, **kw), tsb.swin_block_plain(xw, *q8, bias,
                                                                              heads, **kw)
@@ -653,19 +675,26 @@ def test_swin_block_int8_kernel(dev, flavor, C, heads, H, roll):
 
 @pytest.mark.cuda
 def test_swin_pair_static_kernel(dev):
+    """The static pair with calibrated scales on both blocks, on the second
+    only, and on neither (per-row scales): counted as launches_static when
+    both blocks have them, else launches_per_row."""
     gen = torch.Generator(device=dev).manual_seed(10)
     C, heads, H = 256, 8, 28
     (blk0, bias0), (blk1, bias1) = (_swin_block(gen, dev, C, heads, H, s) for s in (0, 3))
     (q0, s0), (q1, s1) = _int8_block(blk0), _int8_block(blk1)
     x = _rand(gen, (2, H, H, C), dev)
-    kw = dict(quant="static", wscales0=s0, wscales1=s1, act_scales1=(4.5 / 127,) * 4)
-    before = tsp.fused_swin_block_pair.launches_static
-    with torch.no_grad():
-        got = tsp.fused_swin_block_pair(x, q0, bias0, q1, bias1, heads, 7, 3, **kw)
-        want = tsp.pair_plain(x, q0, bias0, q1, bias1, heads, 7, 3, **kw)
-    torch.cuda.synchronize()
-    assert tsp.fused_swin_block_pair.launches_static == before + 1
-    torch.testing.assert_close(got.float(), want.float(), **INT8_PAIR_TOL)
+    acts = (4.5 / 127,) * 4
+    fn = tsp.fused_swin_block_pair
+    for a0, a1, counter in ((acts, acts, "launches_static"), (None, acts, "launches_per_row"),
+                            (None, None, "launches_per_row")):
+        kw = dict(quant="static", wscales0=s0, wscales1=s1, act_scales0=a0, act_scales1=a1)
+        before = getattr(fn, counter)
+        with torch.no_grad():
+            got = fn(x, q0, bias0, q1, bias1, heads, 7, 3, **kw)
+            want = tsp.pair_plain(x, q0, bias0, q1, bias1, heads, 7, 3, **kw)
+        torch.cuda.synchronize()
+        assert getattr(fn, counter) == before + 1, counter
+        torch.testing.assert_close(got.float(), want.float(), **INT8_PAIR_TOL)
 
 
 @pytest.mark.cuda
@@ -757,7 +786,7 @@ def test_swin_block_attention_forms(dev, flavor, C, heads, ws, H, roll, quant):
         blk, scales = _int8_block(blk)
         acts = (4.5 / 127, 3.0 / 127, 5.0 / 127, 2.5 / 127) if quant == "static" else None
         kw = dict(quant="static", wscales=scales, act_scales=acts)
-        tol, counter = INT8_TOL, "launches_static"
+        tol, counter = INT8_TOL, "launches_static" if acts else "launches_per_row"
     elif quant:
         kw = dict(quant=True)
         tol, counter = INT8_TOL, "launches_dynamic"

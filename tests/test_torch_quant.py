@@ -230,7 +230,7 @@ def test_windows_int8_matches_jax(rng, flavor):
         jblk, js, tblk, ts = _static(blk)
         want = jsb.fused_swin_block_windows(jnp.asarray(xw), *jblk, jbias, 2, quant="static",
                                             wscales=js, act_scales=acts, interpret=True)
-        counter = "launches_static"
+        counter = "launches_static" if acts else "launches_per_row"
         got = tsb.fused_swin_block_windows(_t(xw), *tblk, tbias, 2, quant="static",
                                            wscales=ts, act_scales=acts)
         faults["other scales"] = tsb.fused_swin_block_windows(
@@ -434,10 +434,16 @@ def mm_params(swin_params):
     return params, amax
 
 
+# the Swin tower's config of each serving mix: "int8_static" with the
+# calibrated act_amax, "int8_static_per_row" without a calibration file
+# (per-row activation scales), "int8" and "none" in bf16
+def _swin_quant(mix, amax):
+    return {"int8_static": {"quant": "int8_static", "act_amax": amax},
+            "int8_static_per_row": {"quant": "int8_static", "act_amax": None}}.get(mix, {})
+
+
 def _port_model(mix, amax, whole_min_c=16):
-    swin = SwinConfig(**SWIN, whole_min_c=whole_min_c,
-                      **({"quant": "int8_static", "act_amax": amax}
-                         if mix == "int8_static" else {}))
+    swin = SwinConfig(**SWIN, whole_min_c=whole_min_c, **_swin_quant(mix, amax))
     tq_ = "int8_kernel" if mix != "none" else "none"
     return MultiModalRetrievalModel(MultiModalConfig(
         swin=swin, text=TextConfig.small(quant=tq_, **TEXT),
@@ -450,15 +456,16 @@ def _run_port(model, img, ids, mask):
     return {k: v.numpy() for k, v in out.items()}
 
 
-@pytest.mark.parametrize("mix", ["int8_static", "int8"])
+@pytest.mark.parametrize("mix", ["int8_static", "int8", "int8_static_per_row"])
 def test_serving_forward_int8_matches_jax(mm_params, kernel_route, mix):
-    """The JAX serve_quant mixes (Swin static int8 on pair and chain or bf16;
-    BERT int8_kernel; the fusion stack int8) against the port with the same
-    params and act_amax. Bounds: 2e-3 on probs and 1e-2 on embeddings of
-    O(1), a few activation steps through the stack; cosine > 0.9999."""
+    """The JAX serve_quant mixes (Swin static int8 on pair and chain, with the
+    calibrated act_amax or, without a calibration file, per-row activation
+    scales, or bf16; BERT int8_kernel; the fusion stack int8) against the
+    port with the same params and act_amax. Bounds: 2e-3 on probs and 1e-2
+    on embeddings of O(1), a few activation steps through the stack; cosine
+    > 0.9999."""
     params, amax = mm_params
-    jswin_cfg = jswin.SwinConfig(**SWIN, **({"quant": "int8_static", "act_amax": amax}
-                                            if mix == "int8_static" else {}))
+    jswin_cfg = jswin.SwinConfig(**SWIN, **_swin_quant(mix, amax))
     jcfg = jmm.MultiModalConfig(
         swin=jswin_cfg, text=jtext.TextConfig.small(dropout=0.0, quant="int8_kernel", **TEXT),
         dropout=0.0, drop_path=0.0, quant="int8", **HEAD)
@@ -469,9 +476,10 @@ def test_serving_forward_int8_matches_jax(mm_params, kernel_route, mix):
         params, jnp.asarray(img), jnp.asarray(ids), jnp.asarray(mask))
     model = _port_model(mix, amax)
     load_flax_params(model, params)
-    before = (tsp.fused_swin_block_pair.launches_static, tfa.fused_attention.launches_int8)
+    pair = tsp.fused_swin_block_pair
+    before = (pair.launches_static, pair.launches_per_row, tfa.fused_attention.launches_int8)
     got = _run_port(model, img, ids, mask)
-    assert (tsp.fused_swin_block_pair.launches_static,
+    assert (pair.launches_static, pair.launches_per_row,
             tfa.fused_attention.launches_int8) == before  # CPU: plain versions
     for key in KEYS:
         w = np.asarray(want[key])
@@ -482,13 +490,13 @@ def test_serving_forward_int8_matches_jax(mm_params, kernel_route, mix):
 
 def test_int8_embedding_close_to_float(mm_params):
     """The JAX gate (``tests/test_quant_model.py``): int8 joint embeddings
-    keep cosine > 0.995 against the f32 unquantized path, on both mixes."""
+    keep cosine > 0.995 against the f32 unquantized path, on every mix."""
     params, amax = mm_params
     img, ids, mask = _inputs()
     ref = _port_model("none", amax)
     load_flax_params(ref, params)
     want = _run_port(ref, img, ids, mask)["joint_emb"]
-    for mix in ("int8_static", "int8"):
+    for mix in ("int8_static", "int8", "int8_static_per_row"):
         model = _port_model(mix, amax)
         load_flax_params(model, params)
         assert _cos(_run_port(model, img, ids, mask)["joint_emb"], want).min() > 0.995, mix

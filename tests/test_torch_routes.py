@@ -102,19 +102,21 @@ def test_kernel_takes_holds_the_kernels_limits():
         assert K2.kernel_takes(C, Hd) and K2.mlp_cluster_size(1, Hd, 2 * C) == S, (C, Hd)
     for C, Hd in ((72, 288), (1280, 5120), (128, 200), (1024, 8192), (128, 640)):
         assert not K2.kernel_takes(C, Hd), (C, Hd)
-    # the whole block: the attention phase's limits and the MLP's; the per-row
-    # int8 forms keep the C % 32 epilogue
-    acts = (0.1,) * 4
-    for quant, a in ((False, None), ("static", acts), ("static", None), (True, None)):
-        assert SB.kernel_takes(1024, 32, 49, 4096, quant, a)
-        assert SP.kernel_takes(512, 16, 7, 2048, quant, a)
-        assert not SB.kernel_takes(16, 2, 49, 64, quant, a)
-    assert SB.wgmma_epilogue(False) and SB.wgmma_epilogue("static", acts)
-    assert not SB.wgmma_epilogue("static", None) and not SB.wgmma_epilogue(True)
+    # the whole block: the attention phase's limits and the MLP's, the same
+    # for every form (bf16, static and per-row W8A8: one wgmma epilogue)
+    for quant in (False, "static", True):
+        assert SB.kernel_takes(1024, 32, 49, 4096, quant)
+        assert SP.kernel_takes(512, 16, 7, 2048, quant)
+        assert not SB.kernel_takes(16, 2, 49, 64, quant)
+    for C, Hd in ((1024, 4096), (1024, 8192), (512, 2048), (256, 1152), (96, 384), (64, 256)):
+        assert SB.kernel_takes(C, C // 32, 49, Hd, True) == \
+            SB.kernel_takes(C, C // 32, 49, Hd, "static") == \
+            SB.kernel_takes(C, C // 32, 49, Hd, False) == K2.kernel_takes(C, Hd, staged=4), \
+            (C, Hd)
     # C 96 (Swin-T stage 1): bf16 and the int8 forms; C 48 (head dim 16): none
-    for quant, a in ((False, None), ("static", acts), ("static", None), (True, None)):
-        assert SB.kernel_takes(96, 3, 49, 384, quant, a)
-        assert not SB.kernel_takes(48, 3, 49, 192, quant, a)
+    for quant in (False, "static", True):
+        assert SB.kernel_takes(96, 3, 49, 384, quant)
+        assert not SB.kernel_takes(48, 3, 49, 192, quant)
     # past C 1024 (head dim 32 at 33 heads): none
     assert not SB.kernel_takes(1056, 33, 49, 4224)
 
@@ -212,11 +214,10 @@ def test_attention_kernel_takes_is_the_layout_limit():
     for windows, C, splits in ((512, 128, 1), (128, 256, 2), (32, 512, 4), (8, 1024, 8),
                                (4096, 128, 1), (256, 512, 1), (64, 1024, 3)):
         assert K1.attn_splits(windows, C, 132) == splits, (windows, C)
-    acts = (0.1,) * 4
     for C, heads in SWIN_STAGES[:-1]:
         assert K1.kernel_takes(C, heads, 49)
-        for quant, a in ((False, None), ("static", acts), ("static", None), (True, None)):
-            assert SB.kernel_takes(C, heads, 49, 4 * C, quant, a), (C, quant, a)
+        for quant in (False, "static", True):
+            assert SB.kernel_takes(C, heads, 49, 4 * C, quant), (C, quant)
     assert not K1.kernel_takes(*SWIN_STAGES[-1], 49)  # head dim 8
 
 
