@@ -56,8 +56,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
    over the gallery, for information.
 5. training kernels: the raw-layout window-attention core's forward (C-F) and
    backward (C-B) against the plain composition (autograd through it for the
-   backward) at the Swin-B stage 1-3 shapes of a batch-64 train step, shift 0
-   and 3, with C-B's dbias the same bit for bit over two launches; and the
+   backward) at the Swin-B stage 1-3 shapes of a batch-64 train step and the
+   Swin-T stage 1-2 shapes (C 96 / 3 heads, C 192 / 6 heads: a partial head
+   group) at batch 8, shift 0 and 3, with C-B's dbias and dqkv the same bit
+   for bit over two launches, each launch's time beside its bound, and C-B's
+   cluster sizing as the card answers it; and the
    head-major window attention (W) at the stage-1 geometry, batch 8, beside
    ``F.scaled_dot_product_attention`` as its library yardstick;
 6. train agreement: one step's losses and per-tower gradients of the flagship
@@ -65,10 +68,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
    weights in f32 on the CPU, where every wrapper runs its plain version;
 7. train slice: ``make_train_step`` on the flagship at batch 64 with the default
    dropout and drop path, f32 master weights, bf16 Adam mu and a 300-dim KG
-   projection, 3 warm-up and 10 timed steps on one seeded batch: 22 C-F and 22
-   C-B launches and no serving kernel per step, finite losses and gradient
-   norms, and a last loss below the first. Step time, train pairs/s and peak
-   device memory are printed for information.
+   projection, 3 warm-up and 10 timed steps on one seeded batch: the training
+   route's plan with no plain call site (``model_routes(cfg, train=True)``),
+   22 C-F and 22 C-B launches, no plain core call and no serving kernel per
+   step, finite losses and gradient norms, and a last loss below the first.
+   Step time, train pairs/s and peak device memory are printed for
+   information.
 Each phase prints its seconds. The last two lines are the kernels' JSON record
 and the result line {"ok": true, "device": {...}}.
 """
@@ -239,9 +244,12 @@ SOURCES = {  # kernel -> (CUDA source, the pallas_call of the TPU kernel it repl
 # (nW > 1); per train step each stage's blocks alternate shift 0 and 3, so
 # stages 1 and 2 make one call of each and stage 3 nine of each, in both
 # directions: 22 C-F and 22 C-B launches. Stage 4 (one window) takes plain
-# PyTorch attention, and no serving kernel runs.
+# PyTorch attention, and no serving kernel runs. The Swin-T stage 1-2 shapes
+# (3 and 6 heads: head groups of 3, and of 4 + 2) at batch 8 are checked
+# too; no flagship step makes them (calls 0).
 TRAIN_B = 64
-CORE_STAGES = ((56, 128, 4, 1), (28, 256, 8, 1), (14, 512, 16, 9))  # res, C, heads, calls
+CORE_STAGES = ((TRAIN_B, 56, 128, 4, 1), (TRAIN_B, 28, 256, 8, 1), (TRAIN_B, 14, 512, 16, 9),
+               (8, 56, 96, 3, 0), (8, 28, 192, 6, 0))  # B, res, C, heads, calls
 EXPECTED_TRAIN = {**{name: 0 for name in SERVING}, "wattn_core_fwd": 22,
                   "wattn_core_bwd": 22, "window_attention_heads": 0}
 # C-B's dbias sums 64 images' dS. The plain composition's autograd rounds dP
@@ -391,6 +399,7 @@ def main() -> int:
         from mmrp_tpu_torch.models.multimodal import (
             MultiModalConfig,
             MultiModalRetrievalModel,
+            model_routes,
         )
         from mmrp_tpu_torch.models.quant_calib import calibrate_swin_act_amax, save_act_amax
         from mmrp_tpu_torch.models.swin import SwinConfig, SwinEncoder, stage_routes
@@ -1112,13 +1121,22 @@ def main() -> int:
         if library_ms is not None:
             agg["library_ms"] = agg.get("library_ms", 0.0) + n * library_ms
 
-    for res, C, heads, calls in CORE_STAGES:
+    # C-B's clusters: how many of 1 to 8 blocks the card holds at once (the
+    # launcher asks for them), and the ranks and images a rank of each shape
+    fit = [_build.library().mmrp_core_fit(ws, r) for r in range(1, 9)]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = {f"{res}x{res} h{heads} B{Bc}": WC.core_plan(Bc, (res // ws) ** 2, heads, ws, sms,
+                                                          fit)[1:3]
+             for Bc, res, C, heads, _ in CORE_STAGES}
+    log(f"wattn_core_bwd: clusters of 1..8 blocks held at once {fit}; (ranks, images a rank) "
+        f"{plans}")
+    for Bc, res, C, heads, calls in CORE_STAGES:
         for shift in (0, 3):
-            label = f"qkv({TRAIN_B},{res},{res},{3 * C}) h{heads} shift {shift}"
-            qkv = rnd((TRAIN_B, res, res, 3 * C))
+            label = f"qkv({Bc},{res},{res},{3 * C}) h{heads} shift {shift}"
+            qkv = rnd((Bc, res, res, 3 * C))
             table = rnd(((2 * ws - 1) ** 2, heads), 0.5, f32)
             bias = K1.build_bias_full(table, ws, res, res, shift)
-            dout = rnd((TRAIN_B, res, res, C))
+            dout = rnd((Bc, res, res, C))
             kw = dict(ws=ws, shift=shift, num_heads=heads, scale=(C // heads) ** -0.5)
             with torch.no_grad():
                 out = WC.core_forward(qkv, bias, **kw)
@@ -1142,7 +1160,9 @@ def main() -> int:
             log(f"kernel wattn_core_bwd {label}: dbias bit-identical over two launches")
             # per (image, window, head) and product 2 * 49 * 49 * d FLOPs:
             # two products forward; S, dV, dP, dQ and dK backward
-            prod = 2 * TRAIN_B * res * res * ws * ws * C
+            prod = 2 * Bc * res * res * ws * ws * C
+            # the CUDA-event time holds the wrapper's host time where the card
+            # waits; profile_forward --train splits the step's device time by stage
             ms = cuda_ms(torch, lambda: WC.core_forward(qkv, bias, **kw))
             plain_ms = cuda_ms(torch, lambda: WC.window_attention_core_plain(qkv, bias, **kw))
             record("wattn_core_fwd", label, f_err, ms, plain_ms, 2 * prod,
@@ -1192,6 +1212,7 @@ def main() -> int:
     counters.update({"wattn_core_fwd": (WC.core_forward, "launches"),
                      "wattn_core_bwd": (WC.core_backward, "launches"),
                      "window_attention_heads": (WA.window_attention_heads, "launches")})
+    plain_counters += (WC.window_attention_core,)
 
     def train_batch(n):
         return {
@@ -1260,6 +1281,11 @@ def main() -> int:
     phase_done("train agreement")
 
     # -- 7. the train slice: flagship, batch 64, default dropout ----------------
+    train_routes = model_routes(cfg, train=True)
+    log(f"train route: call sites {train_routes}")
+    plain = [site for site, r in train_routes.items() if r == "plain"]
+    if plain or len(train_routes) != 3:
+        fail(f"train route: call sites on a plain route: {plain} (of {train_routes})")
     model = MultiModalRetrievalModel(cfg, dtype=bf16, device=dev)
     init_params(model, seed=SEED)
     steps = TRAIN_WARMUP + TRAIN_TIMED

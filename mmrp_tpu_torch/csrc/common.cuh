@@ -1,34 +1,25 @@
 // Shared device helpers for the port's Hopper kernels (sm_90a).
 //
-// The GEMMs of the training core (wattn_core.cu) are WMMA bf16 16x16x16 tile
-// products with f32 accumulation (mma.sync on the tensor cores); the
-// projections, the Swin attention half and the MLPs run on wgmma
-// (gemm_sm90.cuh, attention.cuh, mlp_sm90.cuh), bf16 and int8, and the
-// attention tiles on mma.sync (attn_tile.cuh). B operands are nn.Linear
-// weights, (out_features, in_features) row-major, which is a column-major
-// (in, out) matrix: element (k, n) of B sits at w[n * ldb + k].
+// The projections, the Swin attention half and the MLPs run on wgmma
+// (gemm_sm90.cuh, attention.cuh, mlp_sm90.cuh), bf16 and int8; the attention
+// tiles and the training core's products on mma.sync (attn_tile.cuh,
+// wattn_core.cu). B operands are nn.Linear weights, (out_features,
+// in_features) row-major, which is a column-major (in, out) matrix: element
+// (k, n) of B sits at w[n * ldb + k].
 //
-// WMMA requires 256-bit aligned tile pointers and leading dimensions that
-// are multiples of 8 (bf16) or 4 (f32) elements: the Python wrappers refuse
+// Rows move in 16-byte pieces (cp.async, uint4): the Python wrappers refuse
 // tensors whose data pointer is not 32-byte aligned.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stddef.h>
 #include <stdint.h>
 
 namespace mmrp {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
-
-using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-constexpr int kThreads = 256;  // 8 warps a block: wattn_core's
-constexpr int kWarps = kThreads / 32;
 
 __host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
 __host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }

@@ -22,7 +22,9 @@ Every kernel call site has a route fixed at construction from the kernel
 wrappers' ``kernel_takes`` (:func:`model_routes`): ``kernel``, ``plain`` (the
 kernel's plain version, on any device, counted in the wrapper's
 ``plain_calls``), or ``int8`` (a W8A8 XLA branch of the JAX model); Swin
-steps are named by their route or "plain" (``models/swin.py``).
+steps are named by their route or "plain" (``models/swin.py``). The training
+route's call sites are the Swin attention cores (``model_routes(config,
+train=True)``).
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ from mmrp_tpu_torch.models.layers import (
     ln_f32,
     sinusoidal_positions,
 )
-from mmrp_tpu_torch.models.swin import SwinConfig, SwinEncoder, plan_names
+from mmrp_tpu_torch.models.swin import SwinConfig, SwinEncoder, plan_names, train_plan
 from mmrp_tpu_torch.models.text_encoder import (
     TextConfig,
     TextEncoder,
@@ -167,10 +169,19 @@ def fusion_routes(config: MultiModalConfig) -> Dict[str, str]:
             "self_attention": attention_route(D, h, Np + 2, Np + 2, q), "ffn": ffn}
 
 
-def model_routes(config: MultiModalConfig) -> Dict[str, str]:
+def model_routes(config: MultiModalConfig, train: bool = False) -> Dict[str, str]:
     """Every kernel call site of the serving forward and its route, named
     ``swin.stage{s}.step{i}`` (the Swin step's route, or "plain"),
-    ``text.attention`` and ``fusion.{site}`` (:func:`fusion_routes`)."""
+    ``text.attention`` and ``fusion.{site}`` (:func:`fusion_routes`). With
+    ``train``, those of the training route, where every tower takes its JAX
+    XLA branch and no serving kernel runs: the Swin attention core of each
+    stage with more than one window, ``swin.stage{s}.core`` ("kernel" or
+    "plain", ``models/swin.py::train_plan``)."""
+    if train:
+        if config.mode == "text":
+            return {}
+        return {f"swin.stage{s}.core": route
+                for s, route in enumerate(train_plan(config.swin)) if route}
     routes = {}
     if config.mode != "text":
         for s, names in enumerate(plan_names(config.swin)):
@@ -181,9 +192,9 @@ def model_routes(config: MultiModalConfig) -> Dict[str, str]:
     return routes
 
 
-def plain_routes(config: MultiModalConfig) -> list:
+def plain_routes(config: MultiModalConfig, train: bool = False) -> list:
     """The call sites of :func:`model_routes` that no kernel takes."""
-    return [name for name, route in model_routes(config).items() if route == "plain"]
+    return [name for name, route in model_routes(config, train).items() if route == "plain"]
 
 
 class Backbones(nn.Module):

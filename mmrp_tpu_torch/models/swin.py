@@ -35,11 +35,14 @@ chain off and runs every whole-block stage on the windows kernel in dynamic
 W8A8. K1 + K2 stages stay bf16 under both, as in JAX.
 
 Training (``forward(x, deterministic=False, generator=...)``) takes the JAX
-XLA branch of every block whatever the plan says (``swin.py:289-401,
-584-646``): LN0, the qkv GEMM, the raw-layout attention core (C-F / C-B,
-``ops/wattn_core.py``) where a stage has more than one window, else
-``window_attention_xla_direct``, the proj GEMM and DropPath; then LN1, the
-MLP with dropout, and DropPath.
+XLA branch of every block whatever the serving plan says (``swin.py:289-401,
+584-646``): LN0, the qkv GEMM, the raw-layout attention core where a stage
+has more than one window, else ``window_attention_xla_direct``, the proj GEMM
+and DropPath; then LN1, the MLP with dropout, and DropPath. The core is a
+call site of its own per stage (:func:`train_plan`): ``kernel`` (C-F / C-B,
+``ops/wattn_core.py``) where the kernels take the stage's shapes, else
+``plain`` (the plain core with autograd on any device, counted in
+``window_attention_core.plain_calls``).
 
 The routes share one parameter tree, so ``utils/convert.py`` loads the same
 weights into every route. Layouts are the JAX model's: NHWC input, PatchEmbed
@@ -64,6 +67,7 @@ from mmrp_tpu_torch.ops import _build
 from mmrp_tpu_torch.ops import fused_mlp as K2
 from mmrp_tpu_torch.ops import fused_swin_block as SB
 from mmrp_tpu_torch.ops import fused_window_attention as K1
+from mmrp_tpu_torch.ops import wattn_core as WC
 from mmrp_tpu_torch.ops.fused_mlp import fused_ln_mlp_residual, ln_mlp_plain
 from mmrp_tpu_torch.ops.fused_swin_block import fused_swin_block_windows, swin_block_plain
 from mmrp_tpu_torch.ops.fused_swin_pair import (
@@ -80,7 +84,7 @@ from mmrp_tpu_torch.ops.fused_window_attention import (
     window_attention_plain,
 )
 from mmrp_tpu_torch.ops.quant import attach_int8
-from mmrp_tpu_torch.ops.wattn_core import window_attention_core
+from mmrp_tpu_torch.ops.wattn_core import window_attention_core, window_attention_core_plain
 from mmrp_tpu_torch.ops.window_attention import (
     build_rel_bias,
     shift_attn_mask_on,
@@ -263,6 +267,23 @@ def plan_names(cfg: SwinConfig) -> List[List[str]]:
     return [[step.name for step in steps] for steps in swin_plan(cfg)]
 
 
+def train_plan(cfg: SwinConfig) -> List[Optional[str]]:
+    """The training route's attention-core call site of each stage: "kernel"
+    where C-F / C-B take its shapes at each of its blocks' shifts
+    (``wattn_core.kernel_takes``), "plain" where they do not, None where the
+    stage has one window (plain PyTorch attention, no core call site)."""
+    plan = []
+    for stage, (dim, res, ws) in enumerate(stage_geometry(cfg)):
+        if res == ws:
+            plan.append(None)
+            continue
+        heads = cfg.num_heads[stage]
+        takes = all(WC.kernel_takes(dim, heads, ws, block_shift(b, res, ws))
+                    for b in range(cfg.depths[stage]))
+        plan.append("kernel" if takes else "plain")
+    return plan
+
+
 class PatchEmbed(nn.Module):
     """Non-overlapping ps x ps patches as space-to-depth + one GEMM, then LN."""
 
@@ -351,18 +372,22 @@ class SwinBlock(nn.Module):
         for lin in self.gemm_linears():
             attach_int8(lin, from_master)
 
-    def forward_train(self, x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-        """The JAX XLA branch with autograd (``swin.py:289-401, 584-646``)."""
+    def forward_train(self, x: torch.Tensor, generator: torch.Generator,
+                      core: Optional[str]) -> torch.Tensor:
+        """The JAX XLA branch with autograd (``swin.py:289-401, 584-646``);
+        ``core`` is the stage's attention-core route (:func:`train_plan`)."""
         B, H, W, C = x.shape
         attn = self.attn
         ws, s, h = attn.window_size, attn.shift, self.num_heads
         nW, N = (H // ws) * (W // ws), ws * ws
         scale = (C // h) ** -0.5
         y = ln_f32(x, self.LayerNorm_0.weight, self.LayerNorm_0.bias, x.dtype)
-        if nW > 1 and H % ws == 0 and W % ws == 0:
-            core = window_attention_core(attn.qkv(y), attn.bias_train(), ws=ws, shift=s,
-                                         num_heads=h, scale=scale)
-            out = attn.proj(core)
+        if core is not None:
+            args = (attn.qkv(y), attn.bias_train())
+            kw = dict(ws=ws, shift=s, num_heads=h, scale=scale)
+            out = attn.proj(window_attention_core(*args, **kw) if core == "kernel" else
+                            _build.run_plain(window_attention_core,
+                                             window_attention_core_plain, *args, **kw))
         else:
             if s:
                 y = torch.roll(y, (-s, -s), (1, 2))
@@ -475,6 +500,7 @@ class SwinEncoder(nn.Module):
                 "recalibrate (models/quant_calib.py) for this architecture")
         self.config = cfg
         self.plan = swin_plan(cfg)
+        self.train_plan = train_plan(cfg)
         self.patch_embed = PatchEmbed(cfg.embed_dim, cfg.patch_size, cfg.in_chans, dtype,
                                       device)
         geometry = stage_geometry(cfg)
@@ -512,7 +538,8 @@ class SwinEncoder(nn.Module):
                 raise ValueError("SwinEncoder: the training route needs a torch.Generator")
             for stage, depth in enumerate(self.config.depths):
                 for blk in range(depth):
-                    x = self._modules[f"stage{stage}_block{blk}"].forward_train(x, generator)
+                    x = self._modules[f"stage{stage}_block{blk}"].forward_train(
+                        x, generator, self.train_plan[stage])
                 if f"merge{stage}" in self._modules:
                     x = self._modules[f"merge{stage}"](x)
             return self._pool(x)

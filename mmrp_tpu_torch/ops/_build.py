@@ -46,7 +46,9 @@ _SIGNATURES = {
     "mmrp_seq_attention": [_P] * 18 + [_I] * 8 + [_F, _P, _P],
     "mmrp_swin_block": [_P] * 17 + [_I] * 10 + [_F, _P, _P],
     "mmrp_wattn_core_fwd": [_P] * 3 + [_I] * 7 + [_F, _P],
-    "mmrp_wattn_core_bwd": [_P] * 6 + [_I] * 8 + [_F, _P],
+    "mmrp_wattn_core_bwd": [_P] * 5 + [_I] * 7 + [_F, _P],
+    "mmrp_core_plan": [_I] * 5 + [_P, _I],
+    "mmrp_core_fit": [_I] * 2,
     "mmrp_window_attention_heads": [_P] * 5 + [_I] * 4 + [_F, _P],
 }
 
@@ -156,7 +158,7 @@ def check_cuda_inputs(op: str, device: torch.device,
                       tensors: Sequence[tuple]) -> None:
     """Validate ``(name, tensor, dtype, shape)`` entries (tensor may be None)
     before their pointers go to a kernel: same CUDA device, dtype, shape,
-    contiguity and 32-byte alignment (WMMA tile loads). The kernels are
+    contiguity and 32-byte alignment (16-byte row copies). The kernels are
     forward-only, so an input that autograd would track is refused."""
     grad = torch.is_grad_enabled()
     for name, t, dtype, shape in tensors:

@@ -31,8 +31,9 @@ One JSON line per (route, batch) goes to stdout and to ``--out``.
 flagship at each batch instead (route ``train``: default dropout and drop path,
 f32 master weights, bf16 Adam mu, a 300-dim KG projection, one seeded batch
 repeated): the step time without the profiler, then the device time by kind,
-where the raw-layout attention core's forward (C-F) and backward (C-B, with
-its chunk reduction) are kinds of their own.
+where the raw-layout attention core's forward (C-F) and backward (C-B; a
+parent tree's chunk reduction counted with it) are kinds of their own, and
+their device time per launch at each Swin stage (by launch order in the step).
 """
 
 from __future__ import annotations
@@ -53,8 +54,10 @@ from mmrp_tpu_torch.models.multimodal import MultiModalConfig, MultiModalRetriev
 from mmrp_tpu_torch.utils.convert import init_params
 
 KINDS = (  # (kind, test on the kernel name), first match wins
-    ("wattn core forward (C-F)", lambda n: "core_fwd_kernel" in n),
-    ("wattn core backward (C-B)", lambda n: "core_bwd_kernel" in n or "sum_chunks_kernel" in n),
+    # C-F / C-B: core_fwd_ring / core_bwd_ring, and before them core_fwd_kernel /
+    # core_bwd_kernel with its chunk reduction sum_chunks_kernel (a parent tree)
+    ("wattn core forward (C-F)", lambda n: "core_fwd_" in n),
+    ("wattn core backward (C-B)", lambda n: "core_bwd_" in n or "sum_chunks_kernel" in n),
     ("swin attention phase", lambda n: "window_attn_wgmma" in n),
     ("K3 q/k/v GEMM", lambda n: "qkv_kernel<" in n),
     ("K3 attention tile", lambda n: "attn_kernel<" in n),
@@ -72,6 +75,26 @@ KINDS = (  # (kind, test on the kernel name), first match wins
 
 def kind_of(name: str) -> str:
     return next(kind for kind, match in KINDS if match(name))
+
+
+# The Swin stage of each core launch of a flagship train step, in launch order:
+# C-F at stages 1, 1, 2, 2, then 18 at stage 3; C-B in the reverse order. A tree
+# whose C-B is two kernels a launch (the chunk reduction after it) has twice
+# as many C-B events, taken in pairs.
+CORE_STAGES = {"wattn core forward (C-F)": (1, 1, 2, 2) + (3,) * 18,
+               "wattn core backward (C-B)": (3,) * 18 + (2, 2, 1, 1)}
+
+
+def by_stage(us: list, stages: tuple, reps: int):
+    """Device ms per launch at each stage from one kind's kernel durations in
+    launch order over ``reps`` steps; None when the trace lost events."""
+    per = len(us) // (reps * len(stages))  # kernels a launch
+    if not per or len(us) != reps * len(stages) * per:
+        return None
+    ms = {}
+    for i, stage in enumerate(stages * reps):
+        ms.setdefault(f"stage{stage}", []).append(sum(us[i * per:(i + 1) * per]) / 1e3)
+    return {stage: statistics.mean(v) for stage, v in ms.items()}
 
 
 def forward_ms(fwd, args, reps: int = 10, warmup: int = 2) -> float:
@@ -98,20 +121,29 @@ def profile(fwd, args, reps: int = 5) -> dict:
             fwd(*args)
         torch.cuda.synchronize()
     kinds = {kind: [0.0, 0] for kind, _ in KINDS}
+    core = {kind: [] for kind in CORE_STAGES}  # (start, us) of each core kernel
     first, last = None, None
     for evt in prof.events():
         if evt.device_type != DeviceType.CUDA:
             continue
         us = evt.time_range.elapsed_us()
-        agg = kinds[kind_of(evt.name)]
+        kind = kind_of(evt.name)
+        agg = kinds[kind]
         agg[0] += us / 1e3 / reps
         agg[1] += 1
+        if kind in core:
+            core[kind].append((evt.time_range.start, us))
         first = evt.time_range.start if first is None else min(first, evt.time_range.start)
         last = evt.time_range.end if last is None else max(last, evt.time_range.end)
     busy = sum(ms for ms, _ in kinds.values())
-    return {"busy_ms": busy, "profiled_span_ms": (last - first) / 1e3 / reps if first else None,
-            "complete": all(n % reps == 0 for _, n in kinds.values()),
-            "kinds": {k: {"ms": ms, "launches": n / reps} for k, (ms, n) in kinds.items()}}
+    rec = {"busy_ms": busy, "profiled_span_ms": (last - first) / 1e3 / reps if first else None,
+           "complete": all(n % reps == 0 for _, n in kinds.values()),
+           "kinds": {k: {"ms": ms, "launches": n / reps} for k, (ms, n) in kinds.items()}}
+    split = {kind: by_stage([us for _, us in sorted(events)], CORE_STAGES[kind], reps)
+             for kind, events in core.items() if events}
+    if split:
+        rec["core_ms_per_launch_by_stage"] = split
+    return rec
 
 
 def report(rec: dict, ms: float) -> str:
@@ -124,6 +156,8 @@ def report(rec: dict, ms: float) -> str:
     for kind, v in rec["kinds"].items():
         print(f"  {kind:36s} {v['ms']:9.3f} ms {v['ms'] / rec['busy_ms']:6.1%} "
               f"{v['launches']:7.1f} launches", flush=True)
+    for kind, stages in rec.get("core_ms_per_launch_by_stage", {}).items():
+        print(f"  {kind} per launch by Swin stage: {stages}", flush=True)
     line = json.dumps(rec)
     print(line, flush=True)
     return line

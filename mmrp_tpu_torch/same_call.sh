@@ -7,9 +7,10 @@
 # `git archive $(git write-tree)`, each into a git-ignored directory); OUT is the
 # directory for the logs. For each tree in turn it runs that tree's
 # `chip_smoke.py` (smoke_{parent,change}.txt) and CHANGE's
-# `mmrp_tpu_torch/profile_forward.py` on that tree's package
-# (prof_{parent,change}.txt / .jsonl), so both trees are read with one set of
-# routes and kernel kinds; then CHANGE's card tests (cuda.txt) and
+# `mmrp_tpu_torch/profile_forward.py` on that tree's package, the serving
+# forwards (prof_{parent,change}.txt / .jsonl) and the batch-64 train step
+# (`--train`: train_{parent,change}.txt / .jsonl), so both trees are read with
+# one set of routes and kernel kinds; then CHANGE's card tests (cuda.txt) and
 # `compare_trees --rounds 12` (ab.txt / ab.jsonl). Prints the card's name and power
 # limit and one status line per step; exits non-zero if any step failed.
 set -u
@@ -34,9 +35,13 @@ for side in parent change; do
   tree=${!side}
   step "smoke $side" "$out/smoke_$side.txt" "$tree" python3 chip_smoke.py
   # run_path leaves sys.path[0] at the tree, so `mmrp_tpu_torch` is the tree's own
-  step "profile $side" "$out/prof_$side.txt" "$tree" python3 -c \
-    'import runpy, sys; path = sys.argv.pop(1); sys.argv[0] = path; runpy.run_path(path, run_name="__main__")' \
-    "$prof" --out "$out/prof_$side.jsonl"
+  for what in prof train; do
+    args=(--out "$out/${what}_$side.jsonl")
+    [ "$what" = train ] && args+=(--train)
+    step "profile $what $side" "$out/${what}_$side.txt" "$tree" python3 -c \
+      'import runpy, sys; path = sys.argv.pop(1); sys.argv[0] = path; runpy.run_path(path, run_name="__main__")' \
+      "$prof" "${args[@]}"
+  done
 done
 step "card tests" "$out/cuda.txt" "$change" python3 -m pytest --noconftest -p no:cacheprovider \
   tests/test_torch_cuda.py -m cuda -q

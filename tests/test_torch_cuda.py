@@ -165,6 +165,12 @@ def test_wrappers_raise_where_kernel_takes_refuses(dev):
     assert not tfa.kernel_takes(64, 2, 16)
     with pytest.raises(ValueError, match="the kernel takes"):
         tfa.fused_attention(*args, **kw)
+    qkv, bias, dout, kw = _core_inputs(gen, dev, 1, 14, 16, 2, 3)  # head dim 8: no C-F / C-B
+    assert not twc.kernel_takes(16, 2, 7, 3)
+    with pytest.raises(ValueError, match="the kernel takes"):
+        twc.core_forward(qkv, bias, **kw)
+    with pytest.raises(ValueError, match="the kernel takes"):
+        twc.core_backward(qkv, bias, dout, **kw)
     with torch.no_grad():
         blk, bias = _swin_block(gen, dev, 128, 4, 7, 0)
         assert tsb.kernel_takes(128, 4, 49, 512)
@@ -473,8 +479,7 @@ def test_swin_pair_kernel(dev):
     torch.testing.assert_close(got.float(), want.float(), **SWIN_TOL)
 
 
-def _core_inputs(gen, dev, B, res, C, heads, shift):
-    ws = 7
+def _core_inputs(gen, dev, B, res, C, heads, shift, ws=7):
     qkv = _rand(gen, (B, res, res, 3 * C), dev)
     table = _rand(gen, ((2 * ws - 1) ** 2, heads), dev, 0.5, torch.float32)
     dout = _rand(gen, (B, res, res, C), dev)
@@ -482,11 +487,15 @@ def _core_inputs(gen, dev, B, res, C, heads, shift):
     return qkv, tfw.build_bias_full(table, ws, res, res, shift), dout, kw
 
 
-# (B, res, C, heads, shift): Swin-B stage-1 and stage-3 geometries; then a
-# batch whose backward chunks hold 2, 2, 2 and 1 images, and one whose
-# backward is a single chunk (no second reduction launch)
+# (B, res, C, heads, shift): Swin-B stage-1 and stage-3 geometries; then
+# batches that the backward's cluster ranks may split unevenly (the ranks
+# follow the clusters the card holds; with 132 SMs' default counts 7 images
+# at stage 1 go 4 + 3, 9 at stage 3 go 2 + 2 + 2 + 2 + 1), one of 1024
+# (window, head) pairs, B = 1, and Swin-T's stages 1-2 (3 and 6 heads)
 CORE_CASES = [(2, 56, 128, 4, 0), (2, 56, 128, 4, 3), (3, 14, 512, 16, 0),
-              (3, 14, 512, 16, 3), (7, 56, 128, 4, 3), (3, 56, 512, 16, 0)]
+              (3, 14, 512, 16, 3), (7, 56, 128, 4, 3), (3, 56, 512, 16, 0),
+              (7, 14, 512, 16, 3), (9, 14, 512, 16, 0), (1, 56, 128, 4, 3),
+              (2, 56, 96, 3, 3), (2, 28, 192, 6, 0)]
 
 
 @pytest.mark.cuda
@@ -514,6 +523,23 @@ def test_core_kernels(dev, B, res, C, heads, shift):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,shift", [(3, 0), (2, 4)])
+def test_core_kernels_at_64_tokens(dev, B, shift):
+    """8 x 8 windows (64 tokens, eight key tiles, no row past the window):
+    C-B reads its bias from device memory."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    qkv, bias, dout, kw = _core_inputs(gen, dev, B, 16, 128, 4, shift, ws=8)
+    with torch.no_grad():
+        out = twc.core_forward(qkv, bias, **kw)
+        dqkv, dbias = twc.core_backward(qkv, bias, dout, **kw)
+    want = twc.window_attention_core_plain(qkv, bias, **kw)
+    want_dqkv, want_dbias = twc.core_backward_plain(qkv, bias, dout, **kw)
+    torch.testing.assert_close(out.float(), want.float(), **SWIN_TOL)
+    torch.testing.assert_close(dqkv.float(), want_dqkv.float(), **SWIN_TOL)
+    assert (dbias - want_dbias).abs().max() <= 2.0 ** -6 * want_dbias.abs().max()
+
+
+@pytest.mark.cuda
 def test_core_function_matches_autograd_of_the_plain_version(dev):
     """window_attention_core on CUDA tensors is the autograd.Function of C-F
     and C-B: its gradients for qkv and bias match autograd through the
@@ -534,6 +560,94 @@ def test_core_function_matches_autograd_of_the_plain_version(dev):
     torch.testing.assert_close(out.float(), want.float(), **SWIN_TOL)
     torch.testing.assert_close(dq.float(), want_dq.float(), **SWIN_TOL)
     assert (db - want_db).abs().max() <= 2.0 ** -6 * want_db.abs().max()
+
+
+# (res, C, heads) of the training stages with more than one window
+CORE_STAGES = {"swin_base": ((56, 128, 4), (28, 256, 8), (14, 512, 16)),
+               "swin_tiny": ((56, 96, 3), (28, 192, 6), (14, 384, 12)),
+               "swin_small": ((56, 96, 3), (28, 192, 6), (14, 384, 12))}
+
+
+@pytest.mark.cuda
+def test_core_plan_is_the_kernels_host_code(dev):
+    """The Python copy of C-F / C-B's sizing (``wattn_core.core_plan``, which
+    ``kernel_takes`` reads) against the host code that launches them, at
+    every Swin-B, -T and -S training stage for B in {1, 2, 7, 64}, windows of
+    7 and 8, with the clusters of 1 to 8 blocks this card holds at once (as
+    the launcher asks for them) and with the default counts on 132 and 0
+    SMs."""
+    import ctypes
+
+    from mmrp_tpu_torch.ops import _build
+
+    lib = _build.library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = 0
+    for ws in (7, 8):
+        card_fit = [lib.mmrp_core_fit(ws, r) for r in range(1, 9)]
+        assert min(card_fit) > 0, card_fit
+        for stages in CORE_STAGES.values():
+            for res, C, heads in stages:
+                nW = (res // 7) ** 2
+                for B in (1, 2, 7, 64):
+                    for s, fit in ((sms, card_fit), (132, None), (0, None)):
+                        want = twc.core_plan(B, nW, heads, ws, s, fit)
+                        fit = fit or [twc.BLOCKS_PER_SM * s // r for r in range(1, 9)]
+                        arr = (ctypes.c_int * 8)(*fit)
+                        assert tuple(lib.mmrp_core_plan(B, nW, heads, ws, s, arr, what)
+                                     for what in range(5)) == tuple(want), \
+                            (res, C, heads, B, s, ws, fit)
+                        n += 1
+    assert n >= 216
+
+
+@pytest.mark.cuda
+def test_train_step_runs_the_slice_model_through_its_plain_routes(dev):
+    """One make_train_step on the slice tests' model in bf16 on the card: its
+    stage-1 attention core (head dim 8, which C-F / C-B refuse) on its plain
+    route, counted, with no C-F / C-B launch; the loss and the gradient norm
+    finite."""
+    import numpy as np
+
+    from mmrp_tpu_torch.config import Config
+    from mmrp_tpu_torch.models.multimodal import (
+        MultiModalConfig,
+        MultiModalRetrievalModel,
+        model_routes,
+    )
+    from mmrp_tpu_torch.models.swin import SwinConfig
+    from mmrp_tpu_torch.models.text_encoder import TextConfig
+    from mmrp_tpu_torch.train.joint import init_train_state, make_train_step
+    from mmrp_tpu_torch.utils.convert import init_params
+
+    cfg = MultiModalConfig(
+        swin=SwinConfig(img_size=56, embed_dim=16, depths=(2, 2), num_heads=(2, 2)),
+        text=TextConfig.small(hidden_dim=32, num_layers=1, num_heads=2, intermediate_dim=64),
+        joint_dim=64, num_fusion_layers=2, num_heads=4, num_classes=7, max_text_len=16)
+    assert model_routes(cfg, train=True) == {"swin.stage0.core": "plain"}
+    model = MultiModalRetrievalModel(cfg, dtype=torch.bfloat16, device=dev)
+    init_params(model, seed=0)
+    tcfg = Config(lr=1e-3)
+    state = init_train_state(model, tcfg, total_steps=4, kg_dim=24)
+    step = make_train_step(model, tcfg, np.ones(7, np.float32))
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.random((2, 56, 56, 3), dtype=np.float32),
+             "input_ids": rng.integers(0, cfg.text.vocab_size, (2, 16)),
+             "attention_mask": (np.arange(16)[None, :] < np.array([[16], [9]])).astype(np.int64),
+             "labels": (rng.random((2, 7)) < 0.3).astype(np.float32),
+             "kg_target": rng.standard_normal((2, 24)).astype(np.float32),
+             "kg_target_valid": np.ones(2, np.float32)}
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    before = (twc.window_attention_core.plain_calls, twc.core_forward.launches,
+              twc.core_backward.launches)
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    # stage 1's two blocks, one core call each in the forward
+    assert (twc.window_attention_core.plain_calls - before[0],
+            twc.core_forward.launches - before[1], twc.core_backward.launches - before[2]) \
+        == (2, 0, 0)
+    assert np.isfinite(metrics["loss/total"]) and np.isfinite(metrics["grad_norm"])
+    assert metrics["grad_norm"] > 0
 
 
 @pytest.mark.cuda

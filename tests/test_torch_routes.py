@@ -7,7 +7,9 @@ version, on any device, counted in the wrapper's ``plain_calls``) or
 route or ``plain``. The flagship has no plain route at any serving precision
 or text length; the slice tests' model and the micro preset name theirs; each
 ``kernel_takes`` holds its kernel's limits; and a model whose shapes no
-kernel takes serves through its plain routes, counted, and matches JAX.
+kernel takes serves through its plain routes, counted, and matches JAX. The
+training route's call sites are the Swin attention cores (C-F / C-B), and
+their grid sizing covers every item once.
 """
 
 import jax
@@ -33,6 +35,7 @@ from mmrp_tpu_torch.ops import fused_mlp as K2
 from mmrp_tpu_torch.ops import fused_swin_block as SB
 from mmrp_tpu_torch.ops import fused_swin_pair as SP
 from mmrp_tpu_torch.ops import fused_window_attention as K1
+from mmrp_tpu_torch.ops import wattn_core as WC
 from mmrp_tpu_torch.utils.convert import load_flax_params
 from test_torch_slice import KEYS, TOL, inputs, randomize, run_jax
 
@@ -267,3 +270,120 @@ def test_micro_from_config_serves_through_plain_routes_like_jax(monkeypatch):
     # five attentions, none of which the kernels take here (the FFN, C 64,
     # is K2's: its CPU tensors run the plain version uncounted)
     assert [fn.plain_calls for fn in counters] == [1, 1, 1 + 2 * 5]
+
+
+# (res, C, heads, depth) of every training stage with more than one window
+TRAIN_CORE_STAGES = {
+    "swin_base": ((56, 128, 4, 2), (28, 256, 8, 2), (14, 512, 16, 18)),
+    "swin_tiny": ((56, 96, 3, 2), (28, 192, 6, 2), (14, 384, 12, 6)),
+    "swin_small": ((56, 96, 3, 2), (28, 192, 6, 2), (14, 384, 12, 18)),
+}
+
+
+def test_core_kernel_takes_every_training_stage():
+    """C-F / C-B take every Swin-B, -T and -S training stage at both shifts
+    (head dim 32, 7 x 7 windows), and not the slice tests' model's stage 1
+    (head dim 8); nor windows over 64 tokens or a shift of ws or more."""
+    for stages in TRAIN_CORE_STAGES.values():
+        for res, C, heads, _ in stages:
+            for shift in (0, 3):
+                assert WC.kernel_takes(C, heads, 7, shift), (C, heads, shift)
+    assert not WC.kernel_takes(16, 2, 7, 0) and not WC.kernel_takes(16, 2, 7, 3)
+    for args in ((128, 4, 9, 0), (128, 4, 7, 7), (96, 4, 7, 0), (64, 1, 7, 0)):
+        assert not WC.kernel_takes(*args), args
+    assert WC.kernel_takes(128, 4, 8, 4)  # 64 tokens
+
+
+@pytest.mark.parametrize("name", ["flagship", "swin_tiny", "swin_small", "slice"])
+def test_training_route_names_its_core_call_sites(name):
+    """The training route's call sites are the attention cores of the stages
+    with more than one window, ``swin.stage{s}.core``: every one on the
+    kernels for the flagship (Swin-B), Swin-T and Swin-S, with stage 4
+    (one window) no call site; the slice tests' model's stage 1 plain."""
+    if name == "flagship":
+        cfg = MultiModalConfig.flagship()
+    elif name == "slice":
+        cfg = SLICE
+    else:
+        cfg = MultiModalConfig.from_config(Config(image_backbone=name))
+    routes = model_routes(cfg, train=True)
+    if name == "slice":
+        assert routes == {"swin.stage0.core": "plain"}
+        assert plain_routes(cfg, train=True) == ["swin.stage0.core"]
+    else:
+        assert routes == {f"swin.stage{s}.core": "kernel" for s in range(3)}
+        assert plain_routes(cfg, train=True) == []
+    assert MultiModalRetrievalModel(cfg, device="meta").backbones.swin.train_plan == \
+        [routes.get(f"swin.stage{s}.core") for s in range(len(cfg.swin.depths))]
+
+
+def test_core_layout_constants_are_the_kernels():
+    """``wattn_core`` copies csrc/wattn_core.cu's layout constants, and every
+    window the kernels take (ws 1 to 8) gives both layouts room for
+    BLOCKS_PER_SM blocks an SM, as the source's static_assert demands."""
+    import re
+    from pathlib import Path
+
+    csrc = Path(WC.__file__).resolve().parent.parent / "csrc"
+    k = {}
+    for header in ("attn_tile.cuh", "wattn_core.cu"):
+        for decl in re.findall(r"^constexpr (?:int|size_t) ([^;]*);", (csrc / header).read_text(),
+                               re.M):
+            for item in decl.split(","):
+                name, expr = (part.strip() for part in item.split("=", 1))
+                if "sizeof" not in expr:
+                    k[name] = int(eval(expr.split("//")[0], {}, dict(k)))
+    assert (WC.HEAD_DIM, WC.BLOCKS_PER_SM, WC.FWD_STAGES, WC.BWD_STAGES, WC.ZERO_ROW,
+            WC.MAX_N7, WC.MAX_RANKS, WC.BLOCK_SMEM, WC.PT_BYTES) == \
+        (k["kD"], k["kBlocksPerSm"], k["kFwdStages"], k["kBwdStages"], k["kZeroRow"],
+         k["kMaxN7"], k["kMaxRanks"], k["kBlockSmem"], k["kPElems"] * 2)
+    for ws in range(1, 9):
+        plan = WC.core_plan(1, 1, 1, ws, 132)
+        assert max(plan.fwd_smem, plan.bwd_smem) <= WC.BLOCK_SMEM, ws
+        assert WC.kernel_takes(32, 1, ws, ws - 1)
+    assert not WC.kernel_takes(32, 1, 9, 0)
+
+
+@pytest.mark.parametrize("B", [1, 2, 3, 7, 9, 64])
+def test_core_plan_covers_each_image_of_each_pair_once(B):
+    """The host's sizing of C-F and C-B (the Python copy, which the card test
+    holds to the C function): C-F's blocks cover the B x (window, head) items
+    in runs that meet end to end, at most BLOCKS_PER_SM an SM; C-B's cluster
+    ranks (1 to 8, at most B) cover each image of each (window, head) once,
+    with the fewest waves of clusters times images a rank; both
+    layouts let BLOCKS_PER_SM blocks share an SM's 228 KB."""
+    for stages in TRAIN_CORE_STAGES.values():
+        for res, C, heads, _ in stages:
+            nW = (res // 7) ** 2
+            pairs = nW * heads
+            for sms, fit in ((132, None), (114, None), (0, None),
+                             (132, [528, 264, 176, 124, 100, 86, 72, 62])):
+                plan = WC.core_plan(B, nW, heads, 7, sms, fit)
+                items = B * pairs
+                bounds = [k * items // plan.fwd_blocks for k in range(plan.fwd_blocks + 1)]
+                assert bounds[0] == 0 and bounds[-1] == items
+                assert all(a < b for a, b in zip(bounds, bounds[1:]))  # no empty block
+                assert plan.fwd_blocks <= WC.BLOCKS_PER_SM * max(sms, 1)
+                assert 1 <= plan.ranks <= min(B, 8)
+                images = [b for q in range(plan.ranks)
+                          for b in range(q * plan.per_rank, min(B, (q + 1) * plan.per_rank))]
+                assert images == list(range(B)), (res, heads, sms)
+                fit = fit or [WC.BLOCKS_PER_SM * sms // r for r in range(1, 9)]
+                costs = {r: -(-pairs // fit[r - 1]) * -(-B // r)
+                         for r in range(1, min(B, 8) + 1) if fit[r - 1] > 0}
+                if costs:
+                    assert costs[plan.ranks] == min(costs.values())
+                    best = min(costs.values())
+                    assert plan.ranks == min(r for r, c in costs.items() if c == best)
+                assert WC.BLOCKS_PER_SM * (max(plan.fwd_smem, plan.bwd_smem) + 1024) <= 233472
+    # Swin-B stage 3 on 132 SMs: 64 (window, head) pairs, a cluster of 8 for
+    # each in one wave, 8 images a rank at B 64; where only 62 such clusters
+    # fit at once, 7 ranks of 10 images
+    if B == 64:
+        assert WC.core_plan(64, 4, 16, 7, 132)[1:3] == (8, 8)
+        assert WC.core_plan(64, 4, 16, 7, 132, [528, 264, 176, 124, 100, 86, 72, 62])[1:3] \
+            == (7, 10)
+    # 8 x 8 windows: C-B's bias read from device memory, and still 4 blocks an SM
+    plan, plan7 = WC.core_plan(B, 4, 4, 8, 132), WC.core_plan(B, 4, 4, 7, 132)
+    assert plan.bwd_smem < plan7.bwd_smem
+    assert WC.BLOCKS_PER_SM * (max(plan.fwd_smem, plan.bwd_smem) + 1024) <= 233472
