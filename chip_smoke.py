@@ -54,6 +54,21 @@ Phases, each of which fails the run (nonzero exit, no result line):
    Embed pairs/s of every route at batch 8 and 64 (the default route and
    ``int8_static`` also at text length 128 and 512) and the top-10 latency
    over the gallery, for information.
+4c. serve from a run directory: a run directory written from the flagship's
+   weights (``state_dict_to_flax_flat`` -> ``save_param_tree``), with a
+   100,008-row gallery that holds the requests' embeddings, labels, KG node
+   embeddings, thresholds and 8 16-bit DICOM files of 2048 x 2048;
+   ``MMRPredictor.from_run_dir`` on it, then ``predict`` on the DICOM files
+   (the run's preprocessor and tokenizer, 512 tokens) with the reranker:
+   launch counts, no plain call, probs and joint_emb bit-identical to the
+   in-process predictor, the reranked lists equal to the port's ``Reranker``
+   applied by hand. ``preprocess_batch`` on the card against the CPU at
+   (8, 2048, 2048) -> 224 (max |d| <= 1e-4, timed). ``StreamingPipeline`` at
+   batch 64 and 512 tokens, 4 batches, the last with 10 padded rows, in the
+   uint16 + window, uint8 and f32 forms: the valid rows, joint_emb cosine
+   >= 0.9999 between each compact form and the f32 form of its pixels, every
+   request's own id at rank 1; stream pairs/s at depth 1 and 2 (16 batches,
+   3 rounds) for information.
 5. training kernels: the raw-layout window-attention core's forward (C-F) and
    backward (C-B) against the plain composition (autograd through it for the
    backward) at the Swin-B stage 1-3 shapes of a batch-64 train step and the
@@ -84,6 +99,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -191,6 +207,8 @@ EXPECTED = {
 for _L in TEXT_LENGTHS[1:]:
     EXPECTED[f"whole_L{_L}"] = EXPECTED["whole"]
 EXPECTED["int8_static_L512"] = EXPECTED["int8_static"]
+# serving from a run directory: the default route at 512 tokens
+EXPECTED["run_dir"] = EXPECTED["whole"]
 # the path whose run counts each kernel's launches (None: no route calls it)
 PATH_OF = {name: "whole" for name in SERVING}
 PATH_OF.update({name: "int8_static" for name in (
@@ -270,6 +288,18 @@ KG_DIM = 300
 # from TRAIN_LR
 TRAIN_LR = 1e-4
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
+# serving from a run directory: 8 requests as 16-bit DICOM files of 2048^2
+# and reports of up to 512 tokens (the JAX serving default); the stream at
+# batch 64, 4 batches, the last with 10 padded rows (timed over those 4
+# batches 4 times in a row, at depth 1 and 2 in turn). Preprocessing on the
+# card against the CPU: both f32, with the same antialiased resize in other
+# summation orders (tests/test_torch_data.py holds the CPU's within 1e-4 of
+# JAX's)
+DICOM_HW = 2048
+RUN_TEXT_LEN = 512
+STREAM_B, STREAM_BATCHES, STREAM_PAD = 64, 4, 10
+STREAM_TIMED_REPEATS, STREAM_TIMED_ROUNDS = 4, 3
+PREPROCESS_TOL = 1e-4
 
 
 def log(*args):
@@ -396,6 +426,9 @@ def main() -> int:
     try:
         from mmrp_tpu_torch.api import MMRPredictor, serving_forward
         from mmrp_tpu_torch.config import Config
+        from mmrp_tpu_torch.data.dicom import DICOMImagePreprocessor, read_dicom, write_dicom
+        from mmrp_tpu_torch.data.tokenizer import WordPieceTokenizer
+        from mmrp_tpu_torch.labels import LABEL_COLS
         from mmrp_tpu_torch.models.multimodal import (
             MultiModalConfig,
             MultiModalRetrievalModel,
@@ -411,14 +444,21 @@ def main() -> int:
         from mmrp_tpu_torch.ops import fused_window_attention as K1
         from mmrp_tpu_torch.ops import wattn_core as WC
         from mmrp_tpu_torch.ops import window_attention as WA
+        from mmrp_tpu_torch.ops.preprocess import preprocess_batch
         from mmrp_tpu_torch.ops.quant import quantize_weight
         from mmrp_tpu_torch.retrieval.gallery import RetrievalEngine
+        from mmrp_tpu_torch.retrieval.rerank import Reranker
+        from mmrp_tpu_torch.serve.stream import StreamingPipeline
         from mmrp_tpu_torch.train.joint import (
             compute_losses,
             init_train_state,
             make_train_step,
         )
-        from mmrp_tpu_torch.utils.convert import init_params
+        from mmrp_tpu_torch.utils.convert import (
+            init_params,
+            save_param_tree,
+            state_dict_to_flax_flat,
+        )
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 2
@@ -1090,10 +1130,216 @@ def main() -> int:
             times.append((time.perf_counter() - t0) * 1e3)
     log(f"top-10 over {len(gallery_ids)} x {cfg.joint_dim}: p50 "
         f"{statistics.median(times):.3f} ms (host clock, query upload to ids)")
-    del model, model_k1k2, routes, m, engine, fwd, img_d, ids_d, mask_d
+    del model_k1k2, routes, m, engine, fwd, img_d, ids_d, mask_d
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("int8 serving and throughput")
+
+    # -- 4c. serve from a run directory ----------------------------------------
+    # a run directory as the JAX trainer leaves it, written by the port alone
+    # (the card has no JAX): the weights of the in-process flagship `model`
+    with tempfile.TemporaryDirectory() as tmp:
+        run = Path(tmp) / "run"
+        (run / "joint").mkdir(parents=True)
+        (run / "kg").mkdir()
+        t0 = time.perf_counter()
+        (run / "config.yaml").write_text(
+            "image_backbone: swin\nimage_size: 224\njoint_dim: 1024\nnum_fusion_layers: 5\n"
+            "num_heads: 8\ntext_dim: 512\nserve_quant: none\nbatch_size: 64\n"
+            "rerank_alpha: 0.6\nrerank_beta: 0.25\nrerank_gamma: 0.15\ndtype_policy: bf16\n")
+        text_dims = {k: v for k, v in dataclasses.asdict(cfg.text).items() if k != "quant"}
+        (run / "model_config.json").write_text(json.dumps(
+            {"flagship": True, "vision_backbone": "swin",
+             "text": {**text_dims, "use_fused_ffn": False, "use_fused_attention": True}}))
+        words = [f"w{i}" for i in range(cfg.text.vocab_size - 5)]
+        (run / "vocab.txt").write_text(
+            "\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words) + "\n")
+        save_param_tree(run / "joint" / "params.npz",
+                        {f"model/{k}": v for k, v in state_dict_to_flax_flat(model).items()})
+        r = np.random.default_rng(SEED + 4)
+        thresholds = r.uniform(0.3, 0.7, len(LABEL_COLS)).astype(np.float32)
+        np.save(run / "joint" / "thresholds.npy", thresholds)
+        # 8 requests: 16-bit DICOM files (MONOCHROME1 and 2, with and without
+        # window tags) and reports long enough to fill 512 tokens
+        # window, or the preprocessor's default of 40 / 400 for the untagged
+        dicoms, reports = [], []
+        yy, xx = np.mgrid[0:DICOM_HW, 0:DICOM_HW] / DICOM_HW
+        for b in range(B):
+            wave = np.sin(6.3 * (r.random() + 1) * yy + 3 * xx * r.random())
+            center, amp = (1800.0, 1000.0) if b % 2 else (100.0, 150.0)
+            pixels = (center + amp * wave + r.normal(0, amp / 8, (DICOM_HW, DICOM_HW)))
+            pixels = pixels.clip(0, 4095).astype(np.uint16)
+            window = dict(window_center=1800.0, window_width=2400.0) if b % 2 else {}
+            dicoms.append(run / f"req{b}.dcm")
+            write_dicom(dicoms[-1], pixels, photometric="MONOCHROME1" if b % 4 == 3
+                        else "MONOCHROME2", **window)
+            reports.append(" ".join(r.choice(words, int(r.integers(40, 700)))))
+        tok = WordPieceTokenizer.from_vocab_file(str(run / "vocab.txt"))
+        pre = DICOMImagePreprocessor(output_size=(224, 224))
+        t1 = time.perf_counter()
+        req_images = np.stack([pre.load(str(p)).transpose(1, 2, 0) for p in dicoms])
+        log(f"run directory: DICOM decode + preprocessing of {B} x {DICOM_HW}^2 on the host: "
+            f"{time.perf_counter() - t1:.2f} s")
+        enc = [tok.encode(text, RUN_TEXT_LEN) for text in reports]
+        req_ids, req_mask = np.stack([e[0] for e in enc]), np.stack([e[1] for e in enc])
+        inproc = MMRPredictor(model, LABEL_COLS)
+        req_emb = inproc.embed(req_images, req_ids, req_mask)["joint_emb"]
+        run_ids = gallery_ids[:len(gallery)] + [f"req{b}" for b in range(B)]
+        np.save(run / "train_embeddings.npy", np.concatenate([gallery, req_emb]))
+        (run / "train_ids.json").write_text(json.dumps(run_ids))
+        labels_by_id = {rid: (r.random(len(LABEL_COLS)) < 0.1).astype(int) for rid in run_ids}
+        (run / "records_cache.json").write_text(json.dumps({"records": [
+            {"id": rid, "labels": lab.tolist()} for rid, lab in labels_by_id.items()]}))
+        # KG: report nodes of every other gallery record and of the requests,
+        # label nodes of every label
+        nodes = ([f"report:{rid}" for rid in run_ids[:len(gallery):2]]
+                 + [f"report:req{b}" for b in range(B)] + [f"label:{n}" for n in LABEL_COLS])
+        node2id = {n: i for i, n in enumerate(nodes)}
+        node_emb = r.standard_normal((len(nodes), KG_DIM)).astype(np.float32)
+        np.save(run / "kg" / "node_embeddings.npy", node_emb)
+        (run / "kg" / "node2id.json").write_text(json.dumps(node2id))
+        log(f"run directory written: {time.perf_counter() - t0:.1f} s "
+            f"(params.npz {(run / 'joint' / 'params.npz').stat().st_size / 1e9:.2f} GB, "
+            f"gallery {len(run_ids)} x {cfg.joint_dim}, {len(nodes)} KG nodes)")
+
+        t0 = time.perf_counter()
+        served = MMRPredictor.from_run_dir(str(run))
+        log(f"MMRPredictor.from_run_dir: {time.perf_counter() - t0:.1f} s, "
+            f"{next(served.model.parameters()).dtype} on {served.device}")
+        if served.device != dev or next(served.model.parameters()).dtype != bf16:
+            fail("from_run_dir: the model is not bf16 on the card")
+        no_plain_route("run_dir", served.model)
+        reset_counts()
+        pred = served.predict(req_images, req_ids, req_mask, K=10)
+        torch.cuda.synchronize()
+        launches["run_dir"] = read_counts()
+        log(f"launches in one predict from the run directory (batch {B}, L{RUN_TEXT_LEN}): "
+            f"{ {k: v for k, v in launches['run_dir'].items() if v} }")
+        if launches["run_dir"] != EXPECTED["run_dir"]:
+            fail(f"run_dir: launch counts {launches['run_dir']}, expected {EXPECTED['run_dir']}")
+        # the same weights in process, with the run's engine, reranker and thresholds
+        want = MMRPredictor(model, LABEL_COLS, served.retriever, served.reranker,
+                            threshold=thresholds).predict(req_images, req_ids, req_mask, K=10)
+        for key in ("probs", "joint_emb"):
+            if not np.array_equal(pred[key], want[key]):
+                fail(f"run_dir: {key} differs from the in-process predictor's "
+                     f"(max |d| {np.abs(pred[key] - want[key]).max():.3e})")
+        for key in ("predicted", "top_labels", "retrieval"):
+            if pred[key] != want[key]:
+                fail(f"run_dir: {key} differs from the in-process predictor's")
+        # the reranked lists against the port's Reranker applied by hand, for
+        # the batch (no query id) and request 0 keyed by its own record
+        hand = Reranker(alpha=0.6, beta=0.25, gamma=0.15, labels_by_id=labels_by_id,
+                        label_names=LABEL_COLS, kg_node_embeddings=node_emb,
+                        kg_node2id=node2id)
+        one = served.predict(req_images[:1], req_ids[:1], req_mask[:1], K=10, query_id="req0")
+        for b, qid, q, got in ([(b, None, pred["joint_emb"][b], pred["retrieval"][b])
+                                 for b in range(B)]
+                                + [(0, "req0", one["joint_emb"][0], one["retrieval"][0])]):
+            cands = [h[0] for h in served.retriever.retrieve(q, K=30, query_id=qid)]
+            ranked = hand.rerank(qid or "", cands, served.retriever.get_embeddings_for_ids(cands),
+                                 q, topk=10)
+            if got != [(x[0], x[1]) for x in ranked]:
+                fail(f"run_dir: request {b} (query id {qid}): the reranked list differs from "
+                     "the Reranker's by hand")
+        if "req0" in [rid for rid, _ in one["retrieval"][0]]:
+            fail("run_dir: a request keyed by its own record retrieved itself")
+        log(f"run_dir: probs and joint_emb bit-identical to the in-process predictor; "
+            f"reranked top-3 of request 0 {pred['retrieval'][0][:3]}, keyed by req0 "
+            f"{one['retrieval'][0][:3]}")
+
+        # preprocessing on the card: the requests' raw pixels and windows
+        dcms = [read_dicom(str(p)) for p in dicoms]
+        raw = np.stack([d.pixel_array.astype(np.float32) for d in dcms])
+        wc = np.array([pre.default_window_center if d.window_center is None
+                       else d.window_center for d in dcms], np.float32)
+        ww = np.array([pre.default_window_width if d.window_width is None
+                       else d.window_width for d in dcms], np.float32)
+        args = [torch.from_numpy(a) for a in (raw, wc, ww)]
+        want_pre = preprocess_batch(*args)
+        args = [a.to(dev) for a in args]
+        got_pre = preprocess_batch(*args)
+        err = (got_pre.cpu() - want_pre).abs().max().item()
+        pre_ms = cuda_ms(torch, lambda: preprocess_batch(*args), reps=10, warmup=2)
+        log(f"preprocess_batch ({B}, {DICOM_HW}, {DICOM_HW}) -> 224 on {dev}: "
+            f"max |d| against the CPU {err:.3e} (<= {PREPROCESS_TOL}), {pre_ms:.3f} ms")
+        if tuple(got_pre.shape) != (B, 224, 224, 3) or not err <= PREPROCESS_TOL:
+            fail("preprocess_batch on the card strays from the CPU")
+        del args, got_pre, want_pre, raw
+
+        # the stream: batch 64 at 512 tokens, 4 batches, the last with padded
+        # rows, in the uint16 + window, uint8 and f32 forms; each compact form
+        # beside the f32 form of the same pixels
+        r = np.random.default_rng(SEED + 5)
+        n_valid = STREAM_BATCHES * STREAM_B - STREAM_PAD
+        forms = {}
+        for form in ("uint16", "uint8"):
+            batches, f32_batches = [], []
+            for i in range(STREAM_BATCHES):
+                if form == "uint16":
+                    img = r.integers(0, 4096, (STREAM_B, 224, 224)).astype(np.uint16)
+                    wcs = r.uniform(1500, 2500, STREAM_B).astype(np.float32)
+                    wws = r.uniform(800, 3000, STREAM_B).astype(np.float32)
+                    lo, hi = (wcs - wws / 2)[:, None, None], (wcs + wws / 2)[:, None, None]
+                    x = (np.clip(img.astype(np.float32), lo, hi) - lo) / (hi - lo)
+                    extra = {"window_center": wcs, "window_width": wws}
+                else:
+                    img = r.integers(0, 256, (STREAM_B, 224, 224)).astype(np.uint8)
+                    x = img.astype(np.float32) / 255.0
+                    extra = {}
+                lengths = r.integers(8, RUN_TEXT_LEN + 1, STREAM_B)
+                valid = np.ones(STREAM_B, np.float32)
+                if i == STREAM_BATCHES - 1:
+                    valid[STREAM_B - STREAM_PAD:] = 0.0
+                text = {"input_ids": r.integers(5, cfg.text.vocab_size, (STREAM_B, RUN_TEXT_LEN)),
+                        "attention_mask": (np.arange(RUN_TEXT_LEN)[None, :]
+                                           < lengths[:, None]).astype(np.int64),
+                        "valid": valid,
+                        "ids": [f"{form}_{i * STREAM_B + j}" for j in range(STREAM_B)]}
+                batches.append({"image": img, **extra, **text})
+                f32_batches.append({"image": ((x - 0.5) / 0.5)[..., None].repeat(3, -1)
+                                    .astype(np.float32), **text})
+            forms[form] = batches
+            forms[f"f32_of_{form}"] = f32_batches
+        t0 = time.perf_counter()
+        embs, ids_s = [], []
+        plain_pipe = StreamingPipeline(served.model, None, LABEL_COLS, thresholds)
+        for form in ("f32_of_uint16", "f32_of_uint8"):
+            for res in plain_pipe.run(forms[form]):
+                embs.append(res["joint_emb"])
+                ids_s += res["ids"]
+        stream_engine = RetrievalEngine(np.concatenate([gallery] + embs),
+                                        gallery_ids[:len(gallery)] + ids_s, device=dev)
+        pipe = StreamingPipeline(served.model, stream_engine, LABEL_COLS, thresholds, K=10)
+        out = {}
+        for form, batches in forms.items():
+            res = list(pipe.run(batches))
+            if pipe.stats["pairs"] != n_valid or len(res[-1]["probs"]) != STREAM_B - STREAM_PAD:
+                fail(f"stream {form}: {pipe.stats['pairs']} rows, expected {n_valid}")
+            top1 = [row[0][0] for part in res for row in part["retrieval"]]
+            own = [rid for part in res for rid in part["ids"]]
+            if top1 != own:
+                fail(f"stream {form}: a request's own id is not at rank 1")
+            out[form] = np.concatenate([part["joint_emb"] for part in res])
+        for form in ("uint16", "uint8"):
+            cos = cosine(out[form], out[f"f32_of_{form}"])
+            log(f"stream {form} form against its f32 form: joint_emb cosine min {cos.min():.6f} "
+                f"(>= {EMB_COS_MIN}), {n_valid} rows, every own id at rank 1")
+            if not cos.min() >= EMB_COS_MIN:
+                fail(f"stream {form}: the compact form strays from the f32 form")
+        log(f"stream checks: {time.perf_counter() - t0:.1f} s")
+        timed = forms["uint16"] * STREAM_TIMED_REPEATS
+        for depth in (1, 2) * STREAM_TIMED_ROUNDS:
+            list(pipe.run(timed, depth=depth))
+            log(f"stream uint16 + window, batch {STREAM_B}, L{RUN_TEXT_LEN}, depth {depth}: "
+                f"{pipe.stats['pairs_per_sec']:.1f} pairs/s ({pipe.stats['pairs']} pairs, "
+                f"{pipe.stats['wall_s']:.3f} s, host clock)")
+        del served, pred, want, pipe, plain_pipe, stream_engine, forms, out, embs, timed
+    del model, gallery
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("serve from a run directory")
+
 
     # -- 5. the training kernels against their plain versions ------------------
     def check(name, label, err, rel, tol):

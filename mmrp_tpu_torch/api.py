@@ -2,7 +2,8 @@
 
 Counterpart of ``mmrp_tpu/api.py``: ``serving_forward`` is the one serving
 forward contract, and ``MMRPredictor`` composes it with an exact retrieval
-engine and an optional reranker. Explanation and ``from_run_dir`` are not
+engine and an optional reranker; ``MMRPredictor.from_run_dir`` builds all of
+it from a training-run directory (``serve/runner.py``). Explanation is not
 ported yet (ROADMAP.md Queue 1).
 """
 
@@ -13,6 +14,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from mmrp_tpu_torch.device import DEFAULT_DEVICE
 from mmrp_tpu_torch.models.multimodal import MultiModalRetrievalModel
 from mmrp_tpu_torch.models.quant_calib import build_quant_cache
 from mmrp_tpu_torch.retrieval.gallery import RetrievalEngine
@@ -36,10 +38,10 @@ def serving_forward(model: MultiModalRetrievalModel) -> Callable[..., Dict[str, 
 
 
 class MMRPredictor:
-    """``reranker``, when given, is any object with
+    """``reranker``, when given, reorders an over-fetched candidate pool
+    (``retrieval/rerank.py::Reranker``, or any object with its
     ``rerank(query_id, cand_ids, cand_embs, query_emb, topk=K)`` returning
-    ranked ``(id, score, ...)`` tuples (``mmrp_tpu.retrieval.rerank.Reranker``
-    has that method)."""
+    ranked ``(id, score, ...)`` tuples)."""
 
     def __init__(
         self,
@@ -125,3 +127,14 @@ class MMRPredictor:
                 self.retrieve(out["joint_emb"][b], K=K, query_id=qid) for b in range(B)
             ]
         return results
+
+    # -- construction from a trained run -------------------------------------
+
+    @classmethod
+    def from_run_dir(cls, run_dir: str, device=DEFAULT_DEVICE) -> "MMRPredictor":
+        """The predictor of a training-run directory (weights, gallery,
+        reranker inputs, thresholds) on ``device``, the card unless the
+        caller names another (``serve/runner.py::build_demo_context``)."""
+        from mmrp_tpu_torch.serve.runner import build_demo_context
+
+        return build_demo_context(run_dir, device=device)["predictor"]

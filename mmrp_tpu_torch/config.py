@@ -1,8 +1,9 @@
 """Settings of the served model and of the joint train step.
 
 Counterpart of the fields of ``mmrp_tpu/config.py::Config`` that
-``MultiModalConfig.from_config``, ``train/joint.py`` and ``train/state.py``
-read, under the same names and defaults. :meth:`Config.load` reads the JAX
+``MultiModalConfig.from_config``, ``train/joint.py``, ``train/state.py``,
+``serve/runner.py`` and ``serve/stream.py`` read, under the same names,
+defaults and validation. :meth:`Config.load` reads the JAX
 package's flat YAML files (``configs/config.yaml``) without PyYAML.
 """
 
@@ -50,11 +51,23 @@ class Config:
     kg_weight: float = 0.1
     kg_method: str = "cosine"
     adam_mu_bf16: bool = True  # Adam's first moment stored in bf16
-    augment: bool = False  # the train step refuses True (train/joint.py)
+    augment: bool = False  # on-device rotation / flip of the train step's images
+    batch_size: int = 32  # the batch of a stream (serve/stream.py::run_stream)
+    # the reranker's weights of embedding cosine, label Jaccard and KG cosine
+    rerank_alpha: float = 0.6
+    rerank_beta: float = 0.25
+    rerank_gamma: float = 0.15
+    # bf16 | f32: serve/runner.py serves bf16 on the card, where no kernel
+    # takes f32 (it refuses "f32" there), and f32 on the CPU
+    dtype_policy: str = "bf16"
 
     def __post_init__(self):
+        if not (isinstance(self.batch_size, int) and self.batch_size > 0):
+            raise ValueError(f"batch_size must be > 0, got {self.batch_size!r}")
         if self.modality not in ("multimodal", "image", "text"):
             raise ValueError(f"invalid modality: {self.modality!r}")
+        if self.dtype_policy not in ("bf16", "f32"):
+            raise ValueError(f"invalid dtype_policy: {self.dtype_policy!r}")
 
     @staticmethod
     def load(path: str) -> "Config":

@@ -5,11 +5,16 @@ Counterpart of the single-device path of ``mmrp_tpu/retrieval/gallery.py``
 so cosine is a dot product: one f32 ``queries @ gallery.T`` and a top-K.
 ``RetrievalEngine`` keeps the JAX engine's contracts: f32 query
 normalization with eps 1e-8, ``k = min(k, n_real)``, self-exclusion through
-``query_id``, and zero-filled ``get_embeddings_for_ids``.
+``query_id``, and zero-filled ``get_embeddings_for_ids``. As in JAX, the
+search is split in two for a pipelined caller (``serve/stream.py``):
+``retrieve_batch_device`` leaves its results on the device, and
+``finalize_batch`` brings them to the host.
 """
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -53,6 +58,13 @@ class RetrievalEngine:
         self.device = resolve_device(device, "RetrievalEngine")
         self._device_gallery: Optional[torch.Tensor] = None
 
+    @classmethod
+    def from_files(cls, emb_path: str, ids_path: str, device=DEFAULT_DEVICE) -> "RetrievalEngine":
+        """A run directory's ``train_embeddings.npy`` (N, D) and ``train_ids.json``."""
+        emb = np.load(emb_path)
+        ids = json.loads(Path(ids_path).read_text())
+        return cls(emb, ids, device=device)
+
     def get_embeddings_for_ids(self, ids: Sequence[str]) -> np.ndarray:
         """(len(ids), D); zero vector for unknown ids."""
         out = np.zeros((len(ids), self.embeddings.shape[1]), dtype=np.float32)
@@ -62,15 +74,28 @@ class RetrievalEngine:
                 out[i] = self.embeddings[j]
         return out
 
-    def retrieve_batch(self, queries: np.ndarray, k: int = 10) -> Tuple[np.ndarray, np.ndarray]:
-        """(Q, D) -> (scores (Q, kk), indices (Q, kk)), kk = min(k, N); the
-        queries are normalized in f32 on the device."""
+    def retrieve_batch_device(self, queries_dev: torch.Tensor,
+                              k: int = 10) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Device (Q, D) -> device (scores (Q, kk), indices (Q, kk)),
+        kk = min(k, N); the queries are normalized in f32 on the device. No
+        host sync: a pipelined caller enqueues the next batch's search before
+        it reads this one's (``finalize_batch``)."""
         if self._device_gallery is None:
             self._device_gallery = torch.from_numpy(self.embeddings).to(self.device)
-        q = torch.as_tensor(np.asarray(queries, np.float32)).to(self.device)
+        q = queries_dev.to(self.device, torch.float32)
         q = q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=1e-8)
-        s, i = topk_single(q, self._device_gallery, min(k, len(self.ids)))
+        return topk_single(q, self._device_gallery, min(k, len(self.ids)))
+
+    def finalize_batch(self, s: torch.Tensor, i: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
+        """Device top-K results -> numpy. The JAX engine also drops the
+        padding rows of its mesh-sharded gallery here; this gallery has none
+        (every row is real), so nothing else is left to do."""
         return s.cpu().numpy(), i.cpu().numpy()
+
+    def retrieve_batch(self, queries: np.ndarray, k: int = 10) -> Tuple[np.ndarray, np.ndarray]:
+        """(Q, D) -> (scores (Q, kk), indices (Q, kk)), kk = min(k, N)."""
+        q = torch.as_tensor(np.asarray(queries, np.float32))
+        return self.finalize_batch(*self.retrieve_batch_device(q, k))
 
     def retrieve(self, query_emb: np.ndarray, K: int = 10,
                  query_id: Optional[str] = None) -> List[Tuple[str, float]]:

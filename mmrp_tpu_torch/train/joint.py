@@ -10,10 +10,11 @@ Counterpart of ``mmrp_tpu/train/joint.py`` (``init_train_state``,
 
 The model runs its training route (``deterministic=False``: Swin through the
 raw-layout attention core C-F / C-B, BERT and fusion on their XLA branches
-with dropout), in its own dtypes; ``train/state.py`` says how the f32 master
-weights meet it. A step updates the state and the model in place and
-rebuilds every Swin block's cached serving bias from its updated table, so
-the serving route reads the stepped weights.
+with dropout; with ``cfg.augment`` the images rotated and flipped first by
+``ops/preprocess.py::augment_batch``), in its own dtypes; ``train/state.py``
+says how the f32 master weights meet it. A step updates the state and the
+model in place and rebuilds every Swin block's cached serving bias from its
+updated table, so the serving route reads the stepped weights.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 from mmrp_tpu_torch.config import Config
 from mmrp_tpu_torch.models.multimodal import MultiModalRetrievalModel
 from mmrp_tpu_torch.models.swin import WindowAttention
+from mmrp_tpu_torch.ops import preprocess
 from mmrp_tpu_torch.ops.quant import int8_linears, refresh_int8
 from mmrp_tpu_torch.train import losses as L
 from mmrp_tpu_torch.train.state import TrainState, make_optimizer
@@ -50,23 +52,16 @@ def init_train_state(model: MultiModalRetrievalModel, cfg: Config, seed: int = 0
     return TrainState(params, mu, nu, 0, cfg.seed, tx)
 
 
-def refuse_augment(cfg: Config) -> None:
-    """The JAX train step augments the batch's images here when
-    ``cfg.augment`` (``mmrp_tpu/train/joint.py:83-87``); the port has no
-    ``augment_batch`` yet."""
-    if cfg.augment:
-        raise NotImplementedError(
-            "Config(augment=True) trains on augmented images, which needs "
-            "ops/preprocess.py::augment_batch, not ported yet (ROADMAP.md Queue 1 item 4)")
-
-
 def compute_losses(model: MultiModalRetrievalModel, kg_proj: Optional[torch.Tensor],
                    batch: Batch, generator: Optional[torch.Generator], cfg: Config,
                    pos_weight: Optional[torch.Tensor],
                    deterministic: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    if not deterministic:
-        refuse_augment(cfg)
-    out = model(batch["image"], batch["input_ids"], batch["attention_mask"],
+    image = batch["image"]
+    if not deterministic and cfg.augment:
+        # drawn before the dropout masks, from the same generator (JAX
+        # splits its step key into the augmentation's and dropout's)
+        image = preprocess.augment_batch(image, generator)
+    out = model(image, batch["input_ids"], batch["attention_mask"],
                 deterministic=deterministic, generator=generator)
     return assemble_losses(kg_proj, out, batch, cfg, pos_weight)
 
@@ -115,7 +110,6 @@ def make_train_step(model: MultiModalRetrievalModel, cfg: Config,
     state and the model are updated in place; the same state is returned.
     ``metrics`` holds the loss terms and ``grad_norm``, the global norm of the
     unclipped gradients, as Python floats."""
-    refuse_augment(cfg)
     device = next(model.parameters()).device
     pw = None if pos_weight is None else torch.as_tensor(pos_weight, dtype=torch.float32,
                                                          device=device)

@@ -1,4 +1,4 @@
-"""Weights for the port: the Flax -> state-dict bridge and a seeded init.
+"""Weights for the port: the Flax <-> state-dict bridge and a seeded init.
 
 ``flax_to_state_dict`` maps a Flax parameter tree of ``mmrp_tpu`` (a nested
 dict of arrays, with or without the top-level ``"params"``), the flat
@@ -28,11 +28,17 @@ quantize the bf16-cast weights they are given (``_qdot`` in K3, dynamic Swin)
 keep the module's weight. After :func:`init_params` both are the module's
 weights, bf16 in a bf16 model.
 
-The module reads numpy arrays only; it needs no JAX.
+:func:`state_dict_to_flax_flat` is the inverse: a port model's weights as
+the flat dict ``save_param_tree`` writes, which :func:`save_param_tree` here
+writes to an npz with numpy alone (a run directory's ``joint/params.npz``,
+``serve/runner.py``) and the JAX package's ``load_param_tree`` reads.
+
+The module reads and writes numpy arrays only; it needs no JAX.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -41,7 +47,7 @@ from torch import nn
 
 from mmrp_tpu_torch.models.layers import LayerNorm
 from mmrp_tpu_torch.models.quant_calib import build_quant_cache
-from mmrp_tpu_torch.models.swin import WindowAttention
+from mmrp_tpu_torch.models.swin import PatchEmbed, WindowAttention
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -104,6 +110,41 @@ def load_flax_params(model: nn.Module, tree_or_npz) -> Dict[str, torch.Tensor]:
     model.load_state_dict(state, strict=True)
     build_quant_cache(model, master=state, stale_only=True)
     return extra
+
+
+def state_dict_to_flax_flat(model: nn.Module) -> Dict[str, np.ndarray]:
+    """The model's weights as the Flax parameter tree, flat with ``/``-joined
+    keys (the keys ``save_param_tree`` writes for the model's tree), f32:
+    nn.Linear ``weight`` -> ``kernel`` (in, out), PatchEmbed's as the conv
+    kernel (kh, kw, in, out), LayerNorm ``weight`` -> ``scale``, nn.Embedding
+    ``weight`` -> ``embedding``; every other leaf keeps name and layout.
+    :func:`flax_to_state_dict` maps it back exactly."""
+    patch = {f"{path}.proj": m.patch_size for path, m in model.named_modules()
+             if isinstance(m, PatchEmbed)}
+    flat = {}
+    for path, module in model.named_modules():
+        for name, p in module.named_parameters(recurse=False):
+            arr = p.detach().float().cpu().numpy()
+            if isinstance(module, nn.Linear) and name == "weight":
+                name, arr = "kernel", arr.T
+                if path in patch:
+                    arr = arr.reshape(patch[path], patch[path], -1, arr.shape[-1])
+            elif isinstance(module, LayerNorm) and name == "weight":
+                name = "scale"
+            elif isinstance(module, nn.Embedding) and name == "weight":
+                name = "embedding"
+            flat["/".join(path.split(".") + [name])] = np.array(arr, order="C")
+    return flat
+
+
+def save_param_tree(path, flat: Mapping[str, np.ndarray]) -> None:
+    """A flat ``/``-joined dict -> one npz, through a temporary file, as
+    ``mmrp_tpu/utils/checkpoint.py::save_param_tree`` writes it, but
+    uncompressed: compressing the flagship's 1.5 GB of f32 takes minutes, and
+    ``np.load`` reads either."""
+    tmp = str(path) + ".tmp.npz"
+    np.savez(tmp, **flat)
+    Path(tmp).replace(path)
 
 
 @torch.no_grad()

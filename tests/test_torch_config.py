@@ -114,6 +114,14 @@ def test_config_load_coerces_and_warns(tmp_path, capsys):
     path.write_text("nested:\n  key: 1\n")
     with pytest.raises(ValueError, match="flat 'key: value'"):
         Config.load(str(path))
+    # the serving fields' validation, as JAX's
+    for text, match in (("dtype_policy: fp8\n", "invalid dtype_policy"),
+                        ("batch_size: 0\n", "batch_size must be > 0")):
+        path.write_text(text)
+        with pytest.raises(ValueError, match=match):
+            Config.load(str(path))
+        with pytest.raises(ValueError, match=match):
+            JConfig.load(str(path))
 
 
 def test_fields_not_ported_raise():

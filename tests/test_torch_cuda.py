@@ -230,6 +230,102 @@ def test_predict_runs_the_slice_model_through_its_plain_routes(dev):
     assert cos.min().item() > 0.999
 
 
+def write_slice_run(run, rng):
+    """A run directory written by the port alone at the slice tests' widths
+    (Swin-micro at 56 px: one stage of 4 windows, head dim 8; the slice
+    tests' text tower through model_config.json; 2 fusion layers at 64):
+    config.yaml, vocab.txt, the npz of seeded weights, thresholds, a gallery
+    and two 16-bit DICOM files. Returns the DICOM paths."""
+    import json
+
+    import numpy as np
+
+    from mmrp_tpu_torch.config import Config
+    from mmrp_tpu_torch.data.dicom import write_dicom
+    from mmrp_tpu_torch.labels import LABEL_COLS
+    from mmrp_tpu_torch.models.multimodal import MultiModalConfig, MultiModalRetrievalModel
+    from mmrp_tpu_torch.models.text_encoder import TextConfig
+    from mmrp_tpu_torch.utils.convert import init_params, save_param_tree, state_dict_to_flax_flat
+
+    (run / "joint").mkdir(parents=True)
+    fields = dict(image_backbone="swin_micro", image_size=56, joint_dim=64, num_fusion_layers=2,
+                  num_heads=4, text_dim=16)
+    (run / "config.yaml").write_text("".join(f"{k}: {v}\n" for k, v in fields.items()))
+    text = dict(vocab_size=64, hidden_dim=32, num_layers=1, num_heads=2, intermediate_dim=64,
+                max_positions=16)
+    (run / "model_config.json").write_text(json.dumps({"flagship": False, "text": text}))
+    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [f"w{i}" for i in range(59)]
+    (run / "vocab.txt").write_text("\n".join(words) + "\n")
+    model = MultiModalRetrievalModel(MultiModalConfig.from_config(
+        Config(**fields), num_classes=len(LABEL_COLS), text_override=TextConfig(**text)),
+        device="cpu")
+    init_params(model, seed=0)
+    save_param_tree(run / "joint" / "params.npz", state_dict_to_flax_flat(model))
+    np.save(run / "joint" / "thresholds.npy", rng.uniform(0.3, 0.7, 43).astype(np.float32))
+    np.save(run / "train_embeddings.npy", rng.standard_normal((50, 64)).astype(np.float32))
+    (run / "train_ids.json").write_text(json.dumps([f"g{i}" for i in range(50)]))
+    paths = [run / f"{i}.dcm" for i in range(2)]
+    for path in paths:
+        write_dicom(path, (rng.random((300, 260)) * 4000).astype(np.uint16),
+                    window_center=2000.0, window_width=3000.0)
+    return paths
+
+
+@pytest.mark.cuda
+def test_from_run_dir_serves_the_slice_widths_on_the_card(dev, tmp_path):
+    """MMRPredictor.from_run_dir on the card by default, from a run written
+    at the slice tests' widths: the model in bf16, every call site no kernel
+    takes on its plain route, counted, the fusion FFN (C 64) on K2; predict
+    from the DICOM files against the same run served on the CPU in f32; then
+    the stream's uint16 + window form against its f32 form, on the card."""
+    import numpy as np
+
+    from mmrp_tpu_torch.api import MMRPredictor
+    from mmrp_tpu_torch.serve.runner import build_demo_context
+    from mmrp_tpu_torch.serve.stream import StreamingPipeline
+
+    rng = np.random.default_rng(0)
+    paths = write_slice_run(tmp_path, rng)
+    pred = MMRPredictor.from_run_dir(str(tmp_path))
+    assert pred.device == dev and next(pred.model.parameters()).dtype == torch.bfloat16
+    ctx = build_demo_context(str(tmp_path), device="cpu")
+    images = np.stack([ctx["preprocessor"].load(str(p)).transpose(1, 2, 0) for p in paths])
+    enc = [ctx["tokenizer"].encode(t, ctx["max_length"])
+           for t in ("w1 w2 w3", " ".join(f"w{i}" for i in range(20)))]
+    ids, mask = np.stack([e[0] for e in enc]), np.stack([e[1] for e in enc])
+    counters = (tfw.fused_window_attention_windows, tfm.fused_ln_mlp_residual,
+                tfa.fused_attention)
+    before = [(fn.plain_calls, fn.launches) for fn in counters]
+    got = pred.predict(images, ids, mask, K=5)
+    torch.cuda.synchronize()
+    # 1 Swin block (K1 + K2), 1 BERT attention, 2 fusion layers of 5
+    # attentions (plain) and one FFN (K2)
+    assert [(fn.plain_calls - b[0], fn.launches - b[1]) for fn, b in zip(counters, before)] \
+        == [(1, 0), (1, 2), (1 + 2 * 5, 0)]
+    want = ctx["predictor"].predict(images, ids, mask, K=5)
+    # bf16 against f32, as test_predict_runs_the_slice_model_through_its_plain_routes
+    np.testing.assert_allclose(got["probs"], want["probs"], rtol=0, atol=1e-2)
+    cos = torch.nn.functional.cosine_similarity(torch.as_tensor(got["joint_emb"]),
+                                                torch.as_tensor(want["joint_emb"]), dim=-1)
+    assert cos.min().item() > 0.999 and len(got["retrieval"][0]) == 5
+
+    raw = rng.integers(0, 4096, (3, 56, 56)).astype(np.uint16)
+    wc = np.array([1800.0, 2100.0, 2500.0], np.float32)
+    ww = np.array([1200.0, 900.0, 3000.0], np.float32)
+    lower, upper = (wc - ww / 2)[:, None, None], (wc + ww / 2)[:, None, None]
+    x = (np.clip(raw.astype(np.float32), lower, upper) - lower) / (upper - lower)
+    f32 = ((x - 0.5) / 0.5)[..., None].repeat(3, -1).astype(np.float32)
+    text = {"input_ids": np.concatenate([ids, ids[:1]]),
+            "attention_mask": np.concatenate([mask, mask[:1]])}
+    pipe = StreamingPipeline(pred.model, pred.retriever, pred.label_names, pred.threshold, K=5)
+    r16 = pipe.process_batch({"image": raw, "window_center": wc, "window_width": ww, **text})
+    rf = pipe.process_batch({"image": f32, **text})
+    cos = torch.nn.functional.cosine_similarity(torch.as_tensor(r16["joint_emb"]),
+                                                torch.as_tensor(rf["joint_emb"]), dim=-1)
+    assert cos.min().item() >= 0.9999
+    np.testing.assert_allclose(r16["probs"], rf["probs"], rtol=0, atol=1e-2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("ln_mode,cross,B,Nq,Nk,C,heads", [
     ("post", False, 2, 64, 64, 768, 12),
@@ -603,9 +699,10 @@ def test_core_plan_is_the_kernels_host_code(dev):
 
 @pytest.mark.cuda
 def test_train_step_runs_the_slice_model_through_its_plain_routes(dev):
-    """One make_train_step on the slice tests' model in bf16 on the card: its
-    stage-1 attention core (head dim 8, which C-F / C-B refuse) on its plain
-    route, counted, with no C-F / C-B launch; the loss and the gradient norm
+    """One make_train_step on the slice tests' model in bf16 on the card, its
+    images augmented on the card (``Config(augment=True)``): its stage-1
+    attention core (head dim 8, which C-F / C-B refuse) on its plain route,
+    counted, with no C-F / C-B launch; the loss and the gradient norm
     finite."""
     import numpy as np
 
@@ -627,7 +724,7 @@ def test_train_step_runs_the_slice_model_through_its_plain_routes(dev):
     assert model_routes(cfg, train=True) == {"swin.stage0.core": "plain"}
     model = MultiModalRetrievalModel(cfg, dtype=torch.bfloat16, device=dev)
     init_params(model, seed=0)
-    tcfg = Config(lr=1e-3)
+    tcfg = Config(lr=1e-3, augment=True)
     state = init_train_state(model, tcfg, total_steps=4, kg_dim=24)
     step = make_train_step(model, tcfg, np.ones(7, np.float32))
     rng = np.random.default_rng(0)

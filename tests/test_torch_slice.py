@@ -255,11 +255,36 @@ def test_topk_single_scores_pad_rows_minus_inf():
     assert s.tolist() == [[0.0, -1.0]]
 
 
-def test_bridge_round_trips_a_save_param_tree_npz(multimodal, tmp_path):
-    from mmrp_tpu.utils.checkpoint import save_param_tree
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_bridge_round_trips_a_save_param_tree_npz(multimodal, tmp_path, direction):
+    """JAX's save_param_tree npz into a port model, bit for bit; and the
+    inverse, as a run directory's joint/params.npz is written: a port model's
+    seeded weights through state_dict_to_flax_flat and the port's
+    save_param_tree, read by JAX's load_param_tree into the JAX model, whose
+    serving forward then matches the port's."""
+    from mmrp_tpu.utils.checkpoint import load_param_tree, save_param_tree
+    from mmrp_tpu_torch.utils import convert
 
-    _, params, tmodel = multimodal
+    jmodel, params, tmodel = multimodal
     path = tmp_path / "params.npz"
+    if direction == "port_to_jax":
+        model = MultiModalRetrievalModel(tmodel.config, device="cpu").eval()
+        convert.init_params(model, seed=5)
+        flat = convert.state_dict_to_flax_flat(model)
+        want = {"/".join(str(k.key) for k in kp) for kp, _ in
+                jax.tree_util.tree_flatten_with_path(params)[0]}
+        assert set(flat) == want
+        convert.save_param_tree(path, {f"model/{k}": v for k, v in flat.items()})
+        tree = load_param_tree(str(path))
+        assert set(tree) == {"model"}
+        for key, val in flax_to_state_dict(tree).items():
+            np.testing.assert_array_equal(val.numpy(), model.state_dict()[key].numpy(),
+                                          err_msg=key)
+        img, ids, mask = inputs()
+        got, want = run_port(model, img, ids, mask), run_jax(jmodel, tree, img, ids, mask)
+        for key in KEYS:
+            np.testing.assert_allclose(got[key], want[key], err_msg=key, **TOL)
+        return
     save_param_tree(str(path), {"params": params})
     fresh = MultiModalRetrievalModel(tmodel.config, device="cpu")
     load_flax_params(fresh, str(path))

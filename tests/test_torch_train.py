@@ -457,13 +457,66 @@ def test_mlp_matches_jax(rng, out_dim):
         np.testing.assert_allclose(mlp(t(x), torch.Generator()).numpy(), want, **TOL)
 
 
-def test_config_refuses_augment():
-    """A config that asks for augmentation loads (a serving run reads the same
-    file), and the train step, where JAX augments, refuses it."""
-    from mmrp_tpu_torch.train.joint import compute_losses, make_train_step
+def jax_augment_draws(key, B):
+    """The angles and flips JAX's augmented step draws from its step key:
+    compute_losses splits off the augmentation key, augment_batch splits it
+    into a rotation and a flip key (mmrp_tpu/ops/preprocess.py)."""
+    _, aug = jax.random.split(key)
+    k_rot, k_flip = jax.random.split(aug)
+    theta = jax.random.uniform(k_rot, (B,), minval=-1.0, maxval=1.0) * 5.0 * jnp.pi / 180.0
+    return t(np.array(theta)), t(np.array(jax.random.bernoulli(k_flip, 0.1, (B,))))
 
-    cfg = Config(augment=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        compute_losses(None, None, {}, torch.Generator(), cfg, None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        make_train_step(None, cfg)
+
+def test_config_refuses_augment(monkeypatch):
+    """``Config(augment=True)``, refused by the train step until the port had
+    ``augment_batch``, now trains on augmented images where JAX does: the
+    loss of compute_losses and the metrics of a make_train_step step, with
+    the angles and flips JAX draws from its keys (the port draws its own from
+    the step's generator), against JAX's at dropout and drop path 0; the
+    augmentation moves the loss; deterministic losses do not augment."""
+    from mmrp_tpu_torch.ops import preprocess
+
+    jmodel, jparams, model, kg_proj = tiny_models()
+    batch = step_batch()
+    B = batch["image"].shape[0]
+    pos_weight = np.linspace(0.5, 2.0, 7).astype(np.float32)
+    jcfg, cfg = JConfig(augment=True), Config(augment=True)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    tbatch = {k: t(v) for k, v in batch.items()}
+    tbatch["input_ids"] = tbatch["input_ids"].long()
+    draws = []
+
+    def jax_drawn(images, generator):
+        theta, flip = draws.pop(0)
+        return preprocess.augment_with(images, theta, flip)
+
+    monkeypatch.setattr(preprocess, "augment_batch", jax_drawn)
+
+    def jax_metrics(key):
+        fn = jax.jit(lambda p: jjoint.compute_losses(jmodel, p, jbatch, key, jcfg,
+                                                     jnp.asarray(pos_weight))[1])
+        return {k: float(v) for k, v in fn(jparams).items()}
+
+    want = jax_metrics(jax.random.PRNGKey(0))
+    draws.append(jax_augment_draws(jax.random.PRNGKey(0), B))
+    with torch.no_grad():
+        total, metrics = compute_losses(model, kg_proj, tbatch, torch.Generator(), cfg,
+                                        t(pos_weight))
+        plain, _ = compute_losses(model, kg_proj, tbatch, None, Config(), t(pos_weight),
+                                  deterministic=True)
+        held, _ = compute_losses(model, kg_proj, tbatch, None, cfg, t(pos_weight),
+                                 deterministic=True)
+    assert not draws and abs(float(total) - float(plain)) > 1e-4
+    assert float(held) == float(plain)
+    for key in want:
+        np.testing.assert_allclose(float(metrics[key]), want[key], rtol=2e-4, err_msg=key)
+
+    step_key = jax.random.fold_in(jax.random.PRNGKey(jcfg.seed), 0)
+    want = jax_metrics(step_key)
+    draws.append(jax_augment_draws(step_key, B))
+    state = init_train_state(model, cfg, total_steps=10, kg_dim=KG_DIM)
+    state.params["kg_proj"].copy_(kg_proj)
+    _, metrics = make_train_step(model, cfg, pos_weight)(state, tbatch)
+    assert not draws
+    for key in want:
+        np.testing.assert_allclose(metrics[key], want[key], rtol=2e-4, err_msg=key)
