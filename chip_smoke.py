@@ -68,7 +68,22 @@ Phases, each of which fails the run (nonzero exit, no result line):
    uint16 + window, uint8 and f32 forms: the valid rows, joint_emb cosine
    >= 0.9999 between each compact form and the f32 form of its pixels, every
    request's own id at rank 1; stream pairs/s at depth 1 and 2 (16 batches,
-   3 rounds) for information.
+   3 rounds) for information. The run directory also holds a seeded
+   ``label_attention.npz``: the reranker pools label-node vectors with it on
+   the card, held to the npz's function in numpy.
+4d. explain and the demo: (1) each bf16 serving kernel (K1, K2, K3 and the
+   four whole-block flavors) on its gradient route at the flagship shapes of
+   one predict at L512, batch 1: the kernel forward within its bound, every
+   input gradient bit-equal to the all-plain route's, one launch per call, no
+   plain call; (2) ``predict(explain=True)`` from the run directory at batch
+   1, L512, with its 5 auto targets and 50 IG steps, its launches counted
+   (``launches_by_path["explain"]``), then the engine (attention maps, patch
+   IG and Grad-CAM per target, ``explain_batch`` over 5 requests,
+   ``token_attribution``, ``integrated_gradients_pixels``) against the same
+   weights in f32 on the CPU by ``compare_maps`` (EXPLAIN_* bounds); (3)
+   their times on the card; (4) the HTTP demo (``serve/app.py``) on
+   127.0.0.1 over ``build_demo_context`` of the run: ``GET /health`` and
+   ``POST /api/predict`` with one 16-bit DICOM and ``detail``.
 5. training kernels: the raw-layout window-attention core's forward (C-F) and
    backward (C-B) against the plain composition (autograd through it for the
    backward) at the Swin-B stage 1-3 shapes of a batch-64 train step and the
@@ -93,6 +108,7 @@ Each phase prints its seconds. The last two lines are the kernels' JSON record
 and the result line {"ok": true, "device": {...}}.
 """
 
+import base64
 import dataclasses
 import gc
 import json
@@ -101,6 +117,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -297,6 +314,23 @@ TRAIN_WARMUP, TRAIN_TIMED = 3, 10
 # JAX's)
 DICOM_HW = 2048
 RUN_TEXT_LEN = 512
+# explain on the default route at L512 (phase 4d): the main path's request
+# runs predict(explain=True) with the default 50 IG steps; the card is held
+# to the f32 CPU path at 10 steps (fewer for token IG and pixel IG) by
+# compare_maps: attention maps Pearson >= 0.999 (or ATTN_BF16_FACTOR); IG,
+# Grad-CAM, token IG and pixel IG Pearson >= 0.99 and IoU of the top 20% >= 0.8
+EXPLAIN_STEPS, EXPLAIN_CMP_STEPS = 50, 10
+ATTN_PEARSON_MIN = 0.999
+# the attention maps' spatial spread is of the order of bf16's rounding of
+# the scores (measured on an H100: Pearson 0.90-0.997 against f32 for 6
+# requests): where the plain versions in bf16 on the CPU are further than
+# ATTN_PEARSON_MIN from f32, the card may be at most twice as far
+ATTN_BF16_FACTOR = 2.0
+MAP_PEARSON_MIN, MAP_IOU_MIN = 0.99, 0.8
+# the run's LabelAttention pooler (hidden width of the JAX trainer's default)
+# on the card in f32 against its function in numpy f64
+LA_HIDDEN = 256
+POOL_TOL = 1e-5
 STREAM_B, STREAM_BATCHES, STREAM_PAD = 64, 4, 10
 STREAM_TIMED_REPEATS, STREAM_TIMED_ROUNDS = 4, 3
 PREPROCESS_TOL = 1e-4
@@ -403,6 +437,10 @@ def proj_launch_work(M: int, C: int):
     return 2 * M * C * C, 0, 3 * M * C * 2 + C * C * 2 + C * 2
 
 
+# substrings of the names of the port's CUDA kernels (csrc/)
+PORT_KERNELS = ("window_attn_wgmma", "k1_proj_wgmma", "block_mlp_kernel", "ln_mlp_kernel",
+                "qkv_kernel", "attn_kernel", "out_kernel", "core_fwd_ring", "core_bwd_ring",
+                "heads_kernel")
 # a K1 or whole-block call's launches, timed apart by the profiler: kind ->
 # (short name of the record's keys, a substring of the CUDA kernel's name)
 LAUNCH_KINDS = {"attention": ("attn", "window_attn_wgmma"),
@@ -413,6 +451,21 @@ def attn_flops(M: int, Nk: int, C: int, kv_rows: int) -> int:
     """q and out projections over M query rows, k and v over kv_rows key
     rows, and q k^T plus p v (4 M Nk C over all heads)."""
     return 4 * M * C * C + 4 * kv_rows * C * C + 4 * M * Nk * C
+
+
+def explain_expected(steps: int, chunk: int, targets: int, layers: int = 5) -> dict:
+    """Launches of one predict(explain=True) at batch 1 on the default route:
+    the predict's forward; the attention maps' forward (the backbones, and per
+    fusion layer its two enhancers on K3, the rest on the JAX XLA branch that
+    returns the weights); per target a probe forward and steps / chunk IG
+    chunks (integrated_gradients), and a probe forward and one head pass
+    (Grad-CAM). A head pass: per fusion layer 5 K3 and 1 K2."""
+    fwd = EXPECTED["whole"]
+    attn = dict(fwd, fused_ln_mlp=fwd["fused_ln_mlp"] - layers,
+                fused_attention=fwd["fused_attention"] - 3 * layers)
+    head = dict(ZERO, fused_attention=5 * layers, fused_ln_mlp=layers)
+    return {k: fwd[k] + attn[k] + targets * (2 * fwd[k] + (steps // chunk + 1) * head[k])
+            for k in ZERO}
 
 
 def main() -> int:
@@ -434,6 +487,11 @@ def main() -> int:
             MultiModalRetrievalModel,
             model_routes,
         )
+        from mmrp_tpu_torch.models.explain import (
+            ExplanationEngine,
+            _resolve_chunk,
+            compare_maps,
+        )
         from mmrp_tpu_torch.models.quant_calib import calibrate_swin_act_amax, save_act_amax
         from mmrp_tpu_torch.models.swin import SwinConfig, SwinEncoder, stage_routes
         from mmrp_tpu_torch.ops import _build
@@ -448,6 +506,8 @@ def main() -> int:
         from mmrp_tpu_torch.ops.quant import quantize_weight
         from mmrp_tpu_torch.retrieval.gallery import RetrievalEngine
         from mmrp_tpu_torch.retrieval.rerank import Reranker
+        from mmrp_tpu_torch.serve.app import serve as serve_demo
+        from mmrp_tpu_torch.serve.runner import build_demo_context
         from mmrp_tpu_torch.serve.stream import StreamingPipeline
         from mmrp_tpu_torch.train.joint import (
             compute_losses,
@@ -1188,8 +1248,13 @@ def main() -> int:
         np.save(run / "train_embeddings.npy", np.concatenate([gallery, req_emb]))
         (run / "train_ids.json").write_text(json.dumps(run_ids))
         labels_by_id = {rid: (r.random(len(LABEL_COLS)) < 0.1).astype(int) for rid in run_ids}
+        # every record names its DICOM file and report, as the data pipeline
+        # writes them; only the requests' files exist (the demo's detail panel
+        # skips a record whose file it cannot read)
+        report_of = {f"req{b}": reports[b] for b in range(B)}
         (run / "records_cache.json").write_text(json.dumps({"records": [
-            {"id": rid, "labels": lab.tolist()} for rid, lab in labels_by_id.items()]}))
+            {"id": rid, "labels": lab.tolist(), "dicom_path": str(run / f"{rid}.dcm"),
+             "report_text": report_of.get(rid, "")} for rid, lab in labels_by_id.items()]}))
         # KG: report nodes of every other gallery record and of the requests,
         # label nodes of every label
         nodes = ([f"report:{rid}" for rid in run_ids[:len(gallery):2]]
@@ -1198,6 +1263,16 @@ def main() -> int:
         node_emb = r.standard_normal((len(nodes), KG_DIM)).astype(np.float32)
         np.save(run / "kg" / "node_embeddings.npy", node_emb)
         (run / "kg" / "node2id.json").write_text(json.dumps(node2id))
+        # a seeded LabelAttention checkpoint in the JAX trainer's npz layout:
+        # the reranker pools a record's label-node vectors with it
+        la = {"Dense_0/kernel": r.standard_normal((KG_DIM, LA_HIDDEN)) / KG_DIM ** 0.5,
+              "Dense_0/bias": r.normal(0, 0.1, LA_HIDDEN),
+              "Dense_1/kernel": r.standard_normal((LA_HIDDEN, 1)) / LA_HIDDEN ** 0.5,
+              "Dense_1/bias": r.normal(0, 0.1, 1)}
+        np.savez_compressed(run / "label_attention.npz", hidden_dim=LA_HIDDEN,
+                            log_temp=np.float32(0.0),
+                            **{f"param::params/{k}": v.astype(np.float32)
+                               for k, v in la.items()})
         log(f"run directory written: {time.perf_counter() - t0:.1f} s "
             f"(params.npz {(run / 'joint' / 'params.npz').stat().st_size / 1e9:.2f} GB, "
             f"gallery {len(run_ids)} x {cfg.joint_dim}, {len(nodes)} KG nodes)")
@@ -1229,9 +1304,28 @@ def main() -> int:
                 fail(f"run_dir: {key} differs from the in-process predictor's")
         # the reranked lists against the port's Reranker applied by hand, for
         # the batch (no query id) and request 0 keyed by its own record
+        # the served pooler (LabelAttention on the card) against the npz's
+        # function in numpy (f64) on the label-node vectors of records
+        pooler = served.reranker.label_pooler
+        if pooler is None:
+            fail("run_dir: label_attention.npz is present, but the reranker has no pooler")
+        pool_err = 0.0
+        for rid in run_ids[1:40:2]:
+            rows = [node2id[f"label:{n}"] for n, v in zip(LABEL_COLS, labels_by_id[rid]) if v]
+            if rows:
+                vecs = node_emb[rows].astype(np.float64)
+                score = np.tanh(vecs @ la["Dense_0/kernel"] + la["Dense_0/bias"]) \
+                    @ la["Dense_1/kernel"][:, 0] + la["Dense_1/bias"][0]
+                w = np.exp(score - score.max())
+                pool_err = max(pool_err, float(np.abs(pooler(node_emb[rows])
+                                                      - (w / w.sum()) @ vecs).max()))
+        log(f"run_dir: LabelAttention pooler on {dev} against numpy: max |d| {pool_err:.3e} "
+            f"(<= {POOL_TOL})")
+        if not pool_err <= POOL_TOL:
+            fail("run_dir: the LabelAttention pooler strays from its npz's function")
         hand = Reranker(alpha=0.6, beta=0.25, gamma=0.15, labels_by_id=labels_by_id,
                         label_names=LABEL_COLS, kg_node_embeddings=node_emb,
-                        kg_node2id=node2id)
+                        kg_node2id=node2id, label_pooler=pooler)
         one = served.predict(req_images[:1], req_ids[:1], req_mask[:1], K=10, query_id="req0")
         for b, qid, q, got in ([(b, None, pred["joint_emb"][b], pred["retrieval"][b])
                                  for b in range(B)]
@@ -1334,11 +1428,335 @@ def main() -> int:
             log(f"stream uint16 + window, batch {STREAM_B}, L{RUN_TEXT_LEN}, depth {depth}: "
                 f"{pipe.stats['pairs_per_sec']:.1f} pairs/s ({pipe.stats['pairs']} pairs, "
                 f"{pipe.stats['wall_s']:.3f} s, host clock)")
-        del served, pred, want, pipe, plain_pipe, stream_engine, forms, out, embs, timed
+        del pred, want, pipe, plain_pipe, stream_engine, forms, out, embs, timed
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_done("serve from a run directory")
+
+        # -- 4d. explain and the demo ------------------------------------------
+        # (1) each bf16 serving kernel on its gradient route (the kernel
+        # forward, the backward through its plain version recomputed) at the
+        # flagship shapes of one predict at L512, batch 1: the forward within
+        # the kernel's bound of the plain version, every input gradient bit for
+        # bit the all-plain route's (the same plain math on the same inputs),
+        # one launch counted per call and no plain call
+        ggen = torch.Generator(device=dev).manual_seed(SEED + 6)
+
+        def grnd(shape, scale=1.0, dtype=bf16):
+            return (torch.randn(shape, generator=ggen, device=dev) * scale).to(dtype)
+
+        def gln(C):
+            return 1 + grnd((C,), 0.1, f32), grnd((C,), 0.1, f32)
+
+        def gblock(C, heads, res, shift):
+            blk = (*gln(C), grnd((3 * C, C), C ** -0.5), grnd((3 * C,), 0.1),
+                   grnd((C, C), C ** -0.5), grnd((C,), 0.1), *gln(C),
+                   grnd((4 * C, C), C ** -0.5), grnd((4 * C,), 0.1),
+                   grnd((C, 4 * C), (4 * C) ** -0.5), grnd((C,), 0.1))
+            table = grnd(((2 * ws - 1) ** 2, heads), 0.5, f32)
+            return blk, K1.build_bias_full(table, ws, res, res, shift)
+
+        D, h, L = cfg.joint_dim, cfg.num_heads, RUN_TEXT_LEN
+        mask_l = torch.zeros((1, L), device=dev)
+        mask_l[:, 3 * L // 4:] = -1e9
+        grad_cases = []  # (kernel, label, wrapper call, plain call, tensors, masks' indices)
+        for label, Nq, Nk, cross, key_mask, pos, alpha_g, mode, incl, raw in (
+                ("txt_enh", L, L, False, mask_l, grnd((L, D), 0.5),
+                 torch.tensor(0.5, device=dev), "pre", True, True),
+                ("img_enh", 49, 49, False, None, grnd((49, D), 0.5),
+                 torch.tensor(0.5, device=dev), "pre", True, True),
+                ("txt2img", L, 49, True, None, None, None, "post", False, False),
+                ("img2txt", 49, L, True, mask_l, None, None, "post", False, False),
+                ("self", 51, 51, False, None, grnd((51, D), 0.5), None, "pre", True, False)):
+            w = []
+            for _ in range(4):
+                w += [grnd((D, D), D ** -0.5), grnd((D,), 0.1)]
+            kw = dict(num_heads=h, ln_mode=mode, include_residual=incl, residual_from_raw=raw)
+            grad_cases.append((
+                "fused_attention", f"{label} (1,{Nq}<-{Nk},{D}) {mode}",
+                lambda *a, k=kw: K3.fused_attention(*a, **k),
+                lambda *a, k=kw: K3.attention_plain(*a, **k),
+                (grnd((1, Nq, D)), *gln(D), *w, grnd((1, Nk, D)) if cross else None, key_mask,
+                 pos, alpha_g), {12}))
+        for M, C, Hd in ((3136, 128, 512), (51, D, 4 * D)):  # Swin stage 1; the fusion FFN
+            grad_cases.append((
+                "fused_ln_mlp", f"x({M},{C}) hidden {Hd}", K2.fused_ln_mlp_residual,
+                K2.ln_mlp_plain, (grnd((M, C)), *gln(C), grnd((Hd, C), C ** -0.5),
+                                  grnd((Hd,), 0.1), grnd((C, Hd), Hd ** -0.5),
+                                  grnd((C,), 0.1)), set()))
+        blk, bias = gblock(128, 4, 56, 3)
+        grad_cases.append((
+            "fused_window_attention", "xw(1,64,49,128) h4 shift 3",
+            lambda *a: K1.fused_window_attention_windows(*a, 4),
+            lambda *a: K1.window_attention_plain(*a, 4),
+            (grnd((1, 64, 49, 128)), *blk[:6], bias), set()))
+        blk, bias = gblock(256, 8, 28, 0)
+        blk1, bias1 = gblock(256, 8, 28, 3)
+        grad_cases.append((
+            "fused_swin_block_pair", "map(1,28,28,256) h8",
+            lambda x, *t: SP.fused_swin_block_pair(x, t[:12], t[12], t[13:25], t[25], 8, ws, 3),
+            lambda x, *t: SP.pair_plain(x, t[:12], t[12], t[13:25], t[25], 8, ws, 3),
+            (grnd((1, 28, 28, 256)), *blk, bias, *blk1, bias1), set()))
+        for roll, shift in ((-3, 0), (3, 3)):
+            blk, bias = gblock(512, 16, 14, shift)
+            grad_cases.append((
+                "fused_swin_block_chain", f"map(1,14,14,512) h16 roll {roll:+d}",
+                lambda x, *t, r=roll: SP.fused_swin_block_chain(x, t[:12], t[12], 16, ws, r),
+                lambda x, *t, r=roll: SP.chain_plain(x, t[:12], t[12], 16, ws, r),
+                (grnd((1, 14, 14, 512)), *blk, bias), set()))
+        grad_cases.append((
+            "fused_swin_block_raw", "map(1,14,14,512) h16",
+            lambda *a: SB.fused_swin_block_raw(*a, 16, ws),
+            lambda *a: SB.raw_plain(*a, num_heads=16, ws=ws),
+            (grnd((1, 14, 14, 512)), *blk, bias), set()))
+        blk, bias = gblock(1024, 32, 7, 0)
+        grad_cases.append((
+            "fused_swin_block_windows", "xw(1,1,49,1024) h32",
+            lambda *a: SB.fused_swin_block_windows(*a, 32), lambda *a: SB.swin_block_plain(*a, 32),
+            (grnd((1, 1, 49, 1024)), *blk, bias), set()))
+
+        grad_route, problems = {}, []
+        reset_counts()
+        for name, label, call, plain, tensors, masks in grad_cases:
+            leaves = [None if t is None else
+                      t.detach().clone().requires_grad_(t.is_floating_point() and i not in masks)
+                      for i, t in enumerate(tensors)]
+            wrt = [t for t in leaves if t is not None and t.requires_grad]
+            fn, attr = counters[name]
+            n0 = getattr(fn, attr)
+            out = call(*leaves)
+            launched = getattr(fn, attr) - n0
+            ref_out = plain(*leaves)
+            cot = torch.randn(out.shape, generator=ggen, device=dev).to(out.dtype)
+            got = torch.autograd.grad(out, wrt, cot)
+            want = torch.autograd.grad(ref_out, wrt, cot)
+            rel = max_rel(out.detach(), ref_out.detach()).item()
+            gdiff = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+            equal = all(torch.equal(a, b) for a, b in zip(got, want))
+
+            def fwd_bwd(fn=call):
+                torch.autograd.grad(fn(*leaves), wrt, cot)
+
+            ms = cuda_ms(torch, fwd_bwd, reps=5, warmup=1)
+            plain_ms = cuda_ms(torch, lambda: fwd_bwd(plain), reps=5, warmup=1)
+            log(f"gradient route {name:24s} {label:34s} forward max_rel_err {rel:.3e} (tol "
+                f"{KERNEL_TOL:.3e}), {len(wrt)} input gradients bit-equal to the plain route: "
+                f"{equal} (max |d| {gdiff:.3e}), launches {launched}; forward + backward "
+                f"{ms:.4f} ms against the plain route's {plain_ms:.4f} ms")
+            if rel > KERNEL_TOL or not equal or launched != 1:
+                problems.append(f"gradient route {name} {label}: max_rel_err {rel}, "
+                                f"gradients equal {equal}, launches {launched}")
+            agg = grad_route.setdefault(name, dict(cases=0, max_rel_err=0.0, max_grad_diff=0.0,
+                                                   grads_bit_equal=True, ms=0.0, plain_ms=0.0))
+            agg.update(cases=agg["cases"] + 1, max_rel_err=max(agg["max_rel_err"], rel),
+                       max_grad_diff=max(agg["max_grad_diff"], gdiff),
+                       grads_bit_equal=agg["grads_bit_equal"] and equal,
+                       ms=agg["ms"] + ms, plain_ms=agg["plain_ms"] + plain_ms)
+            del leaves, wrt, out, ref_out, got, want
+        read_counts()  # fails on a plain call
+        if problems:
+            fail("; ".join(problems))
+        del grad_cases, blk, bias, blk1, bias1, mask_l
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (2) explain on the default route at L512: predict(explain=True) at
+        # batch 1 with its 5 auto targets and the default 50 IG steps, its
+        # launches counted (the slice's main path); then the engine's methods
+        # against the same weights in f32 on the CPU
+        x1 = (req_images[:1], req_ids[:1], req_mask[:1])
+        eng = served.explainer
+        reset_counts()
+        t0 = time.perf_counter()
+        pred_x = served.predict(*x1, K=5, explain=True)
+        first_s = time.perf_counter() - t0
+        launches["explain"] = read_counts()
+        targets = list(pred_x["explanation"]["per_target"])
+        want_launches = explain_expected(EXPLAIN_STEPS, _resolve_chunk(EXPLAIN_STEPS, 5),
+                                         len(targets))
+        log(f"launches in one predict(explain=True) (batch 1, L{L}, {len(targets)} targets, "
+            f"{EXPLAIN_STEPS} IG steps): { {k: v for k, v in launches['explain'].items() if v} }")
+        if launches["explain"] != want_launches or len(targets) != 5:
+            fail(f"explain: launch counts {launches['explain']}, expected {want_launches}")
+        # Grad-CAM is ReLU(sum_c w_c act_c): a target whose weighted sum is
+        # negative on every patch has a flat map; the attention and IG maps
+        # never are
+        for t, maps in pred_x["explanation"]["per_target"].items():
+            for key, m in maps.items():
+                if m.shape != (1, 224, 224) or not np.isfinite(m).all() or (
+                        key != "grad_cam" and np.ptp(m) <= 0):
+                    fail(f"explain: target {t} {key}: shape {m.shape}, or not finite, or flat")
+        if all(np.ptp(maps["grad_cam"]) <= 0
+               for maps in pred_x["explanation"]["per_target"].values()):
+            fail("explain: every target's Grad-CAM map is flat")
+        predict_s = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            served.predict(*x1, K=5, explain=True)
+            predict_s.append(time.perf_counter() - t0)
+        log(f"predict(explain=True), batch 1, L{L}, 5 targets, {EXPLAIN_STEPS} IG steps: "
+            f"{predict_s[0]:.3f} / {predict_s[1]:.3f} s (first call {first_s:.3f} s; host "
+            f"clock); K3 launches {launches['explain']['fused_attention']}, K2 "
+            f"{launches['explain']['fused_ln_mlp']} per explain request")
+
+        ref = MultiModalRetrievalModel(cfg, dtype=f32, device="cpu").eval()
+        ref.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+        ref_eng = ExplanationEngine(ref)
+        t0 = time.perf_counter()
+        want_fwd = serving_forward(ref)(*(torch.from_numpy(a) for a in x1))
+        cos = cosine(pred_x["joint_emb"], want_fwd["joint_emb"].numpy()).min()
+        dprobs = float(np.abs(pred_x["probs"] - want_fwd["probs"].numpy()).max())
+        log(f"explain request vs plain path: joint_emb cosine {cos:.6f} (>= {EMB_COS_MIN}), "
+            f"max |dprobs| {dprobs:.3e} (<= {PROBS_MAX_DIFF})")
+        if not (cos >= EMB_COS_MIN and dprobs <= PROBS_MAX_DIFF):
+            fail("explain: the request's outputs stray from the plain path")
+        agreement = {}
+
+        def hold(what, got_m, want_m, pearson_min, iou_min=None):
+            """A map of the card against the CPU's: Pearson (and IoU@20%)
+            bounds; a flat map fails (its Pearson is NaN), except a Grad-CAM
+            map that is flat on the CPU too (no patch with a positive
+            weighted sum there), which must then be flat on the card as well."""
+            if "grad_cam" in what and np.ptp(want_m) <= 0:
+                agreement[what] = {"flat": True}
+                log(f"explain {what}: flat on the CPU (ReLU leaves no positive patch), on "
+                    f"the card flat: {np.ptp(got_m) <= 0}")
+                if np.ptp(got_m) > 0:
+                    problems.append(f"explain {what}: flat on the CPU, not on the card")
+                return
+            cmp = compare_maps(np.asarray(got_m), np.asarray(want_m))
+            agreement[what] = cmp
+            ok = cmp["pearson"] >= pearson_min and (iou_min is None
+                                                    or cmp["iou@20%"] >= iou_min)
+            log(f"explain {what}: pearson {cmp['pearson']:.5f} (>= {pearson_min}), iou@20% "
+                f"{cmp['iou@20%']:.3f}" + (f" (>= {iou_min})" if iou_min else ""))
+            if not ok:
+                problems.append(f"explain {what}: {cmp}")
+
+        # the attention maps are layer-, head- and token-means of near-uniform
+        # softmax weights, whose spatial spread is of the order of bf16's
+        # rounding of the scores: the card is held to the f32 path as closely as
+        # the plain versions in bf16 on the CPU (the same weights) are
+        ref16 = MultiModalRetrievalModel(cfg, dtype=bf16, device="cpu").eval()
+        ref16.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        eng16 = ExplanationEngine(ref16)
+
+        def hold_attention(what, card_m, bf16_m, f32_m):
+            """Pearson(card, f32) >= ATTN_PEARSON_MIN, or, where the plain bf16
+            path itself is further than that from f32, 1 - Pearson(card, f32)
+            <= ATTN_BF16_FACTOR (1 - Pearson(plain bf16, f32)) + 1e-3."""
+            kf, pf, kp = (compare_maps(np.asarray(a), np.asarray(b)) for a, b in (
+                (card_m, f32_m), (bf16_m, f32_m), (card_m, bf16_m)))
+            agreement[what] = dict(kf, plain_bf16_vs_f32=pf["pearson"],
+                                   card_vs_plain_bf16=kp["pearson"])
+            limit = min(ATTN_PEARSON_MIN, 1 - ATTN_BF16_FACTOR * (1 - pf["pearson"]) - 1e-3)
+            log(f"explain {what}: pearson against f32 {kf['pearson']:.5f} (>= {limit:.5f}); "
+                f"the plain bf16 path against f32 {pf['pearson']:.5f}, the card against it "
+                f"{kp['pearson']:.5f}; iou@20% against f32 {kf['iou@20%']:.3f}")
+            if not kf["pearson"] >= limit:
+                problems.append(f"explain {what}: {agreement[what]}")
+
+        got = served.explain(*x1, targets, ig_steps=EXPLAIN_CMP_STEPS)
+        want = ref_eng.explain(*x1, targets, ig_steps=EXPLAIN_CMP_STEPS)
+        hold_attention("attn_final", got["attention"]["attn_final"],
+                       eng16.attention_maps(*x1)["attn_final"], want["attention"]["attn_final"])
+        for t in targets:
+            for key in ("ig", "grad_cam"):
+                hold(f"target {t} {key}", got["per_target"][t][key],
+                     want["per_target"][t][key], MAP_PEARSON_MIN, MAP_IOU_MIN)
+        items = (req_images[1:6], req_ids[1:6], req_mask[1:6])
+        got_b = eng.explain_batch(*items, n_steps=EXPLAIN_CMP_STEPS)
+        want_b = ref_eng.explain_batch(*items, n_steps=EXPLAIN_CMP_STEPS)
+        log(f"explain_batch over requests 1-5: top-1 targets card {got_b['targets'].tolist()}, "
+            f"CPU {want_b['targets'].tolist()}; max |dprobs| "
+            f"{np.abs(got_b['probs'] - want_b['probs']).max():.3e}")
+        if not np.array_equal(got_b["targets"], want_b["targets"]):
+            problems.append("explain_batch: the card's top-1 targets are not the CPU's")
+        items16 = eng16.attention_maps(*items)["attn_final"]
+        for b in range(5):
+            hold_attention(f"explain_batch item {b} attn_final", got_b["attn_final"][b],
+                           items16[b], want_b["attn_final"][b])
+            for key in ("ig", "grad_cam"):
+                hold(f"explain_batch item {b} {key}", got_b[key][b], want_b[key][b],
+                     MAP_PEARSON_MIN, MAP_IOU_MIN)
+        n_tok = int(req_mask[0].sum())
+        hold("token_attribution", eng.token_attribution(*x1, targets[0], n_steps=4)[0, :n_tok],
+             ref_eng.token_attribution(*x1, targets[0], n_steps=4)[0, :n_tok],
+             MAP_PEARSON_MIN, MAP_IOU_MIN)
+        hold("integrated_gradients_pixels",
+             eng.integrated_gradients_pixels(*x1, targets[0], n_steps=2),
+             ref_eng.integrated_gradients_pixels(*x1, targets[0], n_steps=2),
+             MAP_PEARSON_MIN, MAP_IOU_MIN)
+        log(f"explain against the plain path (f32, CPU): {time.perf_counter() - t0:.1f} s")
+        if not any("grad_cam" in k and "pearson" in v for k, v in agreement.items()):
+            problems.append("explain: no Grad-CAM map was compared (every one flat)")
+        if problems:
+            fail("; ".join(problems))
+        del ref, ref_eng, ref16, eng16, want_fwd
+        gc.collect()
+
+        # (3) times on the card (host clock: each call returns numpy)
+        batch_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            eng.explain_batch(*items)
+            batch_s.append(time.perf_counter() - t0)
+        pixel_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            eng.integrated_gradients_pixels(*x1, targets[0], n_steps=1)
+            pixel_s.append(time.perf_counter() - t0)
+        log(f"explain_batch over 5 items ({EXPLAIN_STEPS} IG steps, chunk 10): "
+            + " / ".join(f"{v:.3f}" for v in batch_s) + " s; one pixel-IG step at batch 1: "
+            + " / ".join(f"{v * 1e3:.1f}" for v in pixel_s) + f" ms (host clock, {smi})")
+        # where one target's explain goes (patch IG at 50 steps and Grad-CAM):
+        # the profiler's device time by kernel against the host clock
+        t0 = time.perf_counter()
+        eng.explain(*x1, targets[:1], ig_steps=EXPLAIN_STEPS)
+        one_ms = (time.perf_counter() - t0) * 1e3
+        split = device_ms_by_kernel(
+            torch, lambda: eng.explain(*x1, targets[:1], ig_steps=EXPLAIN_STEPS), reps=1)
+        busy = sum(split.values())
+        ours = sum(v for k, v in split.items() if any(n in k for n in PORT_KERNELS))
+        top = sorted(split.items(), key=lambda kv: -kv[1])[:5]
+        log(f"one target's explain ({EXPLAIN_STEPS} IG steps + Grad-CAM, batch 1, L{L}): "
+            f"{one_ms:.1f} ms host clock; device busy {busy:.1f} ms ({100 * busy / one_ms:.1f}%"
+            f"), the port's kernels {ours:.1f} ms, in {sum(1 for _ in split)} kernel kinds; "
+            "largest: " + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top))
+
+        # (4) the HTTP demo over build_demo_context of the run directory
+        demo_ctx = build_demo_context(str(run))
+        server = serve_demo(lambda: demo_ctx, port=0, block=False, host="127.0.0.1")
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            with urllib.request.urlopen(url + "/health", timeout=60) as resp:
+                health = (resp.status, json.loads(resp.read()))
+            body = json.dumps({"dicom_b64": base64.b64encode(dicoms[0].read_bytes()).decode(),
+                               "text": reports[0], "detail": True}).encode()
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(urllib.request.Request(
+                    url + "/api/predict", data=body,
+                    headers={"Content-Type": "application/json"}), timeout=600) as resp:
+                status, payload = resp.status, json.loads(resp.read())
+            demo_s = time.perf_counter() - t0
+        finally:
+            server.shutdown()
+            server.server_close()
+        keys = {"top_labels", "retrieval", "agreement", "retrieval_detail"}
+        log(f"demo: GET /health {health}; POST /api/predict (DICOM {DICOM_HW}^2, "
+            f"{len(body) / 1e6:.1f} MB body, detail) -> HTTP {status} in {demo_s:.2f} s, "
+            f"latency_ms {payload.get('latency_ms', float('nan')):.1f}, retrieval "
+            f"{[rid for rid, _ in payload.get('retrieval', [])]}, "
+            f"{len(payload.get('retrieval_detail', []))} detail items, agreement "
+            f"{payload.get('agreement')}")
+        if health != (200, {"status": "ok"}) or status != 200 or not keys <= payload.keys() \
+                or len(payload["retrieval"]) != 5 or not payload["agreement"]:
+            fail("demo: /health or /api/predict did not answer with a full payload")
+        del served, demo_ctx, eng, pred_x, got, want, got_b, want_b
     del model, gallery
     gc.collect()
     torch.cuda.empty_cache()
-    phase_done("serve from a run directory")
+    phase_done("explain and the demo")
 
 
     # -- 5. the training kernels against their plain versions ------------------
@@ -1612,6 +2030,7 @@ def main() -> int:
             "path": path or "none",
             "launches_by_path": {k: v.get(name, 0) for k, v in launches.items()},
             "launches_train": train_launches[name], "train_steps": steps,
+            "grad_route": grad_route.get(name),
             **{k: agg[k] for k in ("device_ms", "attn_ms", "attn_bound_ms", "proj_ms",
                                    "proj_bound_ms", "mlp_ms", "mlp_bound_ms") if k in agg},
             **extra})

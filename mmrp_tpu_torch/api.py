@@ -1,10 +1,10 @@
-"""High-level inference API: embed / retrieve / predict.
+"""High-level inference API: embed / retrieve / predict / explain.
 
 Counterpart of ``mmrp_tpu/api.py``: ``serving_forward`` is the one serving
 forward contract, and ``MMRPredictor`` composes it with an exact retrieval
-engine and an optional reranker; ``MMRPredictor.from_run_dir`` builds all of
-it from a training-run directory (``serve/runner.py``). Explanation is not
-ported yet (ROADMAP.md Queue 1).
+engine, an optional reranker and the explanation engine
+(``models/explain.py``, built at first use); ``MMRPredictor.from_run_dir``
+builds all of it from a training-run directory (``serve/runner.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from mmrp_tpu_torch.device import DEFAULT_DEVICE
+from mmrp_tpu_torch.models.explain import ExplanationEngine
 from mmrp_tpu_torch.models.multimodal import MultiModalRetrievalModel
 from mmrp_tpu_torch.models.quant_calib import build_quant_cache
 from mmrp_tpu_torch.retrieval.gallery import RetrievalEngine
@@ -63,6 +64,7 @@ class MMRPredictor:
         self.reranker = reranker
         self.threshold = threshold
         self._fwd = serving_forward(model)
+        self._explainer: Optional[ExplanationEngine] = None
 
     @property
     def device(self) -> torch.device:
@@ -102,7 +104,8 @@ class MMRPredictor:
     def predict(self, image: np.ndarray, input_ids: np.ndarray,
                 attention_mask: np.ndarray, K: int = 5, threshold=None,
                 top_k_labels: int = 5, query_id: Optional[str] = None,
-                retrieve: bool = True) -> Dict[str, Any]:
+                retrieve: bool = True, explain: bool = False,
+                explain_targets: Optional[Sequence[int]] = None) -> Dict[str, Any]:
         thr = np.asarray(self.threshold if threshold is None else threshold)
         out = self.embed(image, input_ids, attention_mask)
         probs = out["probs"]
@@ -126,7 +129,32 @@ class MMRPredictor:
             results["retrieval"] = [
                 self.retrieve(out["joint_emb"][b], K=K, query_id=qid) for b in range(B)
             ]
+        if explain:
+            targets = explain_targets
+            if targets is None:
+                if B == 1:
+                    targets = np.argsort(-probs[0])[:top_k_labels].tolist()
+                else:
+                    # per-sample auto targets: one (B,) vector per rank slot, so
+                    # every sample is explained for its own top-k classes
+                    # (keyed "rank{j}" in per_target)
+                    order = np.argsort(-probs, axis=1)[:, :top_k_labels]
+                    targets = [order[:, j] for j in range(order.shape[1])]
+            results["explanation"] = self.explainer.explain(image, input_ids, attention_mask,
+                                                            targets)
         return results
+
+    # -- explain ----------------------------------------------------------------
+
+    @property
+    def explainer(self) -> ExplanationEngine:
+        if self._explainer is None:  # lazy, as the reference's
+            self._explainer = ExplanationEngine(self.model)
+        return self._explainer
+
+    def explain(self, image: np.ndarray, input_ids: np.ndarray, attention_mask: np.ndarray,
+                targets: Sequence[int], **kw) -> Dict[str, Any]:
+        return self.explainer.explain(image, input_ids, attention_mask, targets, **kw)
 
     # -- construction from a trained run -------------------------------------
 

@@ -28,7 +28,7 @@ class Config:
     use_cls_only: bool = False  # not ported: raises where the model is built
     image_size: int = 224
     use_pallas_attention: bool = True  # False: every Swin step on its plain version
-    remat_backbone: bool = False  # not ported: raises in from_config
+    remat_backbone: bool = False  # served as any run; the train step raises
     # serving precision (MultiModalConfig.from_config): "none" = bf16; "int8" = W8A8 in the text tower (K3's
     # in-kernel form and the FFN) and the fusion stack; "int8_static" = that
     # and static W8A8 in the Swin whole-block kernels, with the calibrated

@@ -11,6 +11,11 @@ attention kernel (K3, ``ops/fused_attention.py``):
 - ``CrossModalFusion``: both enhancers, both cross-attentions, masked text
   pooling and the fused sequence ``[cls, patches..., txt]``.
 
+``return_attention=True`` (the explain engine's attention maps) runs each
+cross-attention on the JAX XLA branch with its softmax weights returned
+(``need_weights``, ``fusion.py:130-163``), not a kernel route and not
+counted; the enhancers keep K3, as in JAX (``fusion.py:201-210``).
+
 The port runs the token counts as they are (49 patches, 51-token sequence);
 the JAX package pads them to multiples of 8 for its TPU kernels and masks the
 pads, which leaves the real rows unchanged. Each attention's route is fixed
@@ -112,16 +117,27 @@ class CrossAttention(nn.Module):
                       generator: torch.Generator) -> torch.Tensor:
         return self._xla(q_in, kv_in, kv_mask, post_ln, plain_lins, self.dropout, generator)
 
-    def _xla(self, q_in, kv_in, kv_mask, post_ln, lins, rate, generator):
+    def forward_weights(self, q_in: torch.Tensor, kv_in: torch.Tensor,
+                        kv_mask: Optional[torch.Tensor],
+                        post_ln: Tuple[torch.Tensor, torch.Tensor]):
+        """(output, softmax weights (B, heads, Lq, Lk) f32): the JAX
+        ``need_weights`` branch (plain GEMMs, or W8A8 at ``quant``)."""
+        lins = qlinear_multi if self.quant else plain_lins
+        return self._xla(q_in, kv_in, kv_mask, post_ln, lins, 0.0, None, return_weights=True)
+
+    def _xla(self, q_in, kv_in, kv_mask, post_ln, lins, rate, generator,
+             return_weights: bool = False):
         """The JAX XLA branch with ``lins`` (plain or W8A8) as its GEMMs."""
         (q,) = lins(q_in, (self.q,))
         k, v = lins(kv_in, (self.k, self.v))
         ctx = mha_train(q, k, v, self.num_heads,
-                        None if kv_mask is None else additive_key_mask(kv_mask), rate, generator)
+                        None if kv_mask is None else additive_key_mask(kv_mask), rate, generator,
+                        return_weights)
+        ctx, weights = ctx if return_weights else (ctx, None)
         (out,) = lins(ctx, (self.out,))
-        if post_ln is None:
-            return out
-        return ln_f32(q_in + out, *post_ln, q_in.dtype, affine_in_f32=True)
+        if post_ln is not None:
+            out = ln_f32(q_in + out, *post_ln, q_in.dtype, affine_in_f32=True)
+        return (out, weights) if return_weights else out
 
 
 class PreFusionEnhancer(nn.Module):
@@ -193,16 +209,23 @@ class CrossModalFusion(nn.Module):
         self.cls_proj = nn.Linear(2 * dim, dim, dtype=dtype, device=device)
 
     def forward(self, img_patches: torch.Tensor, img_global: torch.Tensor,
-                txt_tokens: torch.Tensor,
-                txt_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                txt_tokens: torch.Tensor, txt_mask: Optional[torch.Tensor] = None,
+                return_attention: bool = False):
+        """The fused sequence; with ``return_attention`` (sequence,
+        {"txt2img", "img2txt"} softmax weights)."""
         txt_e = self.txt_enh(txt_tokens, txt_mask)
         pat_e = self.img_enh(img_patches)
         # text queries attend the patches and vice versa, both over the
         # enhanced tensors, each followed by residual + LN
-        txt = self.txt2img(txt_e, pat_e, None,
-                           post_ln=(self.txt_norm.weight, self.txt_norm.bias))
-        patches = self.img2txt(pat_e, txt_e, txt_mask,
-                               post_ln=(self.img_norm.weight, self.img_norm.bias))
+        txt_ln = (self.txt_norm.weight, self.txt_norm.bias)
+        img_ln = (self.img_norm.weight, self.img_norm.bias)
+        if return_attention:
+            txt, t2i = self.txt2img.forward_weights(txt_e, pat_e, None, txt_ln)
+            patches, i2t = self.img2txt.forward_weights(pat_e, txt_e, txt_mask, img_ln)
+            return (self._sequence(img_global, txt, patches, txt_mask),
+                    {"txt2img": t2i, "img2txt": i2t})
+        txt = self.txt2img(txt_e, pat_e, None, post_ln=txt_ln)
+        patches = self.img2txt(pat_e, txt_e, txt_mask, post_ln=img_ln)
         return self._sequence(img_global, txt, patches, txt_mask)
 
     def forward_train(self, img_patches: torch.Tensor, img_global: torch.Tensor,

@@ -8,6 +8,15 @@ embedding), then the MLP classifier with f32 logits. Modes: multimodal,
 image and text (the missing modality is a learned null token). As in the
 JAX model, each fusion layer re-attends the same backbone features.
 
+The explain hooks of the JAX model (``multimodal.py:367-509``):
+``return_attention`` (each fusion layer's cross-attention weights, its fusion
+taking the unfused JAX XLA branch, as JAX's ``use_fused = not need_attn``),
+``return_features`` (the raw backbone outputs), ``features`` (skip the
+backbones), and the zero-valued ``patch_delta`` / ``txt_delta`` added to the
+projected patches / text tokens. On the features path the fusion stack keeps
+its kernel routes; a gradient through them takes each wrapper's gradient
+route (``ops/_build.py::KernelRecompute``).
+
 ``forward(..., deterministic=False, generator=g)`` is the training route:
 every tower takes its JAX XLA branch with dropout and DropPath drawn from
 ``g`` (``multimodal.py:256, 299-341, 478, 495``), and no serving kernel runs.
@@ -84,6 +93,9 @@ class MultiModalConfig:
     drop_path: float = 0.1  # training only: fusion layer i gets drop_path * i / (L - 1)
     max_text_len: int = 512
     quant: str = "none"  # "int8": W8A8 GEMMs in the fusion stack (serving)
+    # activation checkpointing of the towers (training only; the serving
+    # forward ignores it, as JAX's does; the train step raises)
+    remat_backbone: bool = False
 
     @staticmethod
     def flagship(**kw) -> "MultiModalConfig":
@@ -105,16 +117,13 @@ class MultiModalConfig:
         the Swin whole-block stages in static int8, with ``act_amax`` from
         ``swin_act_amax_path`` when one is given (else per-row activation
         scales). ``use_pallas_attention=False`` sends every Swin step to its
-        plain version. ``remat_backbone`` is not ported and raises."""
+        plain version. ``remat_backbone`` is carried: serving ignores it, and
+        the train step refuses it until remat is ported."""
         from mmrp_tpu_torch.models.quant_calib import load_act_amax
 
         sq = cfg.serve_quant
         if sq not in ("none", "int8", "int8_static"):
             raise ValueError(f"serve_quant must be none, int8 or int8_static, got {sq!r}")
-        if cfg.remat_backbone:
-            raise NotImplementedError(
-                "remat_backbone=True (activation checkpointing of the towers) is not ported "
-                "(ROADMAP.md Queue 1 item 6)")
         swin_kw = {}
         if sq == "int8_static":
             swin_kw["quant"] = "int8_static"
@@ -151,7 +160,7 @@ class MultiModalConfig:
             num_fusion_layers=cfg.num_fusion_layers, num_heads=cfg.num_heads,
             num_classes=num_classes, mode=cfg.modality, use_shared_ffn=cfg.use_shared_ffn,
             use_cls_only=cfg.use_cls_only, max_text_len=cfg.text_dim,
-            quant="int8" if sq != "none" else "none")
+            quant="int8" if sq != "none" else "none", remat_backbone=bool(cfg.remat_backbone))
 
 
 def fusion_routes(config: MultiModalConfig) -> Dict[str, str]:
@@ -258,7 +267,14 @@ class FusionLayer(nn.Module):
         if self.quant:
             attach_int8_all((*self.attention.linears(), self.ffn.Dense_0, self.ffn.Dense_1))
 
-    def forward(self, img_patches, img_global, txt_tokens, txt_mask) -> torch.Tensor:
+    def forward(self, img_patches, img_global, txt_tokens, txt_mask,
+                return_attention: bool = False):
+        """The pooled sequence; with ``return_attention`` (pooled, the fusion's
+        attention weights), the whole layer on the JAX XLA branch after the
+        enhancers (no kernel route for the self-attention and the FFN)."""
+        if return_attention:
+            seq, attn = self.fusion(img_patches, img_global, txt_tokens, txt_mask, True)
+            return self._xla(seq, qlinear_multi if self.quant else plain_lins, None), attn
         seq = self.fusion(img_patches, img_global, txt_tokens, txt_mask)
         if self.quant:
             return self._xla(seq, qlinear_multi, None)
@@ -352,21 +368,48 @@ class MultiModalRetrievalModel(nn.Module):
                                  device=device)
 
     def forward(self, image, input_ids, attention_mask, deterministic: bool = True,
-                generator: torch.Generator = None) -> Dict[str, torch.Tensor]:
+                generator: torch.Generator = None, *, return_attention: bool = False,
+                patch_delta: Optional[torch.Tensor] = None,
+                txt_delta: Optional[torch.Tensor] = None,
+                features: Optional[Dict[str, torch.Tensor]] = None,
+                return_features: bool = False) -> Dict[str, torch.Tensor]:
         """``deterministic=False`` is the training route (module docstring);
-        it needs ``generator``."""
+        it needs ``generator``. The explain hooks as JAX's: ``features``
+        (img_patches / img_global / txt_tokens / txt_cls, the raw backbone
+        outputs) skips the backbones (``image`` may be None);
+        ``return_features`` returns them; ``patch_delta`` / ``txt_delta`` are
+        added to the projected patches / text tokens; ``return_attention``
+        adds "attention", one {"txt2img", "img2txt"} dict per fusion layer.
+        The outputs also hold the projected patches and text tokens in f32
+        (``img_patches_proj``, ``txt_tokens_proj``)."""
         cfg = self.config
         if not deterministic and generator is None:
             raise ValueError("MultiModalRetrievalModel: the training route needs a "
                              "torch.Generator")
-        feats = self.backbones(image, input_ids, attention_mask, deterministic, generator)
+        if return_attention and not deterministic:
+            raise ValueError("MultiModalRetrievalModel: return_attention runs on the "
+                             "deterministic route")
+        # explain hooks are meaningless for a tower the mode replaces with a
+        # null token: fail loudly instead of returning silent zero grads
+        if cfg.mode == "text" and patch_delta is not None:
+            raise ValueError("patch_delta requires the image tower (mode='text')")
+        if cfg.mode == "image" and txt_delta is not None:
+            raise ValueError("txt_delta requires the text tower (mode='image')")
+        feats = features if features is not None else self.backbones(
+            image, input_ids, attention_mask, deterministic, generator)
         B = input_ids.shape[0]
         if cfg.mode != "text":
-            img_patches = self.img_proj(feats["img_patches"])
-            img_global = self.img_global_proj(feats["img_global"])
+            img_patches = self.img_proj(feats["img_patches"].to(self.dtype))
+            if patch_delta is not None:
+                # gradients w.r.t. this zero input are gradients w.r.t. the
+                # projected patches (Grad-CAM)
+                img_patches = (img_patches + patch_delta).to(self.dtype)
+            img_global = self.img_global_proj(feats["img_global"].to(self.dtype))
         if cfg.mode != "image":
-            txt_tokens = self.txt_proj(feats["txt_tokens"])
-            txt_cls = self.txt_cls_proj(feats["txt_cls"])
+            txt_tokens = self.txt_proj(feats["txt_tokens"].to(self.dtype))
+            if txt_delta is not None:  # token-level IG
+                txt_tokens = (txt_tokens + txt_delta).to(self.dtype)
+            txt_cls = self.txt_cls_proj(feats["txt_cls"].to(self.dtype))
             txt_mask = attention_mask[:, : txt_tokens.shape[1]]
         if cfg.mode == "image":
             txt_tokens = self.null_txt.expand(B, 1, -1).contiguous()
@@ -378,10 +421,15 @@ class MultiModalRetrievalModel(nn.Module):
             img_global = img_patches[:, 0, :]
 
         joint = self.joint_init(torch.cat([img_global, txt_cls], dim=-1))
+        attn_maps = []
         for i in range(cfg.num_fusion_layers):
             layer = self._modules[f"fusion_layer{i}"]
             args = (img_patches, img_global, txt_tokens, txt_mask)
-            pooled = layer(*args) if deterministic else layer.forward_train(*args, generator)
+            if return_attention:
+                pooled, attn = layer(*args, return_attention=True)
+                attn_maps.append(attn)
+            else:
+                pooled = layer(*args) if deterministic else layer.forward_train(*args, generator)
             joint = self._modules[f"joint_norm{i}"](joint + pooled)
 
         joint = joint.float()
@@ -389,9 +437,16 @@ class MultiModalRetrievalModel(nn.Module):
         if not deterministic:
             x = dropout(x, cfg.dropout, generator)
         logits = self.cls_out(x.float())
-        return {
+        out = {
             "logits": logits,
             "joint_emb": joint,
             "img_emb": img_global.float(),
             "txt_emb": txt_cls.float(),
+            "img_patches_proj": img_patches.float(),
+            "txt_tokens_proj": txt_tokens.float(),
         }
+        if return_attention:
+            out["attention"] = attn_maps
+        if return_features:
+            out["features"] = feats
+        return out

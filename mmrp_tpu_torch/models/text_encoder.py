@@ -90,19 +90,24 @@ def additive_key_mask(mask: torch.Tensor) -> torch.Tensor:
 
 
 def mha_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
-              key_mask, rate: float, generator: torch.Generator) -> torch.Tensor:
+              key_mask, rate: float, generator: torch.Generator,
+              return_weights: bool = False):
     """The JAX models' XLA attention with dropout: q (B, Lq, D), k/v (B, Lk, D)
     projected, scores and softmax in f32 (+ additive (B, Lk) ``key_mask``),
     dropout on the probabilities, which are rounded to v's dtype for the
-    product; the context is summed in f32 and rounded to q's dtype."""
+    product; the context is summed in f32 and rounded to q's dtype. With
+    ``return_weights``: (context, the f32 softmax (B, h, Lq, Lk) before
+    dropout)."""
     B, Lq, D = q.shape
     h, d = num_heads, D // num_heads
     q, k, v = q.reshape(B, Lq, h, d), k.reshape(B, -1, h, d), v.reshape(B, -1, h, d)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * d**-0.5
     if key_mask is not None:
         scores = scores + key_mask.float()[:, None, None, :]
-    p = dropout(torch.softmax(scores, dim=-1), rate, generator)
-    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v).to(q.dtype).reshape(B, Lq, D)
+    weights = torch.softmax(scores, dim=-1)
+    p = dropout(weights, rate, generator)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v).to(q.dtype).reshape(B, Lq, D)
+    return (ctx, weights) if return_weights else ctx
 
 
 class BertEmbeddings(nn.Module):

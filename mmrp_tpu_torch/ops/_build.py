@@ -11,6 +11,12 @@ every entry returns ``cudaGetLastError()``, which :func:`launch` turns into
 an exception.
 
 Without ``nvcc`` there is no kernel and no fallback: :func:`build` raises.
+
+The kernels are forward-only. :class:`KernelRecompute` gives a bf16 serving
+kernel its gradient route, the counterpart of the JAX wrappers'
+``custom_vjp``: the kernel's forward, and a backward that differentiates the
+plain version recomputed on the saved inputs (JAX: ``jax.vjp`` of
+``xla_equivalent`` in ``bwd``).
 """
 
 from __future__ import annotations
@@ -159,7 +165,9 @@ def check_cuda_inputs(op: str, device: torch.device,
     """Validate ``(name, tensor, dtype, shape)`` entries (tensor may be None)
     before their pointers go to a kernel: same CUDA device, dtype, shape,
     contiguity and 32-byte alignment (16-byte row copies). The kernels are
-    forward-only, so an input that autograd would track is refused."""
+    forward-only, so an input that autograd would track is refused: a
+    gradient goes through :func:`grad_route`, whose forward runs with grad
+    mode off."""
     grad = torch.is_grad_enabled()
     for name, t, dtype, shape in tensors:
         if t is None:
@@ -178,6 +186,39 @@ def check_cuda_inputs(op: str, device: torch.device,
             raise RuntimeError(
                 f"{op}: {name} requires grad; the CUDA kernel is forward-only "
                 "(run under torch.inference_mode() or torch.no_grad())")
+
+
+class KernelRecompute(torch.autograd.Function):
+    """``kernel(*tensors)`` forward; backward by autograd through
+    ``plain(*tensors)`` recomputed on the saved inputs. ``tensors`` may hold
+    None. Only the inputs that need a gradient are differentiated (a frozen
+    weight or a mask gets None). The backward's plain call is not a plain
+    route and counts nothing."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *tensors):
+        ctx.plain = plain
+        ctx.save_for_backward(*tensors)
+        return kernel(*(None if t is None else t.detach() for t in tensors))
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        needs = ctx.needs_input_grad[2:]
+        inputs = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, needs)]
+        wrt = [t for t, need in zip(inputs, needs) if need]
+        with torch.enable_grad():
+            out = ctx.plain(*inputs)
+        grads = iter(torch.autograd.grad(out, wrt, grad_out, allow_unused=True))
+        return (None, None, *(next(grads) if need else None for need in needs))
+
+
+def grad_route(kernel, plain, tensors: Sequence[Optional[torch.Tensor]]):
+    """``kernel(*tensors)``, through :class:`KernelRecompute` when autograd
+    records the call (grad mode on and an input that requires grad)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        return KernelRecompute.apply(kernel, plain, *tensors)
+    return kernel(*tensors)
 
 
 def run_plain(wrapper, plain, *args, **kwargs):

@@ -160,15 +160,27 @@ def fused_attention(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
     """One fused attention block over x (B, Nq, C). ``ln_scale``/``ln_bias``
     may be None in ln_mode 'none'. ``quant``: W8A8 projections (module
     docstring). Launches are counted per flavor: ``launches`` (bf16) and
-    ``launches_int8``."""
+    ``launches_int8``. The bf16 form has a gradient route
+    (``_build.grad_route``: the kernel forward, the backward through
+    :func:`attention_plain`); the W8A8 form is forward-only."""
+    tensors = (x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, kv, key_mask, pos, alpha)
+    kw = dict(num_heads=num_heads, ln_mode=ln_mode, include_residual=include_residual,
+              residual_from_raw=residual_from_raw, eps=eps)
     if x.device.type == "cpu":
-        return attention_plain(
-            x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, kv, key_mask, pos,
-            alpha, num_heads=num_heads, ln_mode=ln_mode,
-            include_residual=include_residual, residual_from_raw=residual_from_raw,
-            eps=eps, quant=quant, wscales=wscales)
+        return attention_plain(*tensors, **kw, quant=quant, wscales=wscales)
     if x.device.type != "cuda":
         raise ValueError(f"fused_attention: no kernel for {x.device}")
+    if quant:
+        return _launch(*tensors, **kw, quant=True, wscales=wscales)
+    return _build.grad_route(lambda *t: _launch(*t, **kw),
+                             lambda *t: attention_plain(*t, **kw), tensors)
+
+
+def _launch(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, kv, key_mask, pos, alpha,
+            *, num_heads: int, ln_mode: str, include_residual: bool,
+            residual_from_raw: bool, eps: float, quant: bool = False,
+            wscales=None) -> torch.Tensor:
+    """The kernels' launches on CUDA tensors (:func:`fused_attention`)."""
     _check_form(ln_mode, kv)
     B, Nq, C = x.shape
     Nk = Nq if kv is None else kv.shape[1]

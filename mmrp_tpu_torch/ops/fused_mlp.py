@@ -96,12 +96,22 @@ def ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-6,
 def fused_ln_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-6,
                           post_ln: bool = False,
                           include_residual: bool = True) -> torch.Tensor:
-    """Fused LN + MLP [+ residual] over row-flattened activations x (M, C)."""
+    """Fused LN + MLP [+ residual] over row-flattened activations x (M, C);
+    with a gradient route (``_build.grad_route``: the kernel forward, the
+    backward through :func:`ln_mlp_plain`)."""
+    tensors = (x, ln_scale, ln_bias, w1, b1, w2, b2)
+    flags = (eps, post_ln, include_residual)
     if x.device.type == "cpu":
-        return ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, post_ln,
-                            include_residual)
+        return ln_mlp_plain(*tensors, *flags)
     if x.device.type != "cuda":
         raise ValueError(f"fused_ln_mlp_residual: no kernel for {x.device}")
+    return _build.grad_route(lambda *t: _launch(*t, *flags),
+                             lambda *t: ln_mlp_plain(*t, *flags), tensors)
+
+
+def _launch(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float, post_ln: bool,
+            include_residual: bool) -> torch.Tensor:
+    """The kernel's launch on CUDA tensors (:func:`fused_ln_mlp_residual`)."""
     M, C = x.shape
     Hd = w1.shape[0]
     if not kernel_takes(C, Hd):

@@ -233,15 +233,26 @@ def fused_swin_block_windows(xw, ln0_scale, ln0_bias, w_qkv, b_qkv, w_proj, b_pr
                              num_heads: int, ln_eps: float = 1e-6, *, quant=False,
                              wscales=None, act_scales=None) -> torch.Tensor:
     """One whole Swin block on windows ``xw`` (B, nW, N, C), raw (pre-LN),
-    already rolled and partitioned; ``quant`` as in the module docstring."""
+    already rolled and partitioned; ``quant`` as in the module docstring. The
+    bf16 form has a gradient route (``_build.grad_route``: the kernel
+    forward, the backward through :func:`swin_block_plain`); the W8A8 forms
+    are forward-only."""
     blk = (ln0_scale, ln0_bias, w_qkv, b_qkv, w_proj, b_proj, ln1_scale, ln1_bias,
            w1, b1, w2, b2)
     q = dict(quant=quant, wscales=wscales, act_scales=act_scales)
     if xw.device.type == "cpu":
         return swin_block_plain(xw, *blk, bias_full, num_heads, ln_eps, **q)
-    out = launch_block("fused_swin_block_windows", xw, blk, bias_full, num_heads, ln_eps, **q)
-    count_launch(fused_swin_block_windows, quant, act_scales is None)
-    return out
+
+    def kernel(xw, *blk_bias):
+        out = launch_block("fused_swin_block_windows", xw, blk_bias[:-1], blk_bias[-1],
+                           num_heads, ln_eps, **q)
+        count_launch(fused_swin_block_windows, quant, act_scales is None)
+        return out
+
+    if quant:
+        return kernel(xw, *blk, bias_full)
+    return _build.grad_route(
+        kernel, lambda *t: swin_block_plain(*t, num_heads, ln_eps), (xw, *blk, bias_full))
 
 
 fused_swin_block_windows.launches = 0
@@ -258,7 +269,7 @@ def fused_swin_block_raw(x, ln0_scale, ln0_bias, w_qkv, b_qkv, w_proj, b_proj,
     """One whole Swin block on the un-partitioned map ``x`` (B, H, W, C),
     pre-rolled for shifted blocks; returns the map, not rolled back.
     ``quant=True`` is the dynamic W8A8 form, as in JAX the raw flavor's only
-    int8 one."""
+    int8 one. The bf16 form has a gradient route through :func:`raw_plain`."""
     if quant not in (False, True):
         raise ValueError(f"fused_swin_block_raw: quant must be False or True, got {quant!r}")
     blk = (ln0_scale, ln0_bias, w_qkv, b_qkv, w_proj, b_proj, ln1_scale, ln1_bias,
@@ -266,10 +277,18 @@ def fused_swin_block_raw(x, ln0_scale, ln0_bias, w_qkv, b_qkv, w_proj, b_proj,
     if x.device.type == "cpu":
         return raw_plain(x, *blk, bias_full, num_heads=num_heads, ws=ws, ln_eps=ln_eps,
                          quant=quant, wscales=wscales)
-    out = launch_block("fused_swin_block_raw", x, blk, bias_full, num_heads, ln_eps,
-                       map_ws=ws, quant=quant, wscales=wscales)
-    count_launch(fused_swin_block_raw, quant)
-    return out
+
+    def kernel(x, *blk_bias):
+        out = launch_block("fused_swin_block_raw", x, blk_bias[:-1], blk_bias[-1], num_heads,
+                           ln_eps, map_ws=ws, quant=quant, wscales=wscales)
+        count_launch(fused_swin_block_raw, quant)
+        return out
+
+    if quant:
+        return kernel(x, *blk, bias_full)
+    return _build.grad_route(
+        kernel, lambda *t: raw_plain(*t, num_heads=num_heads, ws=ws, ln_eps=ln_eps),
+        (x, *blk, bias_full))
 
 
 fused_swin_block_raw.launches = 0

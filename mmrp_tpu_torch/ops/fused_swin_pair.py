@@ -37,7 +37,7 @@ from typing import Sequence
 
 import torch
 
-from mmrp_tpu_torch.ops import fused_swin_block
+from mmrp_tpu_torch.ops import _build, fused_swin_block
 from mmrp_tpu_torch.ops.fused_swin_block import count_launch, launch_block, raw_plain
 
 
@@ -115,15 +115,24 @@ def fused_swin_block_chain(x, blk: Sequence[torch.Tensor], bias, num_heads: int,
     block's frame (``bias`` is this block's (nW, h, N, N) bias_full), then
     the roll by ``roll_after = this_shift - next_shift``. Launches are
     counted as ``launches`` (bf16), ``launches_static`` (calibrated
-    ``act_scales``) and ``launches_per_row`` (static without them)."""
+    ``act_scales``) and ``launches_per_row`` (static without them). The bf16
+    form has a gradient route through :func:`chain_plain`."""
     if x.device.type == "cpu":
         return chain_plain(x, blk, bias, num_heads, ws, roll_after, ln_eps, quant, wscales,
                            act_scales)
-    out = launch_block("fused_swin_block_chain", x, blk, bias, num_heads, ln_eps,
-                       map_ws=ws, roll=roll_after, quant=_static(quant), wscales=wscales,
-                       act_scales=act_scales)
-    count_launch(fused_swin_block_chain, quant, act_scales is None)
-    return out
+
+    def kernel(x, *blk_bias):
+        out = launch_block("fused_swin_block_chain", x, blk_bias[:-1], blk_bias[-1], num_heads,
+                           ln_eps, map_ws=ws, roll=roll_after, quant=_static(quant),
+                           wscales=wscales, act_scales=act_scales)
+        count_launch(fused_swin_block_chain, quant, act_scales is None)
+        return out
+
+    if quant:
+        return kernel(x, *blk, bias)
+    return _build.grad_route(
+        kernel, lambda x, *t: chain_plain(x, t[:-1], t[-1], num_heads, ws, roll_after, ln_eps),
+        (x, *blk, bias))
 
 
 fused_swin_block_chain.launches = 0
@@ -140,18 +149,29 @@ def fused_swin_block_pair(x, blk0: Sequence[torch.Tensor], bias0,
     on the map ``x`` (B, H, W, C); returns the map in the unshifted frame.
     Launches are counted per pair as ``launches`` (bf16), ``launches_static``
     (both blocks with calibrated ``act_scales``) and ``launches_per_row``
-    (static, a block without them)."""
+    (static, a block without them). The bf16 form has a gradient route
+    through :func:`pair_plain`."""
     if x.device.type == "cpu":
         return pair_plain(x, blk0, bias0, blk1, bias1, num_heads, ws, shift, ln_eps, quant,
                           wscales0, wscales1, act_scales0, act_scales1)
     op = "fused_swin_block_pair"
     quant = _static(quant)
-    y = launch_block(op, x, blk0, bias0, num_heads, ln_eps, map_ws=ws, roll=-shift,
-                     quant=quant, wscales=wscales0, act_scales=act_scales0)
-    out = launch_block(op, y, blk1, bias1, num_heads, ln_eps, map_ws=ws, roll=shift,
-                       quant=quant, wscales=wscales1, act_scales=act_scales1)
-    count_launch(fused_swin_block_pair, quant, act_scales0 is None or act_scales1 is None)
-    return out
+    n = len(blk0)
+
+    def kernel(x, *t):
+        y = launch_block(op, x, t[:n], t[n], num_heads, ln_eps, map_ws=ws, roll=-shift,
+                         quant=quant, wscales=wscales0, act_scales=act_scales0)
+        out = launch_block(op, y, t[n + 1:-1], t[-1], num_heads, ln_eps, map_ws=ws, roll=shift,
+                           quant=quant, wscales=wscales1, act_scales=act_scales1)
+        count_launch(fused_swin_block_pair, quant, act_scales0 is None or act_scales1 is None)
+        return out
+
+    tensors = (x, *blk0, bias0, *blk1, bias1)
+    if quant:
+        return kernel(*tensors)
+    return _build.grad_route(
+        kernel, lambda x, *t: pair_plain(x, t[:n], t[n], t[n + 1:-1], t[-1], num_heads, ws,
+                                         shift, ln_eps), tensors)
 
 
 fused_swin_block_pair.launches = 0

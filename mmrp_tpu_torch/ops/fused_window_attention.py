@@ -117,13 +117,23 @@ def fused_window_attention_windows(xw, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
                                    include_residual: bool = True) -> torch.Tensor:
     """proj(attention(LN(x))) [+ x] over windows ``xw`` (B, nW, N, C), RAW
     (pre-LN), already rolled and partitioned. ``bias_full`` (nW, h, N, N) f32
-    is the relative-position bias plus the shifted-window mask."""
+    is the relative-position bias plus the shifted-window mask. With a
+    gradient route (``_build.grad_route``: the kernel forward, the backward
+    through :func:`window_attention_plain`)."""
+    tensors = (xw, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias_full)
+    flags = (num_heads, ln_eps, include_residual)
     if xw.device.type == "cpu":
-        return window_attention_plain(xw, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
-                                      b_proj, bias_full, num_heads, ln_eps,
-                                      include_residual)
+        return window_attention_plain(*tensors, *flags)
     if xw.device.type != "cuda":
         raise ValueError(f"fused_window_attention_windows: no kernel for {xw.device}")
+    return _build.grad_route(lambda *t: _launch(*t, *flags),
+                             lambda *t: window_attention_plain(*t, *flags), tensors)
+
+
+def _launch(xw, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias_full, num_heads: int,
+            ln_eps: float, include_residual: bool) -> torch.Tensor:
+    """The kernel's launches on CUDA tensors
+    (:func:`fused_window_attention_windows`)."""
     B, nW, N, C = xw.shape
     if not kernel_takes(C, num_heads, N):
         raise ValueError(

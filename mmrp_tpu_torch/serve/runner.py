@@ -9,7 +9,7 @@ reranker's inputs (``records_cache.json``, ``kg/node_embeddings.npy`` +
 ``kg/node2id.json``), the calibrated thresholds (``joint/thresholds.npy``)
 and the DICOM preprocessor.
 
-Three choices differ from the JAX package's:
+Two choices differ from the JAX package's:
 
 - **Weights** come from ``joint/params.npz``, a ``save_param_tree`` npz of
   ``{"model": tree}``: the port cannot read the orbax checkpoint under
@@ -21,12 +21,13 @@ Three choices differ from the JAX package's:
   not fit the rebuilt model raises, as JAX does.
 - **Dtype**: the model is built in bf16 on the card, the precision every
   kernel wrapper takes (they refuse f32), and in f32 on the CPU, where the
-  wrappers run their plain versions. ``Config.dtype_policy="f32"`` on the
-  card raises: no kernel takes f32.
-- **LabelAttention**: a run with ``label_attention.npz`` and KG embeddings
-  pools its label-node vectors with that Flax model, which is not ported
-  (ROADMAP.md Queue 1 item 7); such a run raises ``NotImplementedError``
-  rather than rank by the mean of those vectors.
+  wrappers run their plain versions, whatever ``Config.dtype_policy`` says
+  (JAX only validates the field); a run with ``dtype_policy: f32`` served
+  on the card says so in one line.
+
+A run with ``label_attention.npz`` and KG embeddings pools each record's
+label-node vectors with that LabelAttention model (``kg/label_attention.py``),
+as JAX does.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from mmrp_tpu_torch.config import Config
 from mmrp_tpu_torch.data.dicom import DICOMImagePreprocessor
 from mmrp_tpu_torch.data.tokenizer import WordPieceTokenizer
 from mmrp_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from mmrp_tpu_torch.kg.label_attention import load_label_attention
 from mmrp_tpu_torch.labels import LABEL_COLS
 from mmrp_tpu_torch.models.multimodal import MultiModalConfig, MultiModalRetrievalModel
 from mmrp_tpu_torch.models.text_encoder import TextConfig
@@ -120,9 +122,8 @@ def build_demo_context(run_dir: str, data_dir: str = None,
     cfg_path = run / "config.yaml"
     cfg = Config.load(str(cfg_path)) if cfg_path.exists() else Config()
     if dev.type == "cuda" and cfg.dtype_policy == "f32":
-        raise ValueError(
-            f"{cfg_path}: dtype_policy 'f32' cannot be served on the card, whose kernels "
-            "take bf16 only; serve it with device='cpu', or with dtype_policy 'bf16'")
+        print(f"[serve] {cfg_path}: dtype_policy 'f32': the card computes in bf16, the "
+              "precision its kernels take")
 
     tok = WordPieceTokenizer.from_vocab_file(str(run / "vocab.txt"))
 
@@ -177,13 +178,23 @@ def build_demo_context(run_dir: str, data_dir: str = None,
     emb_p, ids_p = run / "train_embeddings.npy", run / "train_ids.json"
     if emb_p.exists() and ids_p.exists():
         retriever = RetrievalEngine.from_files(str(emb_p), str(ids_p), device=dev)
-        if (run / "label_attention.npz").exists() and "kg_node_embeddings" in kg_kwargs:
-            raise NotImplementedError(
-                f"{run}/label_attention.npz: the LabelAttention pooler of the reranker's "
-                "label-node vectors is not ported (ROADMAP.md Queue 1 item 7)")
+        # attention pooling of label-node vectors when a LabelAttention
+        # checkpoint exists
+        label_pooler = None
+        la_ckpt = run / "label_attention.npz"
+        if la_ckpt.exists() and "kg_node_embeddings" in kg_kwargs:
+            la = load_label_attention(str(la_ckpt), device=dev)
+
+            def label_pooler(vecs):  # (k, D) -> (D,)
+                embs = torch.as_tensor(np.asarray(vecs, np.float32), device=dev)[None]
+                with torch.inference_mode():
+                    pooled, _ = la(embs, torch.ones(embs.shape[:2], device=dev))
+                return pooled[0].cpu().numpy()
+
         reranker = Reranker(
             alpha=cfg.rerank_alpha, beta=cfg.rerank_beta, gamma=cfg.rerank_gamma,
-            labels_by_id=labels_by_id, label_names=LABEL_COLS, **kg_kwargs,
+            labels_by_id=labels_by_id, label_names=LABEL_COLS, label_pooler=label_pooler,
+            **kg_kwargs,
         )
 
     # per-class calibrated thresholds from the joint stage

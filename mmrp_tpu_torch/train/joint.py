@@ -109,7 +109,12 @@ def make_train_step(model: MultiModalRetrievalModel, cfg: Config,
     then clip and AdamW on the masters, which go back into the model. The
     state and the model are updated in place; the same state is returned.
     ``metrics`` holds the loss terms and ``grad_norm``, the global norm of the
-    unclipped gradients, as Python floats."""
+    unclipped gradients, as Python floats. A ``remat_backbone`` model is
+    refused: activation checkpointing is not ported."""
+    if model.config.remat_backbone:
+        raise NotImplementedError(
+            "remat_backbone=True (activation checkpointing of the towers in training) is "
+            "not ported (ROADMAP.md Queue 1 item 6)")
     device = next(model.parameters()).device
     pw = None if pos_weight is None else torch.as_tensor(pos_weight, dtype=torch.float32,
                                                          device=device)

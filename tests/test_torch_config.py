@@ -125,8 +125,15 @@ def test_config_load_coerces_and_warns(tmp_path, capsys):
 
 
 def test_fields_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        MultiModalConfig.from_config(Config(remat_backbone=True))
+    """remat_backbone is carried and served; only the train step refuses it
+    (tests/test_torch_serve.py serves such a run against JAX)."""
+    from mmrp_tpu_torch.train.joint import make_train_step
+
+    cfg = Config(remat_backbone=True, joint_dim=64, num_heads=4)
+    mm = MultiModalConfig.from_config(cfg)
+    assert mm.remat_backbone and not MultiModalConfig.from_config(Config()).remat_backbone
+    with pytest.raises(NotImplementedError, match="remat_backbone.*Queue 1 item 6"):
+        make_train_step(MultiModalRetrievalModel(mm, device="meta"), cfg)
     for fields in (dict(use_shared_ffn=True), dict(use_cls_only=True),
                    dict(image_backbone="resnet50"), dict(image_backbone="medclip")):
         cfg = MultiModalConfig.from_config(Config(joint_dim=64, num_heads=4, **fields))

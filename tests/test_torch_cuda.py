@@ -768,13 +768,98 @@ def test_window_attention_heads_kernel(dev, shift, n_pad, B):
 
 @pytest.mark.cuda
 def test_kernels_refuse_inputs_autograd_tracks(dev):
+    """The W8A8 forms are forward-only: an input autograd tracks is refused
+    (the bf16 forms take it through their gradient route, below)."""
     C = 128
-    x = torch.zeros((16, C), device=dev, dtype=torch.bfloat16, requires_grad=True)
-    w1 = torch.zeros((512, C), device=dev, dtype=torch.bfloat16)
-    w2 = torch.zeros((C, 512), device=dev, dtype=torch.bfloat16)
+    x = torch.zeros((2, 16, C), device=dev, dtype=torch.bfloat16, requires_grad=True)
+    w = torch.zeros((C, C), device=dev, dtype=torch.bfloat16)
+    b = torch.zeros((C,), device=dev, dtype=torch.bfloat16)
     ln = torch.ones(C, device=dev)
     with pytest.raises(RuntimeError, match="forward-only"):
-        tfm.fused_ln_mlp_residual(x, ln, ln, w1, w1[:, 0].contiguous(), w2, x[0].detach())
+        tfa.fused_attention(x, ln, ln, w, b, w, b, w, b, w, b, num_heads=4, quant=True)
+
+
+def _grad_cases(gen, dev):
+    """(name, wrapper call, plain call, tensors, indices not differentiated)
+    of every bf16 serving kernel at small shapes."""
+    def r(shape, scale=1.0, dtype=torch.bfloat16):
+        return _rand(gen, shape, dev, scale, dtype)
+
+    def ln(C):
+        return 1 + r((C,), 0.1, torch.float32), r((C,), 0.1, torch.float32)
+
+    def block(C, heads, res, shift):
+        blk = (*ln(C), r((3 * C, C), C ** -0.5), r((3 * C,), 0.1), r((C, C), C ** -0.5),
+               r((C,), 0.1), *ln(C), r((4 * C, C), C ** -0.5), r((4 * C,), 0.1),
+               r((C, 4 * C), (4 * C) ** -0.5), r((C,), 0.1))
+        table = r((169, heads), 0.5, torch.float32)
+        return blk, tfw.build_bias_full(table, 7, res, res, shift)
+
+    C = 128
+    w = [t for _ in range(4) for t in (r((C, C), C ** -0.5), r((C,), 0.1))]
+    mask = torch.zeros((2, 20), device=dev)
+    mask[1, 13:] = -1e9
+    kw = dict(num_heads=4, ln_mode="pre", residual_from_raw=True)
+    blk, bias = block(C, 4, 14, 3)
+    blk1, bias1 = block(C, 4, 14, 0)
+    return [
+        ("K3 pre", lambda *a: tfa.fused_attention(*a, **kw),
+         lambda *a: tfa.attention_plain(*a, **kw),
+         (r((2, 20, C)), *ln(C), *w, None, mask, r((20, C), 0.5),
+          torch.tensor(0.5, device=dev)), {12}),
+        ("K3 cross post", lambda *a: tfa.fused_attention(*a, num_heads=4, ln_mode="post",
+                                                         include_residual=False),
+         lambda *a: tfa.attention_plain(*a, num_heads=4, ln_mode="post",
+                                        include_residual=False),
+         (r((2, 9, C)), *ln(C), *w, r((2, 20, C)), mask, None, None), {12}),
+        ("K2", tfm.fused_ln_mlp_residual, tfm.ln_mlp_plain,
+         (r((98, C)), *ln(C), r((512, C), C ** -0.5), r((512,), 0.1), r((C, 512), 0.05),
+          r((C,), 0.1)), set()),
+        ("K1", lambda *a: tfw.fused_window_attention_windows(*a, 4),
+         lambda *a: tfw.window_attention_plain(*a, 4), (r((2, 4, 49, C)), *blk[:6], bias),
+         set()),
+        ("windows", lambda *a: tsb.fused_swin_block_windows(*a, 4),
+         lambda *a: tsb.swin_block_plain(*a, 4), (r((2, 4, 49, C)), *blk, bias), set()),
+        ("raw", lambda *a: tsb.fused_swin_block_raw(*a, 4, 7),
+         lambda *a: tsb.raw_plain(*a, num_heads=4, ws=7), (r((2, 14, 14, C)), *blk, bias),
+         set()),
+        ("chain", lambda x, *t: tsp.fused_swin_block_chain(x, t[:12], t[12], 4, 7, 3),
+         lambda x, *t: tsp.chain_plain(x, t[:12], t[12], 4, 7, 3),
+         (r((2, 14, 14, C)), *blk, bias), set()),
+        ("pair", lambda x, *t: tsp.fused_swin_block_pair(x, t[:12], t[12], t[13:25], t[25],
+                                                         4, 7, 3),
+         lambda x, *t: tsp.pair_plain(x, t[:12], t[12], t[13:25], t[25], 4, 7, 3),
+         (r((2, 14, 14, C)), *blk1, bias1, *blk, bias), set()),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(8))
+def test_gradient_routes_match_the_plain_route(dev, case):
+    """Each bf16 wrapper with inputs autograd tracks: the forward is the
+    kernel's (bit for bit its no-grad output), and every input gradient is
+    the all-plain route's, bit for bit (the same plain math on the same
+    inputs); no plain call is counted."""
+    gen = torch.Generator(device=dev).manual_seed(20 + case)
+    name, call, plain, tensors, masks = _grad_cases(gen, dev)[case]
+    wrappers = (tfw.fused_window_attention_windows, tfm.fused_ln_mlp_residual,
+                tfa.fused_attention, tsb.fused_swin_block_windows, tsb.fused_swin_block_raw,
+                tsp.fused_swin_block_chain, tsp.fused_swin_block_pair)
+    plain_calls = [fn.plain_calls for fn in wrappers]
+    leaves = [None if t is None else t.detach().clone().requires_grad_(
+        t.is_floating_point() and i not in masks) for i, t in enumerate(tensors)]
+    wrt = [t for t in leaves if t is not None and t.requires_grad]
+    with torch.no_grad():
+        kernel_out = call(*leaves)
+    out = call(*leaves)
+    assert torch.equal(out.detach(), kernel_out), name
+    ref = plain(*leaves)
+    cot = _rand(gen, out.shape, dev)
+    got = torch.autograd.grad(out, wrt, cot)
+    want = torch.autograd.grad(ref, wrt, cot)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), name
+    assert [fn.plain_calls for fn in wrappers] == plain_calls
 
 
 @pytest.mark.cuda

@@ -17,6 +17,7 @@ packages, sums in other orders. Labels, retrieval ids and their order are
 held exactly.
 """
 
+import base64
 import dataclasses
 import json
 import os
@@ -32,24 +33,28 @@ import pytest
 import torch
 import yaml
 
+from mmrp_tpu.api import serving_forward as jax_serving_forward
 from mmrp_tpu.config import Config as JConfig
 from mmrp_tpu.data import native as jnative
+from mmrp_tpu.kg.label_attention import LabelAttentionTrainer, LabelAttentionTrainerConfig
 from mmrp_tpu.labels import LABEL_COLS
 from mmrp_tpu.models import multimodal as jmm
 from mmrp_tpu.models.swin import SwinConfig as JSwinConfig
 from mmrp_tpu.models.text_encoder import TextConfig as JTextConfig
 from mmrp_tpu.retrieval.gallery import RetrievalEngine as JRetrievalEngine
+from mmrp_tpu.serve import app as japp
 from mmrp_tpu.serve import runner as jrunner
 from mmrp_tpu.serve import stream as jstream
 from mmrp_tpu.utils.checkpoint import CheckpointManager
 from mmrp_tpu.utils.checkpoint import save_param_tree as jsave_param_tree
 from mmrp_tpu_torch.api import MMRPredictor
 from mmrp_tpu_torch.data.dicom import write_dicom
+from mmrp_tpu_torch.kg.label_attention import load_label_attention
 from mmrp_tpu_torch.models.multimodal import MultiModalConfig, MultiModalRetrievalModel
 from mmrp_tpu_torch.models.swin import SwinConfig
 from mmrp_tpu_torch.models.text_encoder import TextConfig
 from mmrp_tpu_torch.retrieval.gallery import RetrievalEngine
-from mmrp_tpu_torch.serve import runner, stream
+from mmrp_tpu_torch.serve import app, runner, stream
 from mmrp_tpu_torch.utils.convert import load_flax_params
 from test_stream import _batches
 from test_torch_config import assert_same_model
@@ -273,26 +278,147 @@ def test_run_dir_refuses_an_npz_older_than_its_checkpoint(run_dir, tmp_path):
     assert runner.build_demo_context(str(run), device="cpu")["predictor"] is not None
 
 
-def test_run_dir_refuses_the_label_attention_pooler(run_dir, tmp_path):
-    run = copy_run(run_dir, tmp_path)
-    np.savez(run / "label_attention.npz", w=np.zeros(2))
-    with pytest.raises(NotImplementedError, match="LabelAttention.*Queue 1 item 7"):
-        runner.build_demo_context(str(run), device="cpu")
+def write_label_attention(run, seed=1):
+    """A LabelAttention checkpoint of the run's KG table, as the JAX trainer
+    saves it, with randomized weights; returns the JAX trainer."""
+    table = np.load(run / "kg" / "node_embeddings.npy")
+    trainer = LabelAttentionTrainer(table, LabelAttentionTrainerConfig(hidden_dim=8))
+    trainer.init(jax.random.PRNGKey(seed))
+    trainer.params = randomize(trainer.params, seed)
+    trainer.save(str(run / "label_attention.npz"))
+    return trainer
+
+
+def test_label_attention_matches_jax(tmp_path):
+    """LabelAttention loaded from a real LabelAttentionTrainer.save npz:
+    pooled vectors and weights as the Flax module's on the same inputs, with
+    masked labels (atol 1e-6)."""
+    rng = np.random.default_rng(6)
+    (tmp_path / "kg").mkdir()
+    np.save(tmp_path / "kg" / "node_embeddings.npy",
+            rng.standard_normal((20, 12)).astype(np.float32))
+    trainer = write_label_attention(tmp_path)
+    model = load_label_attention(str(tmp_path / "label_attention.npz"), device="cpu")
+    assert (model.Dense_0.in_features, model.Dense_0.out_features) == (12, 8)
+    embs = rng.standard_normal((3, 5, 12)).astype(np.float32)
+    mask = np.array([[1, 1, 1, 1, 1], [1, 0, 1, 0, 0], [0, 0, 0, 1, 0]], np.float32)
+    want_pooled, want_w = trainer.model.apply(trainer.params, jnp.asarray(embs),
+                                              jnp.asarray(mask))
+    with torch.no_grad():
+        pooled, w = model(torch.from_numpy(embs), torch.from_numpy(mask))
+    np.testing.assert_allclose(pooled.numpy(), np.asarray(want_pooled), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(w.numpy(), np.asarray(want_w), rtol=0, atol=1e-6)
+    assert np.abs(np.asarray(want_pooled) - (embs * mask[..., None]).sum(1)
+                  / mask.sum(1, keepdims=True)).max() > 1e-2  # not the masked mean
+
+
+@pytest.fixture(scope="module")
+def la_run(run_dir, tmp_path_factory):
+    """A copy of the micro run with a label_attention.npz and a DICOM file for
+    every record, and the demo context of each package on it: (run, JAX
+    context, port context)."""
+    run = copy_run(run_dir, tmp_path_factory.mktemp("la_run"))
+    write_label_attention(run)
+    cache = run.parent / "records_cache.json"
+    records = json.loads(cache.read_text())["records"]
+    rng = np.random.default_rng(8)
+    for rec in records:
+        rec["dicom_path"] = str(run.parent / "dicom" / f"{rec['id']}.dcm")
+        if rec["id"].startswith("g"):
+            write_dicom(rec["dicom_path"], (rng.random((40, 48)) * 3000).astype(np.uint16))
+    cache.write_text(json.dumps({"records": records}))
+    return (run, jrunner.build_demo_context(str(run)),
+            runner.build_demo_context(str(run), device="cpu"))
+
+
+def test_run_dir_refuses_the_label_attention_pooler(la_run, tmp_path):
+    """(The name is kept from the refusal this test replaced.) A run with a
+    label_attention.npz beside its KG: both packages pool the label-node
+    vectors with it, so the reranked lists are JAX's, in order (scores 1e-5),
+    for a batch and for requests keyed by a record; without the KG id map
+    there is nothing to pool and no pooler."""
+    run, want_ctx, ctx = la_run
+    pred, jpred = ctx["predictor"], want_ctx["predictor"]
+    assert pred.reranker.label_pooler is not None
+    vecs = np.load(run / "kg" / "node_embeddings.npy")[-4:]
+    np.testing.assert_allclose(pred.reranker.label_pooler(vecs),
+                               jpred.reranker.label_pooler(vecs), rtol=0, atol=1e-6)
+    for ids, query_id in ((["q0", "q1", "q2", "q3"], None), (["q1"], "g4"), (["q0"], "q0")):
+        image, input_ids, mask = requests(ctx, ids, ctx["records_by_id"])
+        got = pred.predict(image, input_ids, mask, K=5, query_id=query_id)["retrieval"]
+        want = jpred.predict(image, input_ids, mask, K=5, query_id=query_id)["retrieval"]
+        assert [[n for n, _ in row] for row in got] == [[n for n, _ in row] for row in want]
+        np.testing.assert_allclose([s for row in got for _, s in row],
+                                   [s for row in want for _, s in row], **TOL)
+    run = copy_run((run, run.parent, None), tmp_path)
     (run / "kg" / "node2id.json").unlink()  # no KG: nothing to pool, no pooler
-    assert runner.build_demo_context(str(run), device="cpu")["predictor"].reranker is not None
+    reranker = runner.build_demo_context(str(run), device="cpu")["predictor"].reranker
+    assert reranker is not None and reranker.label_pooler is None
 
 
-def test_run_dir_on_the_card_by_default(run_dir, tmp_path, monkeypatch):
-    """No device argument: the card, and a clear error where there is none;
-    an f32 dtype policy is refused on the card before anything is built."""
+def test_run_dir_serves_a_remat_backbone_run_as_jax(run_dir, tmp_path):
+    """A run trained with remat_backbone: true is served (remat only matters
+    in training): probs and joint_emb of the JAX model built from the same
+    config (remat on every tower) with the same weights, within 1e-5. (JAX's
+    own build_demo_context cannot restore such a run's orbax checkpoint on
+    this CPU: its remat init template holds literal leaves that orbax
+    refuses, so the JAX side is its model applied directly.)"""
+    run = copy_run(run_dir, tmp_path)
+    text = (run / "config.yaml").read_text()
+    assert "remat_backbone: false" in text
+    (run / "config.yaml").write_text(text.replace("remat_backbone: false",
+                                                  "remat_backbone: true"))
+    ctx = runner.build_demo_context(str(run), device="cpu")
+    assert ctx["predictor"].model.config.remat_backbone
+    jcfg = jmm.MultiModalConfig.from_config(
+        JConfig(**CFG, remat_backbone=True), num_classes=len(LABEL_COLS),
+        text_override=JTextConfig(**TEXT, use_fused_attention=False))
+    assert jcfg.remat_fusion and jcfg.swin.remat and jcfg.text.remat
+    image, input_ids, mask = requests(ctx, ["q0", "q2"], ctx["records_by_id"])
+    got = ctx["predictor"].embed(image, input_ids, mask)
+    want = jax.jit(jax_serving_forward(jmm.MultiModalRetrievalModel(jcfg)))(
+        {"model": run_dir[2]}, image, input_ids, mask)
+    for key in ("probs", "joint_emb"):
+        np.testing.assert_allclose(got[key], np.asarray(want[key]), err_msg=key, **TOL)
+
+
+def test_run_dir_on_the_card_by_default(run_dir, tmp_path, monkeypatch, capsys):
+    """No device argument: the card, and a clear error where there is none.
+    A run with dtype_policy f32 is served: on the card in bf16, saying so in
+    one line (the card's model stands in here: the build stops where it is
+    asked for), and on the CPU in f32 with JAX's probs."""
     run, _, _ = run_dir
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device.*device='cpu'"):
         MMRPredictor.from_run_dir(str(run))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    (tmp_path / "config.yaml").write_text("dtype_policy: f32\n")
-    with pytest.raises(ValueError, match="dtype_policy 'f32' cannot be served on the card"):
-        runner.build_demo_context(str(tmp_path))
+    f32_run = copy_run(run_dir, tmp_path)
+    text = (f32_run / "config.yaml").read_text()
+    assert "dtype_policy: bf16" in text
+    (f32_run / "config.yaml").write_text(text.replace("dtype_policy: bf16",
+                                                      "dtype_policy: f32"))
+    built = []
+
+    class Built(Exception):
+        pass
+
+    def model_on_the_card(cfg, dtype, device):  # stands in for the card's model
+        built.append((dtype, device))
+        raise Built
+
+    monkeypatch.setattr(runner, "MultiModalRetrievalModel", model_on_the_card)
+    with pytest.raises(Built):
+        runner.build_demo_context(str(f32_run))
+    assert built == [(torch.bfloat16, torch.device("cuda"))]
+    assert "dtype_policy 'f32': the card computes in bf16" in capsys.readouterr().out
+    monkeypatch.undo()
+    ctx = runner.build_demo_context(str(f32_run), device="cpu")
+    assert next(ctx["predictor"].model.parameters()).dtype == torch.float32
+    image, input_ids, mask = requests(ctx, ["q1"], ctx["records_by_id"])
+    np.testing.assert_allclose(
+        ctx["predictor"].predict(image, input_ids, mask)["probs"],
+        jrunner.build_demo_context(str(f32_run))["predictor"].predict(
+            image, input_ids, mask)["probs"], **TOL)
 
 
 def test_load_rerank_inputs_explicit_data_dir(tmp_path, capsys):
@@ -455,3 +581,164 @@ def test_engine_device_path_matches_jax(tmp_path):
         got_s, got_i = eng.finalize_batch(s, i)
         np.testing.assert_array_equal(got_i, ji)
         np.testing.assert_allclose(got_s, js, **TOL)
+
+
+PAYLOAD = {
+    "top_labels": [("cardiac", 0.9), ("<b>", 0.25)],
+    "retrieval": [("id1", 0.8), ("id<2>", 0.5)],
+    "images": {"attention": "QUJD"},
+    "token_html": "<span>x</span>",
+    "agreement": {"attn_vs_ig": {"pearson": 0.5, "spearman": 0.4, "iou@5%": 0.1,
+                                 "iou@20%": 0.2}},
+    "latency_ms": 12.0,
+    "retrieval_detail": [{"id": "id1", "score": 0.8, "overlay": "QUJD",
+                          "top_labels": [("a", 0.5)],
+                          "agreement": {"attn_vs_ig": {"pearson": 0.1}},
+                          "cross_map": {"pearson": 0.3, "iou@20%": 0.1}}],
+    "retrieval_diversity": 0.4,
+}
+
+
+def multipart(boundary, payload, quoted=False):
+    body = (f"--{boundary}\r\n"
+            'Content-Disposition: form-data; name="text_query"\r\n\r\nhello world\r\n'
+            f"--{boundary}\r\n"
+            'Content-Disposition: form-data; name="dicom_file"; filename="a.dcm"\r\n'
+            "Content-Type: application/octet-stream\r\n\r\n").encode() + payload \
+        + f"\r\n--{boundary}--\r\n".encode()
+    b = f'"{boundary}"' if quoted else boundary
+    return body, f"multipart/form-data; boundary={b}; charset=utf-8"
+
+
+def test_app_units_match_jax():
+    """The demo's units are the JAX app's: PNG overlays byte for byte, the
+    escaped token HTML, the multipart parser on a binary payload ending in
+    CR / LF / '-' bytes with plain and quoted boundaries, and the rendered
+    results page."""
+    rng = np.random.default_rng(7)
+    g, heat = rng.random((16, 16)), rng.random((16, 16))
+    assert app._png_base64(g) == japp._png_base64(g)
+    assert app._png_base64(g, heat) == japp._png_base64(g, heat)
+    tok = app.token_attention_html(["<script>", "heart"], [0.9, 0.1])
+    assert tok == japp.token_attention_html(["<script>", "heart"], [0.9, 0.1])
+    assert "&lt;script&gt;" in tok and "<script>" not in tok
+    for quoted in (False, True):
+        body, ctype = multipart("XBOUND", b"PIXELDATA\x0a\x0d\x2d\x2d\x0a", quoted)
+        fields = app._parse_multipart(body, ctype)
+        assert fields == japp._parse_multipart(body, ctype)
+        assert fields["dicom_file"] == b"PIXELDATA\x0a\x0d\x2d\x2d\x0a"
+    with pytest.raises(ValueError, match="not multipart"):
+        app._parse_multipart(b"x", "application/json")
+    html = app.render_results(PAYLOAD)
+    assert html == japp.render_results(PAYLOAD) and app.render_results({}) == ""
+    for frag in ("cardiac", "&lt;b&gt;", "Similar cases", "Retrieved case detail",
+                 "diversity", "12.0 ms"):
+        assert frag in html
+
+
+def post(port, path, data, ctype="application/json"):
+    """(status, body) of one POST to the local demo."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def test_app_http_error_paths():
+    """400 / 413 on malformed bodies before any model is touched, 404 off
+    the routes, and /health, as the JAX demo answers."""
+    import http.client
+    import urllib.request
+
+    server = app.serve(lambda: {}, port=0, block=False, host="127.0.0.1")
+    port = server.server_address[1]
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=30) as r:
+            assert r.status == 200 and json.loads(r.read()) == {"status": "ok"}
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/", timeout=30) as r:
+            assert b'name="dicom_file"' in r.read()
+        for body in (b"{nope", json.dumps({"text": "x"}).encode(),
+                     json.dumps({"dicom_b64": "!!!"}).encode()):
+            assert post(port, "/api/predict", body)[0] == 400
+        assert post(port, "/", b"text_query=x", "application/x-www-form-urlencoded")[0] == 400
+        body, ctype = multipart("BB", b"")
+        assert post(port, "/", body.replace(b'name="dicom_file"', b'name="other"'),
+                    ctype)[0] == 400
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        conn.putrequest("POST", "/api/predict")
+        conn.putheader("Content-Length", str(100 * 1024 * 1024))
+        conn.endheaders()
+        conn.send(b"x")
+        assert conn.getresponse().status == 413
+        conn.close()
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        conn.request("GET", "/nothing")
+        assert conn.getresponse().status == 404
+        conn.close()
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+def test_app_api_predict_round_trip_matches_jax(la_run):
+    """POST /api/predict with one 16-bit DICOM, a report and detail=true to
+    the port's demo and to the JAX demo, each over its build_demo_context of
+    one run (LabelAttention pooler, gallery records with DICOM files): the
+    same payload keys, labels, retrieval and detail ids in order, and its
+    numbers: probabilities, scores and diversity within 1e-5, map agreement
+    metrics (Pearson, Spearman) within 1e-4 and the IoUs within one pixel
+    swapped at the top-k boundary (the maps agree at 1e-4 / 1e-5)."""
+    run, want_ctx, ctx = la_run
+    records = list(ctx["records_by_id"].values())
+    q = next(r for r in records if r["id"] == "q1")
+    request = json.dumps({"dicom_b64": base64.b64encode(
+        open(q["dicom_path"], "rb").read()).decode(), "text": q["report_text"],
+        "detail": True}).encode()
+    servers = [japp.serve(lambda: want_ctx, port=0, block=False),
+               app.serve(lambda: ctx, port=0, block=False, host="127.0.0.1")]
+    try:
+        (wcode, wbody), (code, body) = [post(srv.server_address[1], "/api/predict", request)
+                                        for srv in servers]
+    finally:
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+    assert code == wcode == 200, body
+    got, want = json.loads(body), json.loads(wbody)
+    assert got.keys() == want.keys() >= {"top_labels", "retrieval", "agreement",
+                                         "retrieval_detail", "latency_ms"}
+    assert got["latency_ms"] > 0 and len(got["retrieval"]) == 5
+
+    def same_pairs(g, w):
+        assert [n for n, _ in g] == [n for n, _ in w]
+        np.testing.assert_allclose([p for _, p in g], [p for _, p in w], **TOL)
+
+    def same_metrics(g, w):
+        assert g.keys() == w.keys()
+        for name, metrics in w.items():
+            assert g[name].keys() == metrics.keys()
+            for key, value in metrics.items():
+                k = max(1, int(784 * float(key[4:-1]) / 100)) if key.startswith("iou") else 0
+                atol = 2 / (k + 1) if k else 1e-4
+                np.testing.assert_allclose(g[name][key], value, rtol=0, atol=atol,
+                                           err_msg=f"{name} {key}")
+
+    for key in ("top_labels", "predicted", "retrieval"):
+        same_pairs(got[key], want[key])
+    same_metrics(got["agreement"], want["agreement"])
+    assert len(got["retrieval_detail"]) == len(want["retrieval_detail"]) == 5
+    for g, w in zip(got["retrieval_detail"], want["retrieval_detail"]):
+        assert g["id"] == w["id"] and g.keys() == w.keys()
+        np.testing.assert_allclose(g["score"], w["score"], **TOL)
+        same_pairs(g["top_labels"], w["top_labels"])
+        same_metrics({k: g[k] for k in ("cross_map", "cross_map_ig")},
+                     {k: w[k] for k in ("cross_map", "cross_map_ig")})
+        same_metrics(g["agreement"], w["agreement"])
+    np.testing.assert_allclose(got["retrieval_diversity"], want["retrieval_diversity"], **TOL)
+    assert got["retrieval_label_diversity"] == pytest.approx(want["retrieval_label_diversity"])
