@@ -104,6 +104,30 @@ Phases, each of which fails the run (nonzero exit, no result line):
    step, finite losses and gradient norms, and a last loss below the first.
    Step time, train pairs/s and peak device memory are printed for
    information.
+8. train a run directory: a seeded OpenI-format tree (records_cache.json,
+   splits, 320 records with reports of 40-700 words, 16-bit DICOM files of
+   512^2), ``train/runner.py::run_training_pipeline(flagship=True)`` at batch
+   64 and 512 tokens, one epoch per stage (Swin finetune, KG embeddings,
+   LabelAttention, joint with validation, checkpoints, gallery dumps, GT and
+   the dual-gallery eval), then ``cfg.resume`` on the same directory to 2
+   joint epochs (it must restore epoch 0's state bit for bit and continue at
+   epoch 1), then ``MMRPredictor.from_run_dir`` on the card: 8 train records
+   each at rank 1 of its own gallery row, probs bit-identical to the
+   in-process model's ``serving_forward``; then a ``KGTrainer`` run at the
+   size of a hybrid OpenI + DOID + RadLex graph (50,000 entities, 12
+   relations, 200,000 seeded triples; TransE dim 300, neg 32, batch 1024, bf16
+   scoring; one epoch and a filtered evaluation of its val split), whose loss
+   must fall. Every finetune and joint step must launch 22 C-F and 22 C-B and
+   no serving kernel, every joint validation batch, Swin finetune validation
+   batch and gallery dump batch its route's serving launches, the launches
+   over both runs the sum over those calls, no call a plain route; every
+   loss finite; every artifact of
+   JAX's runner present; ``pipeline_summary.json`` holding ``joint.composite``
+   and ``retrieval.{generalization,historical}.{P@10,mAP,MRR,nDCG@10}`` in
+   [0, 1]. Each stage's seconds, step times, train pairs/s, the KG times and
+   peak device memory are printed for information, beside the card's name
+   and power limit. ``python3 chip_smoke.py --pipeline-only`` runs phases 1,
+   2 and 8 alone and prints no result line.
 Each phase prints its seconds. The last two lines are the kernels' JSON record
 and the result line {"ok": true, "device": {...}}.
 """
@@ -468,6 +492,439 @@ def explain_expected(steps: int, chunk: int, targets: int, layers: int = 5) -> d
             for k in ZERO}
 
 
+# phase 8, train a run directory: a seeded OpenI-format tree of 320 records
+# (train 256, val 32, test 32), reports of 40-700 words, 16-bit DICOM files of
+# PIPE_DICOM_HW^2 (a cut: the OpenI originals are about 2048^2; 512^2 keeps
+# the host decode of ~1,500 images inside the run), then
+# run_training_pipeline(flagship=True) at batch 64, text length 512, one
+# epoch per stage, and the resume to 2 joint epochs. The train-time model takes
+# train_use_pallas_attention=True, so its validation and dump forwards run the
+# serving kernels with no plain call site
+PIPE_RECORDS = {"train": 256, "val": 32, "test": 32}
+PIPE_DICOM_HW = 512
+PIPE_B, PIPE_TEXT = 64, 512
+PIPE_SERVE = 8  # train records served back through from_run_dir
+# the KG run at the size of a hybrid OpenI + DOID + RadLex graph
+KG_ENTITIES, KG_RELATIONS, KG_TRIPLES = 50_000, 12, 200_000
+KG_DIM, KG_NEG, KG_BATCH = 300, 32, 1024
+# per training step of the flagship (finetune or joint): the core at Swin
+# stages 1-3, no serving kernel
+EXPECTED_PIPE_STEP = {"wattn_core_fwd": 22, "wattn_core_bwd": 22}
+# per validation batch of the joint stage (make_eval_step with the attention
+# weights: the fusion layers take JAX's unfused branch, so K3 runs in BERT's
+# 12 layers and the 5 fusion layers' self and cross attention, and K2 in
+# Swin alone), per Swin finetune validation batch (the vision tower alone),
+# and per gallery dump batch (the default serving route)
+EXPECTED_PIPE_EVAL = {"fused_window_attention": 2, "fused_ln_mlp": 2, "fused_attention": 22,
+                      "fused_swin_block_windows": 2, "fused_swin_block_chain": 18,
+                      "fused_swin_block_pair": 1}
+EXPECTED_PIPE_FT_EVAL = {k: v for k, v in EXPECTED_PIPE_EVAL.items() if k != "fused_attention"}
+EXPECTED_PIPE_DUMP = {k: v for k, v in EXPECTED["run_dir"].items() if v}
+# the files JAX's runner writes (its orbax checkpoints' insides aside;
+# tests/test_torch_pipeline.py holds the port's list to a JAX run's), and the
+# npz the port serves from
+PIPE_ARTIFACTS = (
+    "config.yaml", "vocab.txt", "model_config.json", "metrics.jsonl", "run_config.json",
+    "swin/swin_backbone.npz", "swin/thresholds.npy", "swin/best_swin_finetune_metrics.json",
+    "kg/triples.csv", "kg/node2id.json", "kg/relation2id.json", "kg/entity_meta.json",
+    "kg/node_embeddings.npy", "kg/rel_embeddings.npy", "kg/embeddings_meta.json",
+    "label_attention.npz", "best_label_attention_metrics.json",
+    "joint/val_embeddings.npy", "joint/val_attention.npy", "joint/val_ids.json",
+    "joint/thresholds.npy", "joint/val_per_class.json", "joint/best_multimodal_metrics.json",
+    "joint/ckpt/best_metrics.json", "joint/params.npz",
+    "test_embeddings.npy", "test_ids.json", "train_embeddings.npy", "train_ids.json",
+    "retrieval_eval/retrieval_results.json", "retrieval_eval/retrieval_results.txt",
+    "pipeline_summary.json")
+PIPE_WORDS = ("the heart size is normal mild cardiomegaly no focal consolidation pleural "
+              "effusion pneumothorax lungs are clear atelectasis left base right lower lobe "
+              "opacity degenerative change thoracic spine stable emphysema hyperinflation "
+              "granuloma calcified nodule mediastinal contours within normal limits").split()
+
+
+def pipeline_phase(torch, dev, smi: str, tmp: str) -> dict:
+    """Phase 8 (module docstring): returns {"pipeline": total launches of the
+    two runs, "finetune_step" / "finetune_val_batch" / "joint_step" /
+    "eval_batch" / "dump_batch": launches of one such call}."""
+    import numpy as np
+
+    from mmrp_tpu_torch.api import MMRPredictor, serving_forward
+    from mmrp_tpu_torch.config import Config
+    from mmrp_tpu_torch.data.dicom import write_dicom
+    from mmrp_tpu_torch.data.tokenizer import WordPieceTokenizer
+    from mmrp_tpu_torch.eval import retrieval_eval
+    from mmrp_tpu_torch.kg import trainer as kg_trainer
+    from mmrp_tpu_torch.labels import LABEL_COLS
+    from mmrp_tpu_torch.models.multimodal import MultiModalConfig, model_routes
+    from mmrp_tpu_torch.ops import fused_attention as K3
+    from mmrp_tpu_torch.ops import fused_mlp as K2
+    from mmrp_tpu_torch.ops import fused_swin_block as SB
+    from mmrp_tpu_torch.ops import fused_swin_pair as SP
+    from mmrp_tpu_torch.ops import fused_window_attention as K1
+    from mmrp_tpu_torch.ops import wattn_core as WC
+    from mmrp_tpu_torch.train import pipeline as tpipe
+    from mmrp_tpu_torch.train import runner as trunner
+    from mmrp_tpu_torch.train import swin_finetune as tft
+    from mmrp_tpu_torch.utils.checkpoint import CheckpointManager
+
+    counters = {
+        "fused_window_attention": (K1.fused_window_attention_windows, "launches"),
+        "fused_ln_mlp": (K2.fused_ln_mlp_residual, "launches"),
+        "fused_attention": (K3.fused_attention, "launches"),
+        "fused_swin_block_windows": (SB.fused_swin_block_windows, "launches"),
+        "fused_swin_block_chain": (SP.fused_swin_block_chain, "launches"),
+        "fused_swin_block_pair": (SP.fused_swin_block_pair, "launches"),
+        "wattn_core_fwd": (WC.core_forward, "launches"),
+        "wattn_core_bwd": (WC.core_backward, "launches"),
+    }
+    plain = (K1.fused_window_attention_windows, K2.fused_ln_mlp_residual, K3.fused_attention,
+             SB.fused_swin_block_windows, SB.fused_swin_block_raw, SP.fused_swin_block_chain,
+             SP.fused_swin_block_pair, WC.window_attention_core)
+
+    def reset():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        for fn in plain:
+            fn.plain_calls = 0
+
+    def read():
+        bad = {fn.__name__: fn.plain_calls for fn in plain if fn.plain_calls}
+        if bad:
+            fail(f"train a run directory: calls on a plain route: {bad}")
+        return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+
+    def diff(after, before):
+        return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+    # -- the data tree ------------------------------------------------------
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 8)
+    root = Path(tmp) / "openi"
+    (root / "dcm").mkdir(parents=True)
+    (root / "splits").mkdir()
+    records, split_ids = [], {}
+    for split, n in PIPE_RECORDS.items():
+        split_ids[split] = []
+        for i in range(n):
+            rid = f"{split}{i}"
+            hw = PIPE_DICOM_HW
+            pixels = (rng.random((hw, hw)) * 3000 + 500).astype(np.uint16)
+            path = root / "dcm" / f"{rid}.dcm"
+            write_dicom(path, pixels, window_center=2000, window_width=3000)
+            words = rng.choice(PIPE_WORDS, int(rng.integers(40, 701)))
+            labels = (rng.random(len(LABEL_COLS)) < 0.12).astype(int).tolist()
+            records.append({"id": rid, "report_text": " ".join(words) + ".", "labels": labels,
+                            "dicom_path": str(path)})
+            split_ids[split].append(rid)
+    (root / "records_cache.json").write_text(json.dumps({"records": records}))
+    for split, ids_ in split_ids.items():
+        (root / "splits" / f"{split}_ids.json").write_text(json.dumps(ids_))
+    log(f"train a run directory: {len(records)} records "
+        f"({', '.join(f'{k} {v}' for k, v in PIPE_RECORDS.items())}), reports of 40-700 "
+        f"words, 16-bit DICOM {PIPE_DICOM_HW}^2 (cut from ~2048^2 for host decode), written "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    cfg = Config(batch_size=PIPE_B, text_dim=PIPE_TEXT, epochs=1, patience=10,
+                 swin_finetune_epochs=1, kg_epochs=1, la_epochs=1, seed=SEED, data_workers=6,
+                 train_use_pallas_attention=True, use_pallas_attention=True, augment=False)
+    mm_cfg = MultiModalConfig.from_config(
+        cfg.replace(use_pallas_attention=cfg.train_use_pallas_attention),
+        num_classes=len(LABEL_COLS), flagship=True)
+    routes = model_routes(mm_cfg)
+    train_routes = model_routes(mm_cfg, train=True)
+    bad = [k for k, v in {**routes, **train_routes}.items() if v == "plain"]
+    if bad:
+        fail(f"train a run directory: plain call sites on the train-time model: {bad}")
+
+    # -- instrumentation: per call launches and CUDA-event time --------------
+    per_call = {"finetune_step": [], "finetune_val_batch": [], "joint_step": [],
+                "eval_batch": [], "dump_batch": []}
+    losses = {"finetune": [], "joint": []}
+    stage_s = {}
+
+    device = {}  # kind -> device ms of the port's kernels in its second call
+
+    def timed_call(kind, fn, *args):
+        before = read()
+        if len(per_call[kind]) == 1:  # the second call runs under the profiler, untimed
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = fn(*args)
+                torch.cuda.synchronize()
+            by = {}
+            for e in prof.key_averages():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    us = getattr(e, "device_time_total", None) or getattr(
+                        e, "cuda_time_total", 0.0)
+                    name = next((k for k in PORT_KERNELS if k in e.key), "other")
+                    by[name] = by.get(name, 0.0) + us / 1e3
+            device[kind] = {k: round(v, 3) for k, v in sorted(by.items())}
+            per_call[kind].append((diff(read(), before), None))
+            return out
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        end.synchronize()
+        per_call[kind].append((diff(read(), before), start.elapsed_time(end)))
+        return out
+
+    real = {"ft": tft.make_finetune_step, "ft_loop": tft.finetune,
+            "train": tpipe.make_train_step, "restore": CheckpointManager.restore,
+            "eval": tpipe.make_eval_step, "joint": tpipe.run_joint_training,
+            "dump": tpipe.dump_embeddings, "swin": trunner._run_swin_finetune_stage,
+            "la": trunner._run_label_attention_stage, "kg": kg_trainer.KGTrainer.train,
+            "ret": retrieval_eval.dual_gallery_eval, "save": CheckpointManager.save,
+            "best": CheckpointManager.update_best}
+
+    def ft_step(model, c, tx):
+        step = real["ft"](model, c, tx)
+
+        def run(*a):
+            params, opt, loss = timed_call("finetune_step", step, *a)
+            losses["finetune"].append(loss)
+            return params, opt, loss
+        return run
+
+    def ft_loop(model, c, train_batches, val_batches, *a, **kw):
+        # the finetune's validation forwards: each batch's launches are those
+        # made between its yield and the loop's next request
+        def counted():
+            for batch in val_batches():
+                before = read()
+                yield batch
+                per_call["finetune_val_batch"].append((diff(read(), before), None))
+        return real["ft_loop"](model, c, train_batches, counted, *a, **kw)
+
+    first_step = {}  # fn(model, state): called at a joint stage's first step
+    kept = []  # the joint model of each run
+
+    def joint_step(model, c, pw=None):
+        step = real["train"](model, c, pw)
+        check = first_step.pop("check", None)
+        kept.append(model)
+
+        def run(state, batch):
+            nonlocal check
+            if check is not None:
+                check(model, state)
+                check = None
+            state, m = timed_call("joint_step", step, state, batch)
+            losses["joint"].append(m["loss/total"])
+            return state, m
+        return run
+
+    resumed = {}
+
+    def restore(self, *a, **kw):
+        r = real["restore"](self, *a, **kw)
+        if "epoch" in r:  # a full train state
+            resumed["epoch"] = int(r["epoch"])
+        return r
+
+    def eval_step(model, return_attention=False):
+        step = real["eval"](model, return_attention)
+        kind = "eval_batch" if return_attention else "dump_batch"
+        return lambda batch: timed_call(kind, step, batch)
+
+    def stage(name, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            stage_s[name] = stage_s.get(name, 0.0) + time.perf_counter() - t
+            return out
+        return run
+
+    tft.make_finetune_step, tft.finetune = ft_step, ft_loop
+    CheckpointManager.restore = restore
+    tpipe.make_train_step, tpipe.make_eval_step = joint_step, eval_step
+    trunner._run_swin_finetune_stage = stage("swin finetune", real["swin"])
+    trunner._run_label_attention_stage = stage("label attention", real["la"])
+    kg_trainer.KGTrainer.train = stage("kg embeddings", real["kg"])
+    tpipe.run_joint_training = stage("joint", real["joint"])
+    tpipe.dump_embeddings = stage("dumps", real["dump"])
+    retrieval_eval.dual_gallery_eval = stage("retrieval eval", real["ret"])
+    # inside the joint stage: the checkpoints' writes
+    CheckpointManager.save = stage("joint checkpoints", real["save"])
+    CheckpointManager.update_best = stage("joint checkpoints", real["best"])
+    out = root / "train"  # the data CLI's layout: records_cache.json one level up
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        summary = trunner.run_training_pipeline(cfg, str(root), str(out), flagship=True,
+                                                device=dev)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        saved = real["restore"](CheckpointManager(str(out / "joint" / "ckpt")))
+        held = {k: v.detach().cpu().clone() for k, v in kept.pop().named_parameters()}
+        gc.collect()
+        torch.cuda.empty_cache()
+        peak_first = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        # -- resume to two joint epochs ----------------------------------------
+        def check(model, state):
+            # the state and the model the resumed run's first step is given
+            resumed["equal"] = all(
+                torch.equal(state.params[k].cpu(), v) for k, v in saved["params"].items()) \
+                and all(torch.equal(state.mu[k].cpu(), v)
+                        for k, v in saved["opt_state"]["mu"].items()) \
+                and all(torch.equal(state.nu[k].cpu(), v)
+                        for k, v in saved["opt_state"]["nu"].items()) \
+                and state.count == int(saved["opt_state"]["count"]) \
+                and state.seed == int(saved["base_rng"])
+            resumed["model_equal"] = all(
+                torch.equal(p.detach().cpu(), held[k]) for k, p in model.named_parameters())
+
+        first_step["check"] = check
+        resumed.clear()
+        n_joint = len(per_call["joint_step"])
+        t0 = time.perf_counter()
+        summary2 = trunner.run_training_pipeline(
+            cfg.replace(epochs=2, resume=True), str(root), str(out), flagship=True, device=dev)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        total = read()  # both runs: the counts were set to 0 before the first
+        model = kept.pop()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        tft.make_finetune_step, tft.finetune = real["ft"], real["ft_loop"]
+        CheckpointManager.restore = real["restore"]
+        tpipe.make_train_step, tpipe.make_eval_step = real["train"], real["eval"]
+        tpipe.run_joint_training, tpipe.dump_embeddings = real["joint"], real["dump"]
+        trunner._run_swin_finetune_stage = real["swin"]
+        trunner._run_label_attention_stage = real["la"]
+        kg_trainer.KGTrainer.train = real["kg"]
+        retrieval_eval.dual_gallery_eval = real["ret"]
+        CheckpointManager.save, CheckpointManager.update_best = real["save"], real["best"]
+    del kept[:]
+
+    # -- checks ---------------------------------------------------------------
+    if resumed.get("epoch") != 0 or not resumed.get("equal") or not resumed.get("model_equal"):
+        fail(f"resume: restored {resumed}; expected epoch 0, the saved state bit for bit and "
+             "the model the first run ended with")
+    if len(per_call["joint_step"]) - n_joint != len(per_call["joint_step"][:n_joint]):
+        fail("resume: the second joint epoch did not take as many steps as the first")
+    for kind in ("finetune_step", "joint_step"):
+        for i, (counts, _) in enumerate(per_call[kind]):
+            if counts != EXPECTED_PIPE_STEP:
+                fail(f"{kind} {i}: launches {counts}, expected {EXPECTED_PIPE_STEP}")
+    for kind, want in (("finetune_val_batch", EXPECTED_PIPE_FT_EVAL),
+                       ("eval_batch", EXPECTED_PIPE_EVAL), ("dump_batch", EXPECTED_PIPE_DUMP)):
+        if not per_call[kind]:
+            fail(f"train a run directory: no {kind}")
+        for i, (counts, _) in enumerate(per_call[kind]):
+            if counts != want:
+                fail(f"{kind} {i}: launches {counts}, expected {want}")
+    # every launch of the two runs was made in one of these calls
+    summed = {k: sum(c.get(k, 0) for calls in per_call.values() for c, _ in calls)
+              for k in total}
+    if summed != total:
+        fail(f"train a run directory: launches over both runs {total} != the sum over the "
+             f"calls {summed}")
+    all_losses = losses["finetune"] + losses["joint"]
+    if not all_losses or not np.isfinite(all_losses).all():
+        fail(f"train a run directory: non-finite or no losses {all_losses}")
+    for name in PIPE_ARTIFACTS:
+        if not (out / name).exists():
+            fail(f"train a run directory: artifact {name} missing")
+    if not any((out / "joint" / "ckpt" / "steps").iterdir()) or \
+            not (out / "joint" / "ckpt" / "best").exists():
+        fail("train a run directory: joint checkpoints missing")
+    for s_ in (summary, summary2):
+        comp = s_.get("joint", {}).get("composite")
+        if comp is None or not np.isfinite(comp):
+            fail(f"pipeline_summary: joint.composite {comp}")
+        for proto in ("generalization", "historical"):
+            for m in ("P@10", "mAP", "MRR", "nDCG@10"):
+                v = s_.get("retrieval", {}).get(proto, {}).get(m)
+                if v is None or not 0.0 <= v <= 1.0:
+                    fail(f"pipeline_summary: retrieval.{proto}.{m} = {v}")
+    steps = sorted(p.name for p in (out / "joint" / "ckpt" / "steps").iterdir())
+    log(f"resume: restored epoch 0 bit for bit, continued at epoch 1; checkpoints {steps}; "
+        f"best {summary2['joint']}")
+
+    # -- served back through from_run_dir -------------------------------------
+    reset()
+    pred = MMRPredictor.from_run_dir(str(out), device=dev)
+    tok = WordPieceTokenizer.from_vocab_file(str(out / "vocab.txt"))
+    train_ids = json.loads((out / "train_ids.json").read_text())[:PIPE_SERVE]
+    by_id = {r["id"]: r for r in records}
+    from mmrp_tpu_torch.data.dataset import ChestXRDataset
+
+    run_cfg = Config.load(str(out / "config.yaml"))
+    ds = ChestXRDataset([by_id[i] for i in train_ids], tok, max_length=PIPE_TEXT,
+                        image_size=run_cfg.image_size)
+    items = [ds[i] for i in range(len(train_ids))]
+    image = np.stack([it["image"] for it in items])
+    ids_ = np.stack([it["input_ids"] for it in items]).astype(np.int64)
+    mask_ = np.stack([it["attention_mask"] for it in items]).astype(np.int64)
+    got = pred.predict(image, ids_, mask_, K=5, retrieve=False)
+    served = read()
+    ranks = [pred.retrieve(got["joint_emb"][b], K=1, rerank=False)[0][0] == rid
+             for b, rid in enumerate(train_ids)]
+    want = serving_forward(model)(torch.from_numpy(image).to(dev), torch.from_numpy(ids_).to(dev),
+                                  torch.from_numpy(mask_).to(dev))
+    same = np.array_equal(got["probs"], want["probs"].float().cpu().numpy())
+    log(f"from_run_dir: {sum(ranks)} of {len(ranks)} train records at rank 1 of their own "
+        f"gallery row; probs bit-identical to the in-process model: {same}; launches {served}")
+    if not all(ranks) or not same:
+        fail("from_run_dir: a train record missed its own row or probs differ")
+    del pred, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the KG run at a hybrid graph's size ------------------------------------
+    r = np.random.default_rng(SEED + 9)
+    trip = np.stack([r.integers(0, KG_ENTITIES, KG_TRIPLES),
+                     r.integers(0, KG_RELATIONS, KG_TRIPLES),
+                     r.integers(0, KG_ENTITIES, KG_TRIPLES)], 1)
+    kgt = kg_trainer.KGTrainer(KG_ENTITIES, KG_RELATIONS, kg_trainer.KGTrainerConfig(
+        model="TransE", emb_dim=KG_DIM, neg_size=KG_NEG, batch_size=KG_BATCH, epochs=1,
+        use_bf16=True, seed=SEED), device=dev)
+    t0 = time.perf_counter()
+    kgt.load_triples(trip.tolist())
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    best = kgt.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    val = kgt.evaluate(kgt.val_arr)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    sl = kgt.step_losses
+    head, tail = float(np.mean(sl[:10])), float(np.mean(sl[-10:]))
+    log(f"KG run ({KG_ENTITIES} entities, {KG_RELATIONS} relations, {KG_TRIPLES} triples, TransE "
+        f"dim {KG_DIM}, neg {KG_NEG}, batch {KG_BATCH}, bf16 scoring): load {load_s:.2f} s, "
+        f"one epoch of {len(sl)} steps + filtered eval {train_s:.2f} s, filtered eval of "
+        f"{len(kgt.val_arr)} val triples alone {eval_s:.2f} s; loss first 10 steps {head:.4f} "
+        f"-> last 10 {tail:.4f}; val {val} [{smi}]")
+    if not (np.isfinite(sl).all() and tail < head):
+        fail(f"KG run: the loss did not fall ({head} -> {tail})")
+    if abs(best["mrr"] - val["mrr"]) > 1e-6:
+        fail(f"KG run: evaluate after train {val} != the epoch's {best}")
+
+    # -- for information -------------------------------------------------------
+    def med(kind):
+        return statistics.median(ms for _, ms in per_call[kind] if ms is not None)
+
+    ft_ms, joint_ms = med("finetune_step"), med("joint_step")
+    log(f"pipeline seconds: first run {first_s:.1f}, resume run {resume_s:.1f}; by stage "
+        f"{ {k: round(v, 1) for k, v in stage_s.items()} } [{smi}]")
+    log(f"pipeline steps (batch {PIPE_B}, L{PIPE_TEXT}): finetune step median {ft_ms:.1f} ms "
+        f"over {len(per_call['finetune_step'])}, joint step median {joint_ms:.1f} ms over "
+        f"{len(per_call['joint_step'])} ({PIPE_B / joint_ms * 1e3:.1f} train pairs/s), "
+        f"val batch {med('eval_batch'):.1f} ms, dump batch {med('dump_batch'):.1f} ms; peak "
+        f"device memory {peak_first:.2f} GiB (first run), {peak:.2f} GiB (both) [{smi}]")
+    counts = {kind: per_call[kind][0][0] for kind in per_call}
+    log(f"pipeline launches per call: {counts}; over both runs {total}")
+    log(f"pipeline device ms of one call by kernel (profiler; 'other': every other "
+        f"kernel): {device} [{smi}]")
+    return {"pipeline": total, **counts}
+
+
 def main() -> int:
     import torch
 
@@ -552,6 +1009,12 @@ def main() -> int:
     (_build.BUILD_DIR / "nvcc.log").write_text(nvcc_log)
     _build.library()
     phase_done("build")
+    if sys.argv[1:] == ["--pipeline-only"]:  # phases 1, 2 and 8 alone, no result line
+        with tempfile.TemporaryDirectory() as tmp:
+            pipeline_phase(torch, dev, smi, tmp)
+        phase_done("train a run directory")
+        log("chip_smoke: --pipeline-only ran phases 1, 2 and 8 alone; no result line")
+        return 0
 
     # -- 3. kernels against their plain versions -------------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1991,6 +2454,14 @@ def main() -> int:
         f"train pairs/s, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     phase_done("train slice")
+    del model, state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 8. train a run directory (pipeline_phase) -------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        launches.update(pipeline_phase(torch, dev, smi, tmp))
+    phase_done("train a run directory")
 
     # -- 8. records ------------------------------------------------------------
     # launches, and ms / plain_ms / bound_ms: counted or summed over the calls

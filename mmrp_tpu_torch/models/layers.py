@@ -106,6 +106,31 @@ class MlpParams(nn.Module):
                 self.Dense_1.bias)
 
 
+def remat(fn, generator: torch.Generator, *args):
+    """``fn(*args, generator)`` under ``torch.utils.checkpoint``: its
+    activations are dropped after the forward and recomputed in the backward
+    (JAX's ``nn.remat``). The recomputation draws its dropout masks from a
+    generator restored to the state ``generator`` had before the first call,
+    so both passes see the same masks, and ``generator`` leaves in the state
+    the first call left it in, as without remat."""
+    from torch.utils.checkpoint import checkpoint
+
+    start = generator.get_state()
+    end = []
+
+    def run(*a):
+        g = torch.Generator(device=generator.device)
+        g.set_state(start)
+        out = fn(*a, g)
+        if not end:
+            end.append(g.get_state())
+        return out
+
+    out = checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+    generator.set_state(end[0])
+    return out
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """tanh-form GELU, ``jax.nn.gelu``'s default."""
     return F.gelu(x, approximate="tanh")
@@ -157,3 +182,59 @@ class Mlp(nn.Module):
             x = dropout(x, self.rate, generator)
         x = self.Dense_1(x)
         return x if generator is None else dropout(x, self.rate, generator)
+
+
+class MultiHeadDotProductAttention(nn.Module):
+    """Flax ``nn.MultiHeadDotProductAttention``: ``query`` / ``key`` /
+    ``value`` projections to ``num_heads`` heads (the Flax DenseGeneral
+    kernels (D, h, d) as nn.Linear (h * d, D), heads contiguous), scores and
+    softmax in f32 (``mask``: bool, True where a key may be attended,
+    broadcastable to (B, h, Lq, Lk)), dropout on the weights in training
+    (``generator`` given), the context rounded to the compute dtype, then the
+    ``out`` projection."""
+
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.rate = dropout
+        kw = dict(dtype=dtype, device=device)
+        self.query = nn.Linear(dim, dim, **kw)
+        self.key = nn.Linear(dim, dim, **kw)
+        self.value = nn.Linear(dim, dim, **kw)
+        self.out = nn.Linear(dim, dim, **kw)
+
+    def forward(self, inputs_q: torch.Tensor, inputs_kv: torch.Tensor, mask=None,
+                generator: torch.Generator = None) -> torch.Tensor:
+        B, Lq, D = inputs_q.shape
+        h = self.num_heads
+        d = D // h
+        q = self.query(inputs_q).reshape(B, Lq, h, d)
+        k = self.key(inputs_kv).reshape(B, -1, h, d)
+        v = self.value(inputs_kv).reshape(B, -1, h, d)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float() * d ** -0.5, k.float())
+        if mask is not None:
+            scores = torch.where(mask, scores, torch.finfo(torch.float32).min)
+        w = torch.softmax(scores, dim=-1)
+        if generator is not None:
+            w = dropout(w, self.rate, generator)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v).to(q.dtype)
+        return self.out(ctx.reshape(B, Lq, D))
+
+
+class SelfAttentionBlock(nn.Module):
+    """LN -> MHA -> residual (``layers.py::SelfAttentionBlock``): the generic
+    full-attention block of the finetune head's enhancer; ``generator`` None
+    runs it deterministic."""
+
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.LayerNorm_0 = LayerNorm(dim, dtype, device)
+        self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(
+            dim, num_heads, dropout, dtype, device)
+
+    def forward(self, x: torch.Tensor, mask=None,
+                generator: torch.Generator = None) -> torch.Tensor:
+        y = self.LayerNorm_0(x)
+        return x + self.MultiHeadDotProductAttention_0(y, y, mask, generator)

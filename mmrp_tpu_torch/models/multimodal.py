@@ -20,6 +20,9 @@ route (``ops/_build.py::KernelRecompute``).
 ``forward(..., deterministic=False, generator=g)`` is the training route:
 every tower takes its JAX XLA branch with dropout and DropPath drawn from
 ``g`` (``multimodal.py:256, 299-341, 478, 495``), and no serving kernel runs.
+With ``remat_backbone`` each Swin block, BERT layer and fusion layer runs
+under activation checkpointing (``layers.py::remat``, JAX's ``nn.remat``,
+``multimodal.py:102-121``), its dropout masks replayed in the backward.
 
 ``MultiModalConfig.quant="int8"`` serves the fusion stack through the same
 XLA branch with every GEMM in W8A8 (``ops/quant.py``) and no kernel, as the
@@ -62,6 +65,7 @@ from mmrp_tpu_torch.models.layers import (
     dropout,
     gelu,
     ln_f32,
+    remat,
     sinusoidal_positions,
 )
 from mmrp_tpu_torch.models.swin import SwinConfig, SwinEncoder, plan_names, train_plan
@@ -93,8 +97,8 @@ class MultiModalConfig:
     drop_path: float = 0.1  # training only: fusion layer i gets drop_path * i / (L - 1)
     max_text_len: int = 512
     quant: str = "none"  # "int8": W8A8 GEMMs in the fusion stack (serving)
-    # activation checkpointing of the towers (training only; the serving
-    # forward ignores it, as JAX's does; the train step raises)
+    # activation checkpointing in training of every Swin block, BERT layer and
+    # fusion layer (JAX's nn.remat of the three towers); serving ignores it
     remat_backbone: bool = False
 
     @staticmethod
@@ -117,8 +121,8 @@ class MultiModalConfig:
         the Swin whole-block stages in static int8, with ``act_amax`` from
         ``swin_act_amax_path`` when one is given (else per-row activation
         scales). ``use_pallas_attention=False`` sends every Swin step to its
-        plain version. ``remat_backbone`` is carried: serving ignores it, and
-        the train step refuses it until remat is ported."""
+        plain version. ``remat_backbone`` remats the three towers in
+        training; serving ignores it."""
         from mmrp_tpu_torch.models.quant_calib import load_act_amax
 
         sq = cfg.serve_quant
@@ -219,8 +223,10 @@ class Backbones(nn.Module):
                     f"vision backbone {config.vision_backbone!r} is not ported yet "
                     "(ROADMAP.md Queue 1 item 9); the port runs 'swin'")
             self.swin = SwinEncoder(config.swin, dtype, device)
+            self.swin.remat = config.remat_backbone
         if config.mode != "image":
             self.text = TextEncoder(config.text, dtype, device)
+            self.text.remat = config.remat_backbone
 
     def forward(self, image, input_ids, attention_mask, deterministic: bool = True,
                 generator: torch.Generator = None) -> Dict[str, torch.Tensor]:
@@ -428,8 +434,13 @@ class MultiModalRetrievalModel(nn.Module):
             if return_attention:
                 pooled, attn = layer(*args, return_attention=True)
                 attn_maps.append(attn)
+            elif deterministic:
+                pooled = layer(*args)
+            elif cfg.remat_backbone:
+                pooled = remat(lambda ip, ig, tt, g, m=layer: m.forward_train(
+                    ip, ig, tt, txt_mask, g), generator, img_patches, img_global, txt_tokens)
             else:
-                pooled = layer(*args) if deterministic else layer.forward_train(*args, generator)
+                pooled = layer.forward_train(*args, generator)
             joint = self._modules[f"joint_norm{i}"](joint + pooled)
 
         joint = joint.float()

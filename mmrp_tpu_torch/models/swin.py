@@ -62,7 +62,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from mmrp_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from mmrp_tpu_torch.models.layers import DropPath, LayerNorm, MlpParams, dropout, gelu, ln_f32
+from mmrp_tpu_torch.models.layers import (
+    DropPath,
+    LayerNorm,
+    MlpParams,
+    dropout,
+    gelu,
+    ln_f32,
+    remat,
+)
 from mmrp_tpu_torch.ops import _build
 from mmrp_tpu_torch.ops import fused_mlp as K2
 from mmrp_tpu_torch.ops import fused_swin_block as SB
@@ -499,6 +507,9 @@ class SwinEncoder(nn.Module):
                 f"act_amax has {len(cfg.act_amax)} entries, model has {total} blocks — "
                 "recalibrate (models/quant_calib.py) for this architecture")
         self.config = cfg
+        # training: each block under activation checkpointing (set by
+        # MultiModalRetrievalModel from remat_backbone)
+        self.remat = False
         self.plan = swin_plan(cfg)
         self.train_plan = train_plan(cfg)
         self.patch_embed = PatchEmbed(cfg.embed_dim, cfg.patch_size, cfg.in_chans, dtype,
@@ -537,9 +548,14 @@ class SwinEncoder(nn.Module):
             if generator is None:
                 raise ValueError("SwinEncoder: the training route needs a torch.Generator")
             for stage, depth in enumerate(self.config.depths):
+                core = self.train_plan[stage]
                 for blk in range(depth):
-                    x = self._modules[f"stage{stage}_block{blk}"].forward_train(
-                        x, generator, self.train_plan[stage])
+                    block = self._modules[f"stage{stage}_block{blk}"]
+                    if self.remat:
+                        x = remat(lambda x, g, b=block, c=core: b.forward_train(x, g, c),
+                                  generator, x)
+                    else:
+                        x = block.forward_train(x, generator, core)
                 if f"merge{stage}" in self._modules:
                     x = self._modules[f"merge{stage}"](x)
             return self._pool(x)

@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from mmrp_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from mmrp_tpu_torch.models.layers import LayerNorm, MhaParams, dropout, gelu, ln_f32
+from mmrp_tpu_torch.models.layers import LayerNorm, MhaParams, dropout, gelu, ln_f32, remat
 from mmrp_tpu_torch.ops import _build
 from mmrp_tpu_torch.ops import fused_attention as K3
 from mmrp_tpu_torch.ops.fused_attention import attention_plain, fused_attention
@@ -193,6 +193,7 @@ class TextEncoder(nn.Module):
         super().__init__()
         device = resolve_device(device, "TextEncoder")
         self.config = config
+        self.remat = False  # training: each layer under activation checkpointing
         self.embeddings = BertEmbeddings(config, dtype, device)
         for i in range(config.num_layers):
             self.add_module(f"layer{i}", BertLayer(config, dtype, device))
@@ -214,6 +215,11 @@ class TextEncoder(nn.Module):
             x = dropout(x, cfg.dropout, generator)
         for i in range(cfg.num_layers):
             layer = self._modules[f"layer{i}"]
-            x = layer(x, key_mask) if deterministic else \
-                layer.forward_train(x, key_mask, cfg.dropout, generator)
+            if deterministic:
+                x = layer(x, key_mask)
+            elif self.remat:
+                x = remat(lambda x, g, m=layer: m.forward_train(x, key_mask, cfg.dropout, g),
+                          generator, x)
+            else:
+                x = layer.forward_train(x, key_mask, cfg.dropout, generator)
         return {"tokens": x, "cls": x[:, 0, :]}

@@ -13,12 +13,16 @@ Two choices differ from the JAX package's:
 
 - **Weights** come from ``joint/params.npz``, a ``save_param_tree`` npz of
   ``{"model": tree}``: the port cannot read the orbax checkpoint under
-  ``joint/ckpt/`` (no JAX, orbax or tensorstore on the card). A run that has
-  an orbax best checkpoint and no npz, or one newer than the npz, raises,
-  naming the one-line conversion a JAX host runs (:data:`CONVERT`); a run
-  with neither serves seeded
-  ``init_params`` weights, as JAX serves its template init; an npz that does
-  not fit the rebuilt model raises, as JAX does.
+  ``joint/ckpt/`` of a JAX run (no JAX, orbax or tensorstore on the card). A
+  JAX run that has an orbax best checkpoint and no npz, or one newer than the
+  npz, raises, naming the one-line conversion a JAX host runs
+  (:data:`CONVERT`). A run the port trained (``train/runner.py``) writes the
+  npz after its last best update; its best checkpoint is in the port's own
+  format (``joint/ckpt/best/state.pt``, ``utils/checkpoint.py``), which is
+  read directly where it is newer than the npz or the npz is missing (a run
+  stopped inside its joint stage). A run with neither serves seeded
+  ``init_params`` weights, as JAX serves its template init; weights that do
+  not fit the rebuilt model raise, as JAX's do.
 - **Dtype**: the model is built in bf16 on the card, the precision every
   kernel wrapper takes (they refuse f32), and in f32 on the CPU, where the
   wrappers run their plain versions, whatever ``Config.dtype_policy`` says
@@ -48,9 +52,11 @@ from mmrp_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mmrp_tpu_torch.kg.label_attention import load_label_attention
 from mmrp_tpu_torch.labels import LABEL_COLS
 from mmrp_tpu_torch.models.multimodal import MultiModalConfig, MultiModalRetrievalModel
+from mmrp_tpu_torch.models.quant_calib import build_quant_cache
 from mmrp_tpu_torch.models.text_encoder import TextConfig
 from mmrp_tpu_torch.retrieval.gallery import RetrievalEngine
 from mmrp_tpu_torch.retrieval.rerank import Reranker
+from mmrp_tpu_torch.utils.checkpoint import STATE_FILE, CheckpointManager
 from mmrp_tpu_torch.utils.convert import init_params, load_flax_params
 
 # run on a JAX host (with the JAX package) to write joint/params.npz from the
@@ -65,6 +71,12 @@ CONVERT = (
 def _newest_mtime(path: Path) -> float:
     """The latest modification time of ``path`` and everything under it."""
     return max([path.stat().st_mtime] + [p.stat().st_mtime for p in path.rglob("*")])
+
+
+def restore_best_model(ckpt_dir) -> Dict[str, torch.Tensor]:
+    """The model masters of a port-trained run's best checkpoint
+    (``train/pipeline.py`` saves ``{"model": {name: f32 tensor}}``)."""
+    return CheckpointManager(str(ckpt_dir)).restore_best()["model"]
 
 
 def load_rerank_inputs(run_dir, data_dir=None, warn=True):
@@ -151,12 +163,23 @@ def build_demo_context(run_dir: str, data_dir: str = None,
 
     npz = run / "joint" / "params.npz"
     best = run / "joint" / "ckpt" / "best"
-    if npz.exists() and best.exists() and _newest_mtime(best) > npz.stat().st_mtime:
+    stale = npz.exists() and best.exists() and _newest_mtime(best) > npz.stat().st_mtime
+    if (best / STATE_FILE).exists() and (stale or not npz.exists()):
+        # the port's own best checkpoint: the f32 masters under the model's names
+        masters = restore_best_model(run / "joint" / "ckpt")
+        try:
+            model.load_state_dict(masters, strict=True)
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"checkpoint {best} does not match the model shape rebuilt from "
+                f"{run}/config.yaml+model_config.json: {e}") from e
+        build_quant_cache(model, master=masters, stale_only=True)
+    elif stale:
         # the run was trained again after its npz was written: serving the
         # old weights against the new gallery and thresholds is silent garbage
         raise RuntimeError(
             f"{best} is newer than {npz}: write the npz again on a JAX host with\n  {CONVERT}")
-    if npz.exists():
+    elif npz.exists():
         try:
             load_flax_params(model, str(npz))
         except (RuntimeError, KeyError, ValueError) as e:

@@ -25,11 +25,9 @@ import torch
 
 from mmrp_tpu_torch.config import Config
 from mmrp_tpu_torch.models.multimodal import MultiModalRetrievalModel
-from mmrp_tpu_torch.models.swin import WindowAttention
 from mmrp_tpu_torch.ops import preprocess
-from mmrp_tpu_torch.ops.quant import int8_linears, refresh_int8
 from mmrp_tpu_torch.train import losses as L
-from mmrp_tpu_torch.train.state import TrainState, make_optimizer
+from mmrp_tpu_torch.train.state import TrainState, make_optimizer, make_write_back, master_params
 
 Batch = Dict[str, torch.Tensor]
 
@@ -39,8 +37,7 @@ def init_train_state(model: MultiModalRetrievalModel, cfg: Config, seed: int = 0
     """The state of an initialised ``model``: f32 masters of its parameters
     (an f32 parameter is its own master), and with ``kg_dim`` a ``kg_proj``
     (joint_dim, kg_dim) drawn N(0, 1) / sqrt(joint_dim) from ``seed``."""
-    params = {name: p.detach() if p.dtype == torch.float32 else p.detach().float()
-              for name, p in model.named_parameters()}
+    params = master_params(model)
     if kg_dim:
         joint_dim = model.config.joint_dim
         device = next(model.parameters()).device
@@ -109,18 +106,14 @@ def make_train_step(model: MultiModalRetrievalModel, cfg: Config,
     then clip and AdamW on the masters, which go back into the model. The
     state and the model are updated in place; the same state is returned.
     ``metrics`` holds the loss terms and ``grad_norm``, the global norm of the
-    unclipped gradients, as Python floats. A ``remat_backbone`` model is
-    refused: activation checkpointing is not ported."""
-    if model.config.remat_backbone:
-        raise NotImplementedError(
-            "remat_backbone=True (activation checkpointing of the towers in training) is "
-            "not ported (ROADMAP.md Queue 1 item 6)")
+    unclipped gradients, as Python floats. A ``remat_backbone`` model
+    recomputes each tower block's activations in the backward
+    (``models/layers.py::remat``): the same gradients, less memory."""
     device = next(model.parameters()).device
     pw = None if pos_weight is None else torch.as_tensor(pos_weight, dtype=torch.float32,
                                                          device=device)
     named = dict(model.named_parameters())
-    windows = [m for m in model.modules() if isinstance(m, WindowAttention)]
-    int8 = [lin for _, lin in int8_linears(model)]
+    write_back = make_write_back(model)
 
     def step(state: TrainState, batch: Batch):
         generator = state.step_generator(device)
@@ -133,22 +126,43 @@ def make_train_step(model: MultiModalRetrievalModel, cfg: Config,
         grads = {name: p.grad if p.grad is not None else torch.zeros_like(p)
                  for name, p in named.items()}
         if kg_proj is not None:
-            grads["kg_proj"] = kg_proj.grad
+            # zero where the batch has no kg_target, as JAX's grad of an unused leaf
+            grads["kg_proj"] = kg_proj.grad if kg_proj.grad is not None else \
+                torch.zeros_like(kg_proj)
             kg_proj.requires_grad_(False)
             kg_proj.grad = None
         metrics = {k: float(v.detach()) for k, v in metrics.items()}
         metrics["grad_norm"] = state.tx.apply(state, grads)
         model.zero_grad(set_to_none=True)
-        with torch.no_grad():
-            # the masters of the parameters the model holds in bf16
-            pairs = [(p, state.params[name]) for name, p in named.items()
-                     if state.params[name].data_ptr() != p.data_ptr()]
-            if pairs:
-                torch._foreach_copy_([p for p, _ in pairs], [m for _, m in pairs])
-            for m in windows:
-                m.refresh_bias()
-            for lin in int8:  # serving's int8 weight caches follow the weights
-                refresh_int8(lin)
+        write_back(state.params)
         return state, metrics
 
     return step
+
+
+def make_eval_step(model: MultiModalRetrievalModel,
+                   return_attention: bool = False) -> Callable[[Batch], Dict[str, torch.Tensor]]:
+    """``eval_step(batch) -> {probs, joint_emb, img_emb, txt_emb [,
+    patch_attention (B, Np)]}``: the deterministic forward of the weights the
+    model holds (its serving routes; with ``return_attention`` the fusion
+    layers take the XLA branch that returns their attention weights, as
+    JAX's), under ``torch.inference_mode``. ``patch_attention`` is the
+    text-to-image attention averaged over layers and heads, then over the
+    valid text tokens: the per-sample vector the joint stage keeps at its
+    best epoch (``val_attention.npy``)."""
+
+    def eval_step(batch: Batch) -> Dict[str, torch.Tensor]:
+        with torch.inference_mode():
+            out = model(batch["image"], batch["input_ids"], batch["attention_mask"],
+                        return_attention=return_attention)
+            res = {"probs": torch.sigmoid(out["logits"]), "joint_emb": out["joint_emb"],
+                   "img_emb": out["img_emb"], "txt_emb": out["txt_emb"]}
+            if return_attention:
+                t2i = torch.stack([a["txt2img"].float() for a in out["attention"]])
+                w = batch["attention_mask"][:, : t2i.shape[3]].float()
+                t2i = t2i.mean(dim=(0, 2))  # (B, Lt, Np)
+                res["patch_attention"] = (t2i * w[:, :, None]).sum(1) / torch.clamp(
+                    w.sum(1, keepdim=True), min=1.0)
+        return res
+
+    return eval_step

@@ -1,6 +1,10 @@
-"""Train state and optimizer: AdamW with warmup-cosine on f32 master weights.
+"""Train state and optimizers: AdamW with warmup-cosine on f32 master weights,
+and the constant-rate Adam / AdamW of the other trainers.
 
-Counterpart of ``mmrp_tpu/train/state.py``. :func:`make_optimizer` reproduces
+Counterpart of ``mmrp_tpu/train/state.py``. :class:`Adam` is ``optax.adam``
+(the KG and LabelAttention trainers) and ``optax.adamw`` with its default
+weight decay 1e-4 (the Swin finetune's two rates), operation for operation.
+:func:`make_optimizer` reproduces
 optax 0.2.6's ``chain(clip_by_global_norm(clip_norm), adamw(schedule,
 weight_decay, mu_dtype))`` with ``warmup_cosine_decay_schedule``, operation
 for operation:
@@ -38,6 +42,7 @@ from typing import ClassVar, Dict, Iterable, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 Params = Dict[str, torch.Tensor]
 
@@ -128,6 +133,69 @@ class AdamW:
         return norm
 
 
+@dataclass
+class AdamState:
+    """Adam's moments ``mu`` / ``nu`` (f32, the parameters' names) and count."""
+
+    mu: Params
+    nu: Params
+    count: int = 0
+
+
+@dataclass(frozen=True)
+class Adam:
+    """``optax.adam(lr)`` (``weight_decay`` 0) or ``optax.adamw(lr)`` (its
+    default ``weight_decay`` 1e-4, decoupled: ``wd * p`` is added to the
+    update before the rate scales it), at a constant rate, eps 1e-8, betas
+    (0.9, 0.999), no clipping. Unlike ``torch.optim.AdamW`` the decay is
+    scaled by the rate once, not folded in as ``p *= 1 - lr * wd``."""
+
+    lr: float
+    weight_decay: float = 0.0
+    b1: ClassVar[float] = 0.9
+    b2: ClassVar[float] = 0.999
+    eps: ClassVar[float] = 1e-8
+
+    def init(self, params: Params) -> AdamState:
+        return AdamState({k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()},
+                         {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()})
+
+    @torch.no_grad()
+    def step(self, params: Params, grads: Params, opt: AdamState,
+             mask: Dict[str, float] = None) -> None:
+        """One update of ``params`` (f32, in place) and ``opt`` from ``grads``
+        (f32). ``mask`` (name -> 0.0 / 1.0, as the finetune's freeze masks)
+        multiplies each gradient before the moments and each update after
+        them: a frozen parameter is neither decayed nor moved."""
+        keys = list(params)
+        p = [params[k] for k in keys]
+        g = [grads[k] for k in keys]
+        if mask is not None:
+            g = [t * mask[k] for t, k in zip(g, keys)]
+        count = opt.count + 1
+        bc1 = float(1 - _f32(self.b1) ** count)
+        bc2 = float(1 - _f32(self.b2) ** count)
+        mu = torch._foreach_mul(g, 1 - self.b1)
+        torch._foreach_add_(mu, torch._foreach_mul([opt.mu[k] for k in keys], self.b1))
+        nu = torch._foreach_mul(g, g)
+        torch._foreach_mul_(nu, 1 - self.b2)
+        torch._foreach_add_(nu, torch._foreach_mul([opt.nu[k] for k in keys], self.b2))
+        den = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        u = torch._foreach_div(mu, bc1)
+        torch._foreach_div_(u, den)
+        if self.weight_decay:
+            torch._foreach_add_(u, torch._foreach_mul(p, self.weight_decay))
+        torch._foreach_mul_(u, -self.lr)
+        if mask is not None:
+            u = [t * mask[k] for t, k in zip(u, keys)]
+        torch._foreach_add_(p, u)
+        for k, m, n in zip(keys, mu, nu):
+            opt.mu[k], opt.nu[k] = m, n
+        opt.count = count
+
+
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element of f32 ``tensors`` (a
     0-dim tensor)."""
@@ -160,3 +228,36 @@ class TrainState:
         the JAX ``fold_in(base_rng, step)`` idea, with other bits."""
         bits = np.random.SeedSequence([self.seed, self.count]).generate_state(1, np.uint64)[0]
         return torch.Generator(device=device).manual_seed(int(bits))
+
+
+def master_params(model: nn.Module) -> Params:
+    """f32 masters of ``model``'s parameters under their names: an f32
+    parameter is its own master (the same tensor), any other is copied up."""
+    return {name: p.detach() if p.dtype == torch.float32 else p.detach().float()
+            for name, p in model.named_parameters()}
+
+
+def make_write_back(model: nn.Module):
+    """``write_back(params)``: the masters of the parameters the model holds
+    in another dtype copied into them (rounded), then every Swin block's
+    serving bias rebuilt from its table and every int8 weight cache from its
+    weight, so that the serving route reads the new weights."""
+    from mmrp_tpu_torch.models.swin import WindowAttention
+    from mmrp_tpu_torch.ops.quant import int8_linears, refresh_int8
+
+    named = dict(model.named_parameters())
+    windows = [m for m in model.modules() if isinstance(m, WindowAttention)]
+    int8 = [lin for _, lin in int8_linears(model)]
+
+    @torch.no_grad()
+    def write_back(params: Params) -> None:
+        pairs = [(p, params[name]) for name, p in named.items()
+                 if params[name].data_ptr() != p.data_ptr()]
+        if pairs:
+            torch._foreach_copy_([p for p, _ in pairs], [m for _, m in pairs])
+        for m in windows:
+            m.refresh_bias()
+        for lin in int8:
+            refresh_int8(lin)
+
+    return write_back

@@ -13,6 +13,10 @@ in both packages; leaves change as follows:
 - the PatchEmbed conv ``kernel`` (kh, kw, in, out) -> ``weight``
   (out, kh*kw*in), flattened in the (kh, kw, in) order of the space-to-depth
   patches;
+- the Flax ``nn.MultiHeadDotProductAttention`` DenseGeneral kernels:
+  ``query`` / ``key`` / ``value`` (in, h, d) -> ``weight`` (h * d, in),
+  ``out`` (h, d, out) -> ``weight`` (out, h * d), and their (h, d) biases
+  flattened (the finetune head, ``models/finetune_head.py``);
 - LayerNorm ``scale`` -> ``weight``; ``nn.Embed`` ``embedding`` -> ``weight``;
 - ``bias``, ``rel_bias_table``, ``pos_embed``, ``alpha`` and the null tokens
   keep name and layout, and so does the train state's top-level ``kg_proj``
@@ -45,7 +49,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from mmrp_tpu_torch.models.layers import LayerNorm
+from mmrp_tpu_torch.models.layers import LayerNorm, MultiHeadDotProductAttention
 from mmrp_tpu_torch.models.quant_calib import build_quant_cache
 from mmrp_tpu_torch.models.swin import PatchEmbed, WindowAttention
 
@@ -61,12 +65,17 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return flat
 
 
-def _convert_leaf(leaf: str, arr: np.ndarray):
+def _convert_leaf(leaf: str, arr: np.ndarray, parent: str = ""):
     if arr.dtype.kind not in "fiu":  # e.g. bfloat16 from ml_dtypes
         arr = arr.astype(np.float32)
+    if leaf == "bias" and arr.ndim == 2:  # a DenseGeneral's (h, d)
+        return leaf, arr.reshape(-1)
     if leaf == "kernel":
         if arr.ndim == 4:  # (kh, kw, in, out) conv kernel of PatchEmbed
             arr = arr.reshape(-1, arr.shape[-1])
+        elif arr.ndim == 3:  # DenseGeneral: out (h, d, D), query/key/value (D, h, d)
+            arr = (arr.reshape(-1, arr.shape[-1]) if parent == "out" else
+                   arr.reshape(arr.shape[0], -1))
         if arr.ndim != 2:
             raise ValueError(f"unexpected kernel rank {arr.ndim}")
         return "weight", arr.T
@@ -84,7 +93,7 @@ def state_items(tree: Mapping[str, Any]):
             parts = parts[1:]
         if parts[0] == "model":
             parts = parts[1:]
-        name, arr = _convert_leaf(parts[-1], arr)
+        name, arr = _convert_leaf(parts[-1], arr, parts[-2] if len(parts) > 1 else "")
         yield ".".join(parts[:-1] + [name]), arr
 
 
@@ -112,23 +121,39 @@ def load_flax_params(model: nn.Module, tree_or_npz) -> Dict[str, torch.Tensor]:
     return extra
 
 
-def state_dict_to_flax_flat(model: nn.Module) -> Dict[str, np.ndarray]:
-    """The model's weights as the Flax parameter tree, flat with ``/``-joined
-    keys (the keys ``save_param_tree`` writes for the model's tree), f32:
+def state_dict_to_flax_flat(model: nn.Module,
+                            params: Mapping[str, torch.Tensor] = None) -> Dict[str, np.ndarray]:
+    """The model's weights (or ``params``, values under the model's parameter
+    names, such as a train state's f32 masters) as the Flax parameter tree,
+    flat with ``/``-joined keys (the keys ``save_param_tree`` writes for the
+    model's tree), f32:
     nn.Linear ``weight`` -> ``kernel`` (in, out), PatchEmbed's as the conv
     kernel (kh, kw, in, out), LayerNorm ``weight`` -> ``scale``, nn.Embedding
     ``weight`` -> ``embedding``; every other leaf keeps name and layout.
     :func:`flax_to_state_dict` maps it back exactly."""
     patch = {f"{path}.proj": m.patch_size for path, m in model.named_modules()
              if isinstance(m, PatchEmbed)}
+    # the DenseGeneral projections of a Flax MHA: path -> heads
+    heads = {f"{path}.{lin}": m.num_heads for path, m in model.named_modules()
+             if isinstance(m, MultiHeadDotProductAttention)
+             for lin in ("query", "key", "value", "out")}
     flat = {}
     for path, module in model.named_modules():
         for name, p in module.named_parameters(recurse=False):
+            if params is not None:
+                p = params[f"{path}.{name}" if path else name]
             arr = p.detach().float().cpu().numpy()
+            h = heads.get(path)
             if isinstance(module, nn.Linear) and name == "weight":
                 name, arr = "kernel", arr.T
                 if path in patch:
                     arr = arr.reshape(patch[path], patch[path], -1, arr.shape[-1])
+                elif h and path.endswith(".out"):
+                    arr = arr.reshape(h, -1, arr.shape[-1])
+                elif h:
+                    arr = arr.reshape(arr.shape[0], h, -1)
+            elif h and name == "bias" and not path.endswith(".out"):
+                arr = arr.reshape(h, -1)
             elif isinstance(module, LayerNorm) and name == "weight":
                 name = "scale"
             elif isinstance(module, nn.Embedding) and name == "weight":

@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from mmrp_tpu.config import Config as JConfig
 from mmrp_tpu.models import multimodal as jmm
@@ -88,10 +89,15 @@ def test_from_config_builds_the_jax_model(label, fields, flagship, text_override
 def test_config_yaml_loads_alike_in_both_packages(capsys):
     port, jax_cfg = Config.load(YAML), JConfig.load(YAML)
     out = capsys.readouterr().out
-    # keys of JAX fields the port has not ported warn and are ignored
+    # keys of JAX fields the port has not ported warn and are ignored: the
+    # device mesh, the DLS backend, the benchmark's text length; the training
+    # pipeline's fields (epochs, kg_*, la_*) are the port's own since it trains
     assert "[WARN] Unknown keys in config file (ignored):" in out
-    for key in ("epochs", "kg_model", "la_lr", "mesh_shape"):
-        assert f"'{key}'" in out
+    warned = out.split("[WARN] Unknown keys in config file (ignored):")[1].splitlines()[0]
+    for key in ("mesh_shape", "retrieval_backend", "gallery_shard_axis"):
+        assert f"'{key}'" in warned
+    for key in ("epochs", "kg_model", "la_lr"):
+        assert f"'{key}'" not in warned
     for name, got, want in shared(port, jax_cfg):
         assert got == want and type(got) is type(want), name
     assert port.augment is True and port.lr == 2e-5 and port.cls_weight == 5.0
@@ -125,15 +131,29 @@ def test_config_load_coerces_and_warns(tmp_path, capsys):
 
 
 def test_fields_not_ported_raise():
-    """remat_backbone is carried and served; only the train step refuses it
-    (tests/test_torch_serve.py serves such a run against JAX)."""
-    from mmrp_tpu_torch.train.joint import make_train_step
+    """remat_backbone is carried, served (tests/test_torch_serve.py) and
+    trained: make_train_step steps a remat model (its gradients equal the
+    plain step's bit for bit: tests/test_torch_pipeline.py); the fields whose
+    behaviour is not ported raise."""
+    from mmrp_tpu_torch.train.joint import init_train_state, make_train_step
 
-    cfg = Config(remat_backbone=True, joint_dim=64, num_heads=4)
-    mm = MultiModalConfig.from_config(cfg)
+    cfg = Config(remat_backbone=True, joint_dim=32, num_heads=2, num_fusion_layers=1,
+                 image_backbone="swin_micro", image_size=28, text_dim=8, lr=1e-3)
+    mm = MultiModalConfig.from_config(cfg, num_classes=5)
     assert mm.remat_backbone and not MultiModalConfig.from_config(Config()).remat_backbone
-    with pytest.raises(NotImplementedError, match="remat_backbone.*Queue 1 item 6"):
-        make_train_step(MultiModalRetrievalModel(mm, device="meta"), cfg)
+    model = MultiModalRetrievalModel(mm, device="cpu")
+    assert model.backbones.swin.remat and model.backbones.text.remat
+    rng = np.random.default_rng(0)
+    batch = {"image": torch.from_numpy(rng.random((2, 28, 28, 3), dtype=np.float32)),
+             "input_ids": torch.from_numpy(rng.integers(0, 100, (2, 8))),
+             "attention_mask": torch.ones((2, 8), dtype=torch.int64),
+             "labels": torch.from_numpy((rng.random((2, 5)) < 0.5).astype(np.float32))}
+    state = init_train_state(model, cfg, total_steps=3)
+    step = make_train_step(model, cfg)
+    before = {k: v.clone() for k, v in state.params.items()}
+    losses = [step(state, batch)[1]["loss/total"] for _ in range(3)]
+    assert np.isfinite(losses).all() and state.count == 3
+    assert any(not torch.equal(v, before[k]) for k, v in state.params.items())
     for fields in (dict(use_shared_ffn=True), dict(use_cls_only=True),
                    dict(image_backbone="resnet50"), dict(image_backbone="medclip")):
         cfg = MultiModalConfig.from_config(Config(joint_dim=64, num_heads=4, **fields))

@@ -332,7 +332,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 def test_port_imports_no_jax():
     """Every module of the package, and chip_smoke.py (imported, not run),
-    in a fresh interpreter: none of them brings in JAX, Flax, PyYAML or the
+    in a fresh interpreter: none of them brings in JAX, Flax, optax, PyYAML or the
     JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -344,7 +344,7 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "assert len(names) >= 20 and 'mmrp_tpu_torch.ops.wattn_core' in names, names\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'yaml', 'mmrp_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'yaml', 'mmrp_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
