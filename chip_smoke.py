@@ -5,7 +5,11 @@
 
 Phases, each of which fails the run (nonzero exit, no result line):
 1. environment: the card's name and power limit, CUDA and nvcc versions;
-2. build: the kernels from mmrp_tpu_torch/csrc with nvcc, timed;
+2. build: the kernels from mmrp_tpu_torch/csrc with nvcc and, beside them,
+   the native DICOM decoder (mmrp_tpu_torch/csrc/host/mmrp_io.cpp) with g++
+   (``python -m mmrp_tpu_torch.data.native``), timed; every later DICOM
+   decode (phases 4c, 8 and 9) takes the native path, as JAX's does where
+   its library is built;
 3. kernels: each hand-written kernel against its plain-PyTorch version on
    the same bf16 inputs, at every shape the flagship serving path gives it
    (batch 8) on either Swin route and in the int8 serving mixes (K3 at every
@@ -128,6 +132,33 @@ Phases, each of which fails the run (nonzero exit, no result line):
    peak device memory are printed for information, beside the card's name
    and power limit. ``python3 chip_smoke.py --pipeline-only`` runs phases 1,
    2 and 8 alone and prints no result line.
+9. the Quick start through the cli: the native decoder against the Python
+   path (``DICOMImagePreprocessor.load`` of 8 16-bit DICOM files of 2048^2:
+   max |native - Python| <= 0.02, ``decode_raw`` exact, images/s of both and
+   of the batch pool); an OpenI-layout tree (320 XML reports built from the
+   taxonomy's phrases, some negated, with MeSH terms, and 16-bit DICOM files
+   of 512^2); then ``mmrp_tpu_torch.cli.main`` for ``data`` (records, splits,
+   EDA JSONs, the label prevalence), ``train --config`` (the shipped
+   configs/config.yaml cut to one epoch per stage with
+   ``train_use_pallas_attention``: Swin-B 224 px, the small text tower, 5
+   fusion layers at 1024, batch 64, L512, CompGCN; no plain call site, every
+   finetune / joint step 22 C-F + 22 C-B, every validation and dump batch its
+   route's launches, the launches the sum over those calls), ``calibrate -n
+   64`` (one block per Swin block, no launch), ``parity --explain-n 2`` (every
+   section; every embed on the default route's launches), ``stream`` (its
+   batches' launches), ``eval-cls``, ``eval-ret --variants --run-dir``,
+   ``kg-probe`` and ``mapper`` (exit 0, their artifacts), ``export-serving``
+   and ``bench`` (exit 2); each subcommand's seconds. Then DLS
+   (``make_retrieval_engine("dls")``) over phase 4c's 100,008 x 1024 gallery
+   at the engine's default link threshold and as a 10-NN graph: the build
+   seconds, the links of the first 1,024 rows and of the 8 request rows
+   against a CPU f32 recomputation (equal wherever adjacent similarities
+   differ by more than 1e-5; each row's number of links where its
+   similarities cross the threshold, within 1e-5; for each graph, some
+   links and some row ends compared), and recall@10 of 8 walks against
+   exact top-10. ``python3 chip_smoke.py
+   --cli-only`` runs phases 1, 2 and 9 alone (on a seeded gallery of that
+   size) and prints no result line.
 Each phase prints its seconds. The last two lines are the kernels' JSON record
 and the result line {"ok": true, "device": {...}}.
 """
@@ -136,12 +167,14 @@ import base64
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -507,19 +540,25 @@ PIPE_SERVE = 8  # train records served back through from_run_dir
 # the KG run at the size of a hybrid OpenI + DOID + RadLex graph
 KG_ENTITIES, KG_RELATIONS, KG_TRIPLES = 50_000, 12, 200_000
 KG_DIM, KG_NEG, KG_BATCH = 300, 32, 1024
-# per training step of the flagship (finetune or joint): the core at Swin
-# stages 1-3, no serving kernel
+# per training step of the flagship or the cli's model (finetune or joint):
+# the core at Swin stages 1-3, no serving kernel
 EXPECTED_PIPE_STEP = {"wattn_core_fwd": 22, "wattn_core_bwd": 22}
-# per validation batch of the joint stage (make_eval_step with the attention
-# weights: the fusion layers take JAX's unfused branch, so K3 runs in BERT's
-# 12 layers and the 5 fusion layers' self and cross attention, and K2 in
-# Swin alone), per Swin finetune validation batch (the vision tower alone),
-# and per gallery dump batch (the default serving route)
-EXPECTED_PIPE_EVAL = {"fused_window_attention": 2, "fused_ln_mlp": 2, "fused_attention": 22,
-                      "fused_swin_block_windows": 2, "fused_swin_block_chain": 18,
-                      "fused_swin_block_pair": 1}
-EXPECTED_PIPE_FT_EVAL = {k: v for k, v in EXPECTED_PIPE_EVAL.items() if k != "fused_attention"}
-EXPECTED_PIPE_DUMP = {k: v for k, v in EXPECTED["run_dir"].items() if v}
+
+
+def pipe_expected(text_layers: int):
+    """Launches of one joint validation batch (make_eval_step with the
+    attention weights: the fusion layers take JAX's unfused branch, so K3
+    runs in the text tower's layers and the 5 fusion layers' self and cross
+    attention, and K2 in Swin alone), one Swin finetune validation batch (the
+    vision tower alone) and one gallery dump batch (the default serving
+    route) of a Swin-B model whose text tower has ``text_layers`` layers."""
+    swin = {"fused_window_attention": 2, "fused_swin_block_windows": 2,
+            "fused_swin_block_chain": 18, "fused_swin_block_pair": 1}
+    return ({**swin, "fused_ln_mlp": 2, "fused_attention": text_layers + 10},
+            {**swin, "fused_ln_mlp": 2},
+            {**swin, "fused_ln_mlp": 7, "fused_attention": text_layers + 25})
+
+
 # the files JAX's runner writes (its orbax checkpoints' insides aside;
 # tests/test_torch_pipeline.py holds the port's list to a JAX run's), and the
 # npz the port serves from
@@ -541,6 +580,226 @@ PIPE_WORDS = ("the heart size is normal mild cardiomegaly no focal consolidation
               "granuloma calcified nodule mediastinal contours within normal limits").split()
 
 
+class RunnerCalls:
+    """The training runner instrumented for phases 8 and 9 (a context manager:
+    the runner's step and eval makers, its stages and checkpoint writes are
+    wrapped on entry and restored on exit; the runner has no hooks). Records
+    the launches of every finetune / joint step, Swin finetune validation
+    batch, joint validation batch and gallery dump batch (``per_call``: kind
+    -> [(launches, CUDA-event ms or None)]; the second call of each kind runs
+    under the profiler, whose device ms by kernel go to ``device``), the
+    losses, each stage's seconds, and every joint model (``kept``); a
+    function put in ``first_step["check"]`` is called with the model and the
+    state of a joint stage's first step, and ``resumed["epoch"]`` is the epoch
+    of the full train state a checkpoint restore returned."""
+
+    KINDS = ("finetune_step", "finetune_val_batch", "joint_step", "eval_batch", "dump_batch")
+
+    def __init__(self, torch, where: str):
+        from mmrp_tpu_torch.eval import retrieval_eval
+        from mmrp_tpu_torch.kg import trainer as kg_trainer
+        from mmrp_tpu_torch.ops import fused_attention as K3
+        from mmrp_tpu_torch.ops import fused_mlp as K2
+        from mmrp_tpu_torch.ops import fused_swin_block as SB
+        from mmrp_tpu_torch.ops import fused_swin_pair as SP
+        from mmrp_tpu_torch.ops import fused_window_attention as K1
+        from mmrp_tpu_torch.ops import wattn_core as WC
+        from mmrp_tpu_torch.train import pipeline as tpipe
+        from mmrp_tpu_torch.train import runner as trunner
+        from mmrp_tpu_torch.train import swin_finetune as tft
+        from mmrp_tpu_torch.utils.checkpoint import CheckpointManager
+
+        self.torch, self.where = torch, where
+        self.counters = {
+            "fused_window_attention": (K1.fused_window_attention_windows, "launches"),
+            "fused_ln_mlp": (K2.fused_ln_mlp_residual, "launches"),
+            "fused_attention": (K3.fused_attention, "launches"),
+            "fused_swin_block_windows": (SB.fused_swin_block_windows, "launches"),
+            "fused_swin_block_chain": (SP.fused_swin_block_chain, "launches"),
+            "fused_swin_block_pair": (SP.fused_swin_block_pair, "launches"),
+            "wattn_core_fwd": (WC.core_forward, "launches"),
+            "wattn_core_bwd": (WC.core_backward, "launches"),
+        }
+        self.plain = (K1.fused_window_attention_windows, K2.fused_ln_mlp_residual,
+                      K3.fused_attention, SB.fused_swin_block_windows, SB.fused_swin_block_raw,
+                      SP.fused_swin_block_chain, SP.fused_swin_block_pair,
+                      WC.window_attention_core)
+        self.per_call = {kind: [] for kind in self.KINDS}
+        self.losses = {"finetune": [], "joint": []}
+        self.stage_s, self.device, self.first_step, self.resumed = {}, {}, {}, {}
+        self.kept = []
+        self.mods = (tft, tpipe, trunner, kg_trainer, retrieval_eval, CheckpointManager)
+        self.real = {"ft": tft.make_finetune_step, "ft_loop": tft.finetune,
+                     "train": tpipe.make_train_step, "restore": CheckpointManager.restore,
+                     "eval": tpipe.make_eval_step, "joint": tpipe.run_joint_training,
+                     "dump": tpipe.dump_embeddings, "swin": trunner._run_swin_finetune_stage,
+                     "la": trunner._run_label_attention_stage, "kg": kg_trainer.KGTrainer.train,
+                     "ret": retrieval_eval.dual_gallery_eval, "save": CheckpointManager.save,
+                     "best": CheckpointManager.update_best}
+
+    def reset(self):
+        for fn, attr in self.counters.values():
+            setattr(fn, attr, 0)
+        for fn in self.plain:
+            fn.plain_calls = 0
+
+    def read(self):
+        bad = {fn.__name__: fn.plain_calls for fn in self.plain if fn.plain_calls}
+        if bad:
+            fail(f"{self.where}: calls on a plain route: {bad}")
+        return {name: getattr(fn, attr) for name, (fn, attr) in self.counters.items()}
+
+    @staticmethod
+    def diff(after, before):
+        return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+    def timed_call(self, kind, fn, *args):
+        torch = self.torch
+        before = self.read()
+        if len(self.per_call[kind]) == 1:  # the second call runs under the profiler, untimed
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = fn(*args)
+                torch.cuda.synchronize()
+            by = {}
+            for e in prof.key_averages():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    us = getattr(e, "device_time_total", None) or getattr(
+                        e, "cuda_time_total", 0.0)
+                    name = next((k for k in PORT_KERNELS if k in e.key), "other")
+                    by[name] = by.get(name, 0.0) + us / 1e3
+            self.device[kind] = {k: round(v, 3) for k, v in sorted(by.items())}
+            self.per_call[kind].append((self.diff(self.read(), before), None))
+            return out
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        end.synchronize()
+        self.per_call[kind].append((self.diff(self.read(), before), start.elapsed_time(end)))
+        return out
+
+    def __enter__(self):
+        tft, tpipe, trunner, kg_trainer, retrieval_eval, CheckpointManager = self.mods
+        real, per_call, losses = self.real, self.per_call, self.losses
+
+        def ft_step(model, c, tx):
+            step = real["ft"](model, c, tx)
+
+            def run(*a):
+                params, opt, loss = self.timed_call("finetune_step", step, *a)
+                losses["finetune"].append(loss)
+                return params, opt, loss
+            return run
+
+        def ft_loop(model, c, train_batches, val_batches, *a, **kw):
+            # the finetune's validation forwards: each batch's launches are those
+            # made between its yield and the loop's next request
+            def counted():
+                for batch in val_batches():
+                    before = self.read()
+                    yield batch
+                    per_call["finetune_val_batch"].append((self.diff(self.read(), before), None))
+            return real["ft_loop"](model, c, train_batches, counted, *a, **kw)
+
+        def joint_step(model, c, pw=None):
+            step = real["train"](model, c, pw)
+            check = self.first_step.pop("check", None)
+            self.kept.append(model)
+
+            def run(state, batch):
+                nonlocal check
+                if check is not None:
+                    check(model, state)
+                    check = None
+                state, m = self.timed_call("joint_step", step, state, batch)
+                losses["joint"].append(m["loss/total"])
+                return state, m
+            return run
+
+        def restore(mgr, *a, **kw):
+            r = real["restore"](mgr, *a, **kw)
+            if "epoch" in r:  # a full train state
+                self.resumed["epoch"] = int(r["epoch"])
+            return r
+
+        def eval_step(model, return_attention=False):
+            step = real["eval"](model, return_attention)
+            kind = "eval_batch" if return_attention else "dump_batch"
+            return lambda batch: self.timed_call(kind, step, batch)
+
+        def stage(name, fn):
+            def run(*a, **kw):
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                self.torch.cuda.synchronize()
+                self.stage_s[name] = self.stage_s.get(name, 0.0) + time.perf_counter() - t
+                return out
+            return run
+
+        tft.make_finetune_step, tft.finetune = ft_step, ft_loop
+        CheckpointManager.restore = restore
+        tpipe.make_train_step, tpipe.make_eval_step = joint_step, eval_step
+        trunner._run_swin_finetune_stage = stage("swin finetune", real["swin"])
+        trunner._run_label_attention_stage = stage("label attention", real["la"])
+        kg_trainer.KGTrainer.train = stage("kg embeddings", real["kg"])
+        tpipe.run_joint_training = stage("joint", real["joint"])
+        tpipe.dump_embeddings = stage("dumps", real["dump"])
+        retrieval_eval.dual_gallery_eval = stage("retrieval eval", real["ret"])
+        # inside the joint stage: the checkpoints' writes
+        CheckpointManager.save = stage("joint checkpoints", real["save"])
+        CheckpointManager.update_best = stage("joint checkpoints", real["best"])
+        return self
+
+    def __exit__(self, *exc):
+        tft, tpipe, trunner, kg_trainer, retrieval_eval, CheckpointManager = self.mods
+        real = self.real
+        tft.make_finetune_step, tft.finetune = real["ft"], real["ft_loop"]
+        CheckpointManager.restore = real["restore"]
+        tpipe.make_train_step, tpipe.make_eval_step = real["train"], real["eval"]
+        tpipe.run_joint_training, tpipe.dump_embeddings = real["joint"], real["dump"]
+        trunner._run_swin_finetune_stage = real["swin"]
+        trunner._run_label_attention_stage = real["la"]
+        kg_trainer.KGTrainer.train = real["kg"]
+        retrieval_eval.dual_gallery_eval = real["ret"]
+        CheckpointManager.save, CheckpointManager.update_best = real["save"], real["best"]
+        return False
+
+    def check(self, total, text_layers: int) -> None:
+        """Every step launched 22 C-F + 22 C-B and no serving kernel, every
+        validation and dump batch its route's serving launches
+        (:func:`pipe_expected`), and ``total`` (the counts read once after
+        the runs, set to 0 before them) is the sum over these calls."""
+        per_call = self.per_call
+        for kind in ("finetune_step", "joint_step"):
+            if not per_call[kind]:
+                fail(f"{self.where}: no {kind}")
+            for i, (counts, _) in enumerate(per_call[kind]):
+                if counts != EXPECTED_PIPE_STEP:
+                    fail(f"{self.where}: {kind} {i}: launches {counts}, expected "
+                         f"{EXPECTED_PIPE_STEP}")
+        ev, ft_ev, dump = pipe_expected(text_layers)
+        for kind, want in (("finetune_val_batch", ft_ev), ("eval_batch", ev),
+                           ("dump_batch", dump)):
+            if not per_call[kind]:
+                fail(f"{self.where}: no {kind}")
+            for i, (counts, _) in enumerate(per_call[kind]):
+                if counts != want:
+                    fail(f"{self.where}: {kind} {i}: launches {counts}, expected {want}")
+        summed = {k: sum(c.get(k, 0) for calls in per_call.values() for c, _ in calls)
+                  for k in total}
+        if summed != total:
+            fail(f"{self.where}: launches over the runs {total} != the sum over the calls "
+                 f"{summed}")
+        all_losses = self.losses["finetune"] + self.losses["joint"]
+        if not all_losses or not all(math.isfinite(v) for v in all_losses):
+            fail(f"{self.where}: non-finite or no losses {all_losses}")
+
+    def median_ms(self, kind):
+        return statistics.median(ms for _, ms in self.per_call[kind] if ms is not None)
+
+
 def pipeline_phase(torch, dev, smi: str, tmp: str) -> dict:
     """Phase 8 (module docstring): returns {"pipeline": total launches of the
     two runs, "finetune_step" / "finetune_val_batch" / "joint_step" /
@@ -551,49 +810,16 @@ def pipeline_phase(torch, dev, smi: str, tmp: str) -> dict:
     from mmrp_tpu_torch.config import Config
     from mmrp_tpu_torch.data.dicom import write_dicom
     from mmrp_tpu_torch.data.tokenizer import WordPieceTokenizer
-    from mmrp_tpu_torch.eval import retrieval_eval
     from mmrp_tpu_torch.kg import trainer as kg_trainer
     from mmrp_tpu_torch.labels import LABEL_COLS
     from mmrp_tpu_torch.models.multimodal import MultiModalConfig, model_routes
-    from mmrp_tpu_torch.ops import fused_attention as K3
-    from mmrp_tpu_torch.ops import fused_mlp as K2
-    from mmrp_tpu_torch.ops import fused_swin_block as SB
-    from mmrp_tpu_torch.ops import fused_swin_pair as SP
-    from mmrp_tpu_torch.ops import fused_window_attention as K1
-    from mmrp_tpu_torch.ops import wattn_core as WC
-    from mmrp_tpu_torch.train import pipeline as tpipe
     from mmrp_tpu_torch.train import runner as trunner
-    from mmrp_tpu_torch.train import swin_finetune as tft
     from mmrp_tpu_torch.utils.checkpoint import CheckpointManager
 
-    counters = {
-        "fused_window_attention": (K1.fused_window_attention_windows, "launches"),
-        "fused_ln_mlp": (K2.fused_ln_mlp_residual, "launches"),
-        "fused_attention": (K3.fused_attention, "launches"),
-        "fused_swin_block_windows": (SB.fused_swin_block_windows, "launches"),
-        "fused_swin_block_chain": (SP.fused_swin_block_chain, "launches"),
-        "fused_swin_block_pair": (SP.fused_swin_block_pair, "launches"),
-        "wattn_core_fwd": (WC.core_forward, "launches"),
-        "wattn_core_bwd": (WC.core_backward, "launches"),
-    }
-    plain = (K1.fused_window_attention_windows, K2.fused_ln_mlp_residual, K3.fused_attention,
-             SB.fused_swin_block_windows, SB.fused_swin_block_raw, SP.fused_swin_block_chain,
-             SP.fused_swin_block_pair, WC.window_attention_core)
-
-    def reset():
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
-        for fn in plain:
-            fn.plain_calls = 0
-
-    def read():
-        bad = {fn.__name__: fn.plain_calls for fn in plain if fn.plain_calls}
-        if bad:
-            fail(f"train a run directory: calls on a plain route: {bad}")
-        return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
-
-    def diff(after, before):
-        return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    calls = RunnerCalls(torch, "train a run directory")
+    reset, read = calls.reset, calls.read
+    per_call, first_step, kept, resumed = (calls.per_call, calls.first_step, calls.kept,
+                                           calls.resumed)
 
     # -- the data tree ------------------------------------------------------
     t0 = time.perf_counter()
@@ -635,121 +861,8 @@ def pipeline_phase(torch, dev, smi: str, tmp: str) -> dict:
     if bad:
         fail(f"train a run directory: plain call sites on the train-time model: {bad}")
 
-    # -- instrumentation: per call launches and CUDA-event time --------------
-    per_call = {"finetune_step": [], "finetune_val_batch": [], "joint_step": [],
-                "eval_batch": [], "dump_batch": []}
-    losses = {"finetune": [], "joint": []}
-    stage_s = {}
-
-    device = {}  # kind -> device ms of the port's kernels in its second call
-
-    def timed_call(kind, fn, *args):
-        before = read()
-        if len(per_call[kind]) == 1:  # the second call runs under the profiler, untimed
-            from torch.profiler import ProfilerActivity, profile
-
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                out = fn(*args)
-                torch.cuda.synchronize()
-            by = {}
-            for e in prof.key_averages():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
-                    us = getattr(e, "device_time_total", None) or getattr(
-                        e, "cuda_time_total", 0.0)
-                    name = next((k for k in PORT_KERNELS if k in e.key), "other")
-                    by[name] = by.get(name, 0.0) + us / 1e3
-            device[kind] = {k: round(v, 3) for k, v in sorted(by.items())}
-            per_call[kind].append((diff(read(), before), None))
-            return out
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn(*args)
-        end.record()
-        end.synchronize()
-        per_call[kind].append((diff(read(), before), start.elapsed_time(end)))
-        return out
-
-    real = {"ft": tft.make_finetune_step, "ft_loop": tft.finetune,
-            "train": tpipe.make_train_step, "restore": CheckpointManager.restore,
-            "eval": tpipe.make_eval_step, "joint": tpipe.run_joint_training,
-            "dump": tpipe.dump_embeddings, "swin": trunner._run_swin_finetune_stage,
-            "la": trunner._run_label_attention_stage, "kg": kg_trainer.KGTrainer.train,
-            "ret": retrieval_eval.dual_gallery_eval, "save": CheckpointManager.save,
-            "best": CheckpointManager.update_best}
-
-    def ft_step(model, c, tx):
-        step = real["ft"](model, c, tx)
-
-        def run(*a):
-            params, opt, loss = timed_call("finetune_step", step, *a)
-            losses["finetune"].append(loss)
-            return params, opt, loss
-        return run
-
-    def ft_loop(model, c, train_batches, val_batches, *a, **kw):
-        # the finetune's validation forwards: each batch's launches are those
-        # made between its yield and the loop's next request
-        def counted():
-            for batch in val_batches():
-                before = read()
-                yield batch
-                per_call["finetune_val_batch"].append((diff(read(), before), None))
-        return real["ft_loop"](model, c, train_batches, counted, *a, **kw)
-
-    first_step = {}  # fn(model, state): called at a joint stage's first step
-    kept = []  # the joint model of each run
-
-    def joint_step(model, c, pw=None):
-        step = real["train"](model, c, pw)
-        check = first_step.pop("check", None)
-        kept.append(model)
-
-        def run(state, batch):
-            nonlocal check
-            if check is not None:
-                check(model, state)
-                check = None
-            state, m = timed_call("joint_step", step, state, batch)
-            losses["joint"].append(m["loss/total"])
-            return state, m
-        return run
-
-    resumed = {}
-
-    def restore(self, *a, **kw):
-        r = real["restore"](self, *a, **kw)
-        if "epoch" in r:  # a full train state
-            resumed["epoch"] = int(r["epoch"])
-        return r
-
-    def eval_step(model, return_attention=False):
-        step = real["eval"](model, return_attention)
-        kind = "eval_batch" if return_attention else "dump_batch"
-        return lambda batch: timed_call(kind, step, batch)
-
-    def stage(name, fn):
-        def run(*a, **kw):
-            t = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            stage_s[name] = stage_s.get(name, 0.0) + time.perf_counter() - t
-            return out
-        return run
-
-    tft.make_finetune_step, tft.finetune = ft_step, ft_loop
-    CheckpointManager.restore = restore
-    tpipe.make_train_step, tpipe.make_eval_step = joint_step, eval_step
-    trunner._run_swin_finetune_stage = stage("swin finetune", real["swin"])
-    trunner._run_label_attention_stage = stage("label attention", real["la"])
-    kg_trainer.KGTrainer.train = stage("kg embeddings", real["kg"])
-    tpipe.run_joint_training = stage("joint", real["joint"])
-    tpipe.dump_embeddings = stage("dumps", real["dump"])
-    retrieval_eval.dual_gallery_eval = stage("retrieval eval", real["ret"])
-    # inside the joint stage: the checkpoints' writes
-    CheckpointManager.save = stage("joint checkpoints", real["save"])
-    CheckpointManager.update_best = stage("joint checkpoints", real["best"])
     out = root / "train"  # the data CLI's layout: records_cache.json one level up
-    try:
+    with calls:
         torch.cuda.reset_peak_memory_stats()
         reset()
         t0 = time.perf_counter()
@@ -757,7 +870,7 @@ def pipeline_phase(torch, dev, smi: str, tmp: str) -> dict:
                                                 device=dev)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        saved = real["restore"](CheckpointManager(str(out / "joint" / "ckpt")))
+        saved = calls.real["restore"](CheckpointManager(str(out / "joint" / "ckpt")))
         held = {k: v.detach().cpu().clone() for k, v in kept.pop().named_parameters()}
         gc.collect()
         torch.cuda.empty_cache()
@@ -788,16 +901,6 @@ def pipeline_phase(torch, dev, smi: str, tmp: str) -> dict:
         total = read()  # both runs: the counts were set to 0 before the first
         model = kept.pop()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    finally:
-        tft.make_finetune_step, tft.finetune = real["ft"], real["ft_loop"]
-        CheckpointManager.restore = real["restore"]
-        tpipe.make_train_step, tpipe.make_eval_step = real["train"], real["eval"]
-        tpipe.run_joint_training, tpipe.dump_embeddings = real["joint"], real["dump"]
-        trunner._run_swin_finetune_stage = real["swin"]
-        trunner._run_label_attention_stage = real["la"]
-        kg_trainer.KGTrainer.train = real["kg"]
-        retrieval_eval.dual_gallery_eval = real["ret"]
-        CheckpointManager.save, CheckpointManager.update_best = real["save"], real["best"]
     del kept[:]
 
     # -- checks ---------------------------------------------------------------
@@ -806,26 +909,7 @@ def pipeline_phase(torch, dev, smi: str, tmp: str) -> dict:
              "the model the first run ended with")
     if len(per_call["joint_step"]) - n_joint != len(per_call["joint_step"][:n_joint]):
         fail("resume: the second joint epoch did not take as many steps as the first")
-    for kind in ("finetune_step", "joint_step"):
-        for i, (counts, _) in enumerate(per_call[kind]):
-            if counts != EXPECTED_PIPE_STEP:
-                fail(f"{kind} {i}: launches {counts}, expected {EXPECTED_PIPE_STEP}")
-    for kind, want in (("finetune_val_batch", EXPECTED_PIPE_FT_EVAL),
-                       ("eval_batch", EXPECTED_PIPE_EVAL), ("dump_batch", EXPECTED_PIPE_DUMP)):
-        if not per_call[kind]:
-            fail(f"train a run directory: no {kind}")
-        for i, (counts, _) in enumerate(per_call[kind]):
-            if counts != want:
-                fail(f"{kind} {i}: launches {counts}, expected {want}")
-    # every launch of the two runs was made in one of these calls
-    summed = {k: sum(c.get(k, 0) for calls in per_call.values() for c, _ in calls)
-              for k in total}
-    if summed != total:
-        fail(f"train a run directory: launches over both runs {total} != the sum over the "
-             f"calls {summed}")
-    all_losses = losses["finetune"] + losses["joint"]
-    if not all_losses or not np.isfinite(all_losses).all():
-        fail(f"train a run directory: non-finite or no losses {all_losses}")
+    calls.check(total, text_layers=12)
     for name in PIPE_ARTIFACTS:
         if not (out / name).exists():
             fail(f"train a run directory: artifact {name} missing")
@@ -907,12 +991,10 @@ def pipeline_phase(torch, dev, smi: str, tmp: str) -> dict:
         fail(f"KG run: evaluate after train {val} != the epoch's {best}")
 
     # -- for information -------------------------------------------------------
-    def med(kind):
-        return statistics.median(ms for _, ms in per_call[kind] if ms is not None)
-
+    med = calls.median_ms
     ft_ms, joint_ms = med("finetune_step"), med("joint_step")
     log(f"pipeline seconds: first run {first_s:.1f}, resume run {resume_s:.1f}; by stage "
-        f"{ {k: round(v, 1) for k, v in stage_s.items()} } [{smi}]")
+        f"{ {k: round(v, 1) for k, v in calls.stage_s.items()} } [{smi}]")
     log(f"pipeline steps (batch {PIPE_B}, L{PIPE_TEXT}): finetune step median {ft_ms:.1f} ms "
         f"over {len(per_call['finetune_step'])}, joint step median {joint_ms:.1f} ms over "
         f"{len(per_call['joint_step'])} ({PIPE_B / joint_ms * 1e3:.1f} train pairs/s), "
@@ -921,8 +1003,366 @@ def pipeline_phase(torch, dev, smi: str, tmp: str) -> dict:
     counts = {kind: per_call[kind][0][0] for kind in per_call}
     log(f"pipeline launches per call: {counts}; over both runs {total}")
     log(f"pipeline device ms of one call by kernel (profiler; 'other': every other "
-        f"kernel): {device} [{smi}]")
+        f"kernel): {calls.device} [{smi}]")
     return {"pipeline": total, **counts}
+
+
+# phase 9, the Quick start through the cli: an OpenI-layout tree of CLI_RECORDS
+# XML reports (eCitation / AbstractText / MeSH / parentImage, built from the
+# taxonomy's phrases, some negated) and 16-bit DICOM files of CLI_DICOM_HW^2
+# (phase 8's cut), then `python -m mmrp_tpu_torch.cli` data, train (the
+# shipped configs/config.yaml, depth cut: one epoch per stage), calibrate,
+# parity, stream, eval-cls, eval-ret, kg-probe and mapper, each through
+# cli.main; the native decoder against the Python path at 2048^2 first, and
+# the DLS engine over phase 4c's gallery last
+CLI_RECORDS = 320
+CLI_DICOM_HW = 512
+CLI_EXPLAIN_N = 2  # parity's explain-alignment queries (--explain-n)
+CLI_CALIB_N = 64  # calibrate -n
+NATIVE_FILES, NATIVE_HW = 8, 2048
+NATIVE_TOL = 0.02  # tests/test_native_io.py: within one uint8 quantum, resize edges aside
+# words of no taxonomy phrase: each report's filler sentence
+CLI_FILLER = ("frontal and lateral views of the chest were obtained compared with the prior "
+              "study dated there is interval change in appearance patient history positioning "
+              "technique adequate images reviewed findings impression").split()
+DLS_CHECK_ROWS = 1024  # link-graph rows recomputed on the CPU
+DLS_TIE = 1e-5  # neighbour lists compared where adjacent similarities differ by more
+PARITY_SECTIONS = ("classification", "retrieval", "variants", "embedding_rank",
+                   "explain_alignment", "diversity", "kg_health")
+DATA_ARTIFACTS = ("records_cache.json", "eda_before_split.json",
+                  "eda_after_split.json", "phrase_check.json", "eda/mesh_label_stats.json",
+                  "eda/dicom_debug_stats.json", "splits/train_ids.json", "splits/val_ids.json",
+                  "splits/test_ids.json", "splits/split_label_counts.json")
+
+
+def links_agree(nb, s, nb_full, s_full, threshold: float):
+    """(link positions compared, row ends compared, disagreements) of a link
+    graph's rows against the reference's full rows (each row's first
+    max_links neighbours, no threshold). A row's links must be a prefix of
+    its row. Its end, the number of links, must lie where the reference's
+    similarities cross the threshold, give or take DLS_TIE; the end counts as
+    compared where no similarity of the row lies within DLS_TIE of the
+    threshold. A link position is compared where the reference's similarity
+    there is more than DLS_TIE from its neighbours in the list and from the
+    threshold (ties and the threshold's edge may fall either way in another
+    summation order); there the ids must be equal and the similarities
+    within DLS_TIE."""
+    compared = ends = differ = 0
+    for r in range(len(nb_full)):
+        sims = s_full[r]
+        n_links = int((nb[r] >= 0).sum())
+        lo = int((sims >= threshold + DLS_TIE).sum())
+        hi = int((sims >= threshold - DLS_TIE).sum())
+        ends += lo == hi
+        differ += bool((nb[r, :n_links] < 0).any()) + (not lo <= n_links <= hi)
+        for j in range(min(lo, n_links)):
+            near = [abs(sims[j] - threshold)]
+            if j > 0:
+                near.append(abs(sims[j - 1] - sims[j]))
+            if j + 1 < len(sims):
+                near.append(abs(sims[j + 1] - sims[j]))
+            if min(near) <= DLS_TIE:
+                continue
+            compared += 1
+            if nb[r, j] != nb_full[r, j] or abs(float(s[r, j]) - float(sims[j])) > DLS_TIE:
+                differ += 1
+    return compared, ends, differ
+
+
+def cli_phase(torch, dev, smi: str, tmp: str, gallery, gallery_ids, query_rows) -> dict:
+    """Phase 9 (module docstring): returns {"cli": the launches of the cli's
+    subcommands, counted from 0 before `data` to after `mapper`}."""
+    import numpy as np
+    from xml.sax.saxutils import escape
+
+    from mmrp_tpu_torch import cli
+    from mmrp_tpu_torch.api import MMRPredictor
+    from mmrp_tpu_torch.config import Config, dump_flat_yaml
+    from mmrp_tpu_torch.data import native
+    from mmrp_tpu_torch.data.dicom import DICOMImagePreprocessor, read_dicom, write_dicom
+    from mmrp_tpu_torch.data.labeler import PhraseLabeler
+    from mmrp_tpu_torch.eval.gt import build_label_overlap_gt
+    from mmrp_tpu_torch.labels import LABEL_COLS, get_taxonomy
+    from mmrp_tpu_torch.models.multimodal import MultiModalConfig, model_routes
+    from mmrp_tpu_torch.retrieval import RetrievalEngine, make_retrieval_engine
+    from mmrp_tpu_torch.retrieval.dls import link_block
+    from mmrp_tpu_torch.retrieval.gallery import l2_normalize
+
+    root = Path(tmp) / "cli"
+    rng = np.random.default_rng(SEED + 10)
+
+    # -- the native decoder against the Python path ---------------------------
+    if not native.available():
+        fail("native decoder: not built (phase 2 builds it)")
+    blobs = []
+    for i in range(NATIVE_FILES):
+        pixels = (rng.random((NATIVE_HW, NATIVE_HW)) * 3000 + 500).astype(np.uint16)
+        blobs.append(write_dicom(None, pixels, window_center=float(rng.uniform(1500, 2500)),
+                                 window_width=float(rng.uniform(1500, 3000)),
+                                 photometric="MONOCHROME1" if i % 4 == 3 else "MONOCHROME2",
+                                 rescale_slope=1.0 if i % 2 else 0.5,
+                                 rescale_intercept=0.0 if i % 2 else -100.0))
+    rates = {}
+    for name, pp in (("native", DICOMImagePreprocessor()),
+                     ("python", DICOMImagePreprocessor(use_native=False))):
+        t0 = time.perf_counter()
+        out = [pp.load(b) for b in blobs]
+        rates[name] = (len(blobs) / (time.perf_counter() - t0), np.stack(out))
+    err = float(np.abs(rates["native"][1] - rates["python"][1]).max())
+    dcms = [read_dicom(b) for b in blobs]
+    exact = all(np.array_equal(native.decode_raw(b), d.pixel_array.astype(np.float32)
+                               * d.rescale_slope + d.rescale_intercept)
+                for b, d in zip(blobs, dcms))
+    t0 = time.perf_counter()
+    _, status = native.preprocess_batch(blobs)
+    pool_rate = len(blobs) / (time.perf_counter() - t0)
+    log(f"native decoder: DICOMImagePreprocessor.load of {NATIVE_FILES} 16-bit DICOM files of "
+        f"{NATIVE_HW}^2 -> 224^2: max |native - Python| {err:.6f} (<= {NATIVE_TOL}); decode_raw "
+        f"exact: {exact}; images/s (host clock) native {rates['native'][0]:.1f}, Python "
+        f"{rates['python'][0]:.1f}, native batch pool {pool_rate:.1f} [{smi}]")
+    if err > NATIVE_TOL or not exact or (status != 0).any():
+        fail("native decoder: disagrees with the Python path, decode_raw is not exact, or the "
+             f"batch pool failed (status {status.tolist()})")
+
+    # -- the OpenI-layout tree --------------------------------------------------
+    t0 = time.perf_counter()
+    xml_dir, dcm_dir, data = root / "xml", root / "dcm", root / "data"
+    xml_dir.mkdir(parents=True)
+    dcm_dir.mkdir()
+    groups = get_taxonomy().combined_groups()
+    names = list(groups)
+    labeler = PhraseLabeler()
+    for i in range(CLI_RECORDS):
+        while True:  # phrases of 1-3 groups and negated phrases of 0-2: at least one label
+            pos = rng.choice(len(names), int(rng.integers(1, 4)), replace=False)
+            neg = rng.choice(len(names), int(rng.integers(0, 3)), replace=False)
+            sentences = [str(rng.choice(groups[names[g]])).capitalize() for g in pos]
+            sentences += [f"No {rng.choice(groups[names[g]])}" for g in neg]
+            sentences.append(" ".join(rng.choice(CLI_FILLER, int(rng.integers(20, 120)))))
+            rng.shuffle(sentences)
+            text = ". ".join(sentences) + f". Study number {i + 1}."
+            if any(labeler.label_vector(text)):
+                break
+        rid = f"{i + 1}_IM-{i:04d}-1001"
+        mesh = "".join(f"<major>{escape(names[g])}</major>" for g in pos)
+        (xml_dir / f"{i + 1}.xml").write_text(
+            f"<eCitation><ArticleTitle>report {i + 1}</ArticleTitle><Abstract><AbstractText>"
+            f"{escape(text)}</AbstractText></Abstract><MeSH>{mesh}</MeSH>"
+            f'<parentImage id="CXR{rid}"/></eCitation>')
+        pixels = (rng.random((CLI_DICOM_HW, CLI_DICOM_HW)) * 3000 + 500).astype(np.uint16)
+        write_dicom(dcm_dir / f"{rid}.dcm", pixels, window_center=2000, window_width=3000)
+    log(f"cli: OpenI-layout tree of {CLI_RECORDS} XML reports and 16-bit DICOM files of "
+        f"{CLI_DICOM_HW}^2 written in {time.perf_counter() - t0:.1f} s")
+
+    seconds = {}
+
+    def run(name, argv, rc=0):
+        t0 = time.perf_counter()
+        got = cli.main(argv)
+        torch.cuda.synchronize()
+        seconds[name] = round(time.perf_counter() - t0, 2)
+        if got != rc:
+            fail(f"cli {name}: exit status {got}, expected {rc}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def need(*paths):
+        for path in paths:
+            if not Path(path).exists():
+                fail(f"cli: {path} missing")
+
+    calls = RunnerCalls(torch, "cli train")
+    calls.reset()  # the cli path's count starts here
+
+    # -- data -------------------------------------------------------------------
+    run("data", ["data", "--xml-dir", str(xml_dir), "--dicom-dir", str(dcm_dir),
+                 "--out", str(data), "--seed", str(SEED)])
+    need(*(data / f for f in DATA_ARTIFACTS))
+    records = json.loads((data / "records_cache.json").read_text())["records"]
+    split = {s: json.loads((data / "splits" / f"{s}_ids.json").read_text())
+             for s in ("train", "val", "test")}
+    labelled = {r["id"] for r in records if any(r["labels"])}
+    if len(records) != CLI_RECORDS or set().union(*split.values()) != labelled or \
+            sum(map(len, split.values())) != len(labelled):
+        fail(f"cli data: {len(records)} records, {len(labelled)} labelled, splits "
+             f"{ {k: len(v) for k, v in split.items()} }")
+    prev = json.loads((data / "eda_before_split.json").read_text())["prevalence"]
+    top = sorted(prev.items(), key=lambda kv: -kv[1])[:6]
+    log(f"cli data: {len(records)} records, {len(labelled)} with a label, splits "
+        f"{ {k: len(v) for k, v in split.items()} }; {sum(v > 0 for v in prev.values())} of "
+        f"{len(prev)} labels present, the most prevalent "
+        f"{ {k: round(v, 3) for k, v in top} }")
+
+    # -- train: configs/config.yaml cut to one epoch per stage -----------------
+    cfg = Config.load(str(REPO / "configs" / "config.yaml")).replace(
+        epochs=1, swin_finetune_epochs=1, kg_epochs=1, la_epochs=1,
+        train_use_pallas_attention=True, data_workers=6)
+    cfg_path = root / "config.yaml"
+    dump_flat_yaml(cfg.to_dict(), str(cfg_path))
+    mm_cfg = MultiModalConfig.from_config(
+        cfg.replace(use_pallas_attention=cfg.train_use_pallas_attention),
+        num_classes=len(LABEL_COLS))
+    routes = {**model_routes(mm_cfg), **model_routes(mm_cfg, train=True)}
+    bad = [k for k, v in routes.items() if v == "plain"]
+    if bad:
+        fail(f"cli train: plain call sites on the model cli train builds: {bad}")
+    layers = mm_cfg.text.num_layers
+    log(f"cli train: Swin-B {mm_cfg.swin.img_size} px, text tower {mm_cfg.text} "
+        f"({layers} layers), {mm_cfg.num_fusion_layers} fusion layers at {mm_cfg.joint_dim}, "
+        f"batch {cfg.batch_size}, L{cfg.text_dim}, KG {cfg.kg_model} ({cfg.kg_mode}); no plain "
+        "call site")
+    run_dir = data / "train"
+    with calls:
+        run("train", ["train", "--config", str(cfg_path), "--data", str(data),
+                      "--out", str(run_dir)])
+    train_total = calls.read()
+    calls.check(train_total, text_layers=layers)
+    need(*(run_dir / f for f in PIPE_ARTIFACTS))
+    summary = json.loads((run_dir / "pipeline_summary.json").read_text())
+    if not np.isfinite(summary["joint"]["composite"]):
+        fail(f"cli train: joint.composite {summary['joint']}")
+    log(f"cli train: steps finetune {len(calls.per_call['finetune_step'])} (median "
+        f"{calls.median_ms('finetune_step'):.1f} ms), joint {len(calls.per_call['joint_step'])} "
+        f"(median {calls.median_ms('joint_step'):.1f} ms); stages "
+        f"{ {k: round(v, 1) for k, v in calls.stage_s.items()} }; launches per call "
+        f"{ {k: v[0][0] for k, v in calls.per_call.items()} }, in all {train_total}")
+    _, _, per_embed = pipe_expected(layers)
+
+    # -- calibrate: plain f32, no kernel -----------------------------------------
+    before = calls.read()
+    run("calibrate", ["calibrate", "--run-dir", str(run_dir), "--data", str(data),
+                      "-n", str(CLI_CALIB_N)])
+    blocks = json.loads((run_dir / "swin_act_amax.json").read_text())["blocks"]
+    if len(blocks) != sum(mm_cfg.swin.depths) or calls.diff(calls.read(), before):
+        fail(f"cli calibrate: {len(blocks)} blocks, launches {calls.diff(calls.read(), before)}")
+    log(f"cli calibrate: {len(blocks)} blocks over {CLI_CALIB_N} images")
+
+    # -- parity: every embed on the default route --------------------------------
+    embeds = []
+    real_embed = MMRPredictor.embed
+
+    def embed(self, *a):
+        before = calls.read()
+        out = real_embed(self, *a)
+        embeds.append((calls.diff(calls.read(), before), len(a[0])))
+        return out
+
+    MMRPredictor.embed = embed
+    before = calls.read()
+    try:
+        run("parity", ["parity", "--data", str(data), "--run-dir", str(run_dir), "-k", "10",
+                       "--explain-n", str(CLI_EXPLAIN_N)])
+    finally:
+        MMRPredictor.embed = real_embed
+    explain_launches = calls.diff(calls.read(), before)
+    for counts, n in embeds:
+        if counts != per_embed:
+            fail(f"cli parity: an embed of {n} launched {counts}, expected {per_embed}")
+    rep = json.loads((run_dir / "parity" / "parity_results.json").read_text())
+    md = (run_dir / "parity" / "PARITY_RESULTS.md").read_text()
+    missing = [s for s in PARITY_SECTIONS if s not in rep]
+    if missing or rep["n_test"] != len(split["test"]) or "Explain alignment" not in md:
+        fail(f"cli parity: sections missing {missing}, n_test {rep['n_test']}")
+    log(f"cli parity: n_test {rep['n_test']}, {len(embeds)} embeds of {[n for _, n in embeds]} "
+        f"each {per_embed}; launches of the whole run {explain_launches}; classification "
+        f"macro AUROC {rep['classification'].get('macro_auroc')}, explain alignment "
+        f"{rep['explain_alignment']}")
+
+    # -- stream: the default route per batch ---------------------------------------
+    before = calls.read()
+    run("stream", ["stream", "--run-dir", str(run_dir), "--data", str(data), "-k", "10"])
+    stats = json.loads((run_dir / "stream_test" / "stream_stats.json").read_text())
+    rows = (run_dir / "stream_test" / "predictions.jsonl").read_text().splitlines()
+    n_batches = -(-len(split["test"]) // cfg.batch_size)
+    got = calls.diff(calls.read(), before)
+    if len(rows) != len(split["test"]) or got != {k: n_batches * v for k, v in per_embed.items()}:
+        fail(f"cli stream: {len(rows)} rows, launches {got} over {n_batches} batches")
+    log(f"cli stream: {stats}")
+
+    # -- eval-cls, eval-ret, kg-probe, mapper, and the two not ported -------------
+    by_id = {r["id"]: r for r in records}
+    preds = [json.loads(r) for r in rows]
+    np.save(root / "probs.npy", np.array([p["probs"] for p in preds], np.float32))
+    np.save(root / "labels.npy", np.array([by_id[p["id"]]["labels"] for p in preds], np.float32))
+    run("eval-cls", ["eval-cls", "--probs", str(root / "probs.npy"), "--labels",
+                     str(root / "labels.npy"), "--thresholds",
+                     str(run_dir / "joint" / "thresholds.npy"), "--out", str(root / "cls")])
+    test_ids = json.loads((run_dir / "test_ids.json").read_text())
+    train_ids = json.loads((run_dir / "train_ids.json").read_text())
+    lab = lambda ids: np.array([by_id[i]["labels"] for i in ids])  # noqa: E731
+    build_label_overlap_gt(test_ids, lab(test_ids), test_ids, lab(test_ids),
+                           out_path=str(root / "gt_test.json"))
+    build_label_overlap_gt(test_ids, lab(test_ids), train_ids, lab(train_ids),
+                           out_path=str(root / "gt_train.json"))
+    run("eval-ret", ["eval-ret", "--test-emb", str(run_dir / "test_embeddings.npy"),
+                     "--test-ids", str(run_dir / "test_ids.json"),
+                     "--train-emb", str(run_dir / "train_embeddings.npy"),
+                     "--train-ids", str(run_dir / "train_ids.json"),
+                     "--gt-test", str(root / "gt_test.json"),
+                     "--gt-train", str(root / "gt_train.json"), "--variants",
+                     "--run-dir", str(run_dir), "--data", str(data), "--out", str(root / "ret")])
+    run("kg-probe", ["kg-probe", "--kg-dir", str(run_dir / "kg"),
+                     "--out-file", str(root / "kg_probe.json")])
+    run("mapper", ["mapper", "--out", str(root / "onto")])
+    need(root / "cls" / "test_per_class.csv", root / "cls" / "test_summary.json",
+         root / "ret" / "variants.json", root / "kg_probe.json",
+         *(root / "onto" / f"{c}_label2ontology.json"
+           for c in ("disease", "finding", "symptom", "normal")))
+    total = calls.read()
+    run("export-serving", ["export-serving", "--run-dir", str(run_dir),
+                           "--out-path", str(root / "artifact.npz")], rc=2)
+    run("bench", ["bench"], rc=2)
+    log(f"cli: seconds per subcommand {seconds} [{smi}]")
+    log(f"cli: launches of the cli path {total}")
+
+    # -- DLS over phase 4c's gallery -----------------------------------------------
+    engines = {}
+    for label, kw in (("default", {}), ("link_threshold -1 (a 10-NN graph)",
+                                        {"link_threshold": -1.0})):
+        t0 = time.perf_counter()
+        eng = make_retrieval_engine("dls", gallery, gallery_ids, device=dev, **kw)
+        torch.cuda.synchronize()
+        if not kw:
+            label = f"link_threshold {eng.link_threshold} (the default)"
+        engines[label] = (eng, time.perf_counter() - t0)
+    g_cpu = torch.from_numpy(l2_normalize(np.asarray(gallery, np.float32)))
+    exact = RetrievalEngine(gallery, gallery_ids, device=dev)
+    # the first DLS_CHECK_ROWS rows, and the query rows (on a random gallery the
+    # only rows with links at the default threshold); each row's full list once
+    t0 = time.perf_counter()
+    starts = ((0, DLS_CHECK_ROWS), (min(query_rows), len(query_rows)))
+    max_links = next(iter(engines.values()))[0].max_links
+    full = [(start, rows, *(a.numpy() for a in link_block(g_cpu, start, rows, max_links, -1.0)))
+            for start, rows in starts]
+    cpu_s = time.perf_counter() - t0
+    for label, (eng, build_s) in engines.items():
+        compared = ends = differ = 0
+        for start, rows, nb_full, s_full in full:
+            c, e, d = links_agree(eng.neighbors[start:start + rows],
+                                  eng.link_sims[start:start + rows], nb_full, s_full,
+                                  eng.link_threshold)
+            compared, ends, differ = compared + c, ends + e, differ + d
+        links = int((eng.neighbors >= 0).sum())
+        recall, walk_ms = [], []
+        for r in query_rows:
+            t1 = time.perf_counter()
+            got = [i for i, _ in eng.retrieve(gallery[r], K=10, query_id=gallery_ids[r])]
+            walk_ms.append((time.perf_counter() - t1) * 1e3)
+            want = [i for i, _ in exact.retrieve(gallery[r], K=10, query_id=gallery_ids[r])]
+            recall.append(len(set(got) & set(want)) / len(want))
+        log(f"DLS {label}: {len(gallery)} x {gallery.shape[1]} gallery, link graph built in "
+            f"{build_s:.2f} s on the card ({links} links); the first {DLS_CHECK_ROWS} rows and "
+            f"the {len(query_rows)} query rows against the CPU f32 recomputation "
+            f"({cpu_s:.1f} s, shared): {compared} link positions and {ends} row ends compared, "
+            f"{differ} differ; recall@10 of {len(recall)} walks against exact top-10 "
+            f"{np.mean(recall):.3f} ({[round(x, 2) for x in recall]}), walk median "
+            f"{statistics.median(walk_ms):.2f} ms [{smi}]")
+        if differ:
+            fail(f"DLS {label}: the link graph disagrees with its CPU recomputation")
+        if not (compared and ends):
+            fail(f"DLS {label}: no link position or no row end was compared with the CPU "
+                 "recomputation")
+    return {"cli": total}
 
 
 def main() -> int:
@@ -936,6 +1376,7 @@ def main() -> int:
     try:
         from mmrp_tpu_torch.api import MMRPredictor, serving_forward
         from mmrp_tpu_torch.config import Config
+        from mmrp_tpu_torch.data import native
         from mmrp_tpu_torch.data.dicom import DICOMImagePreprocessor, read_dicom, write_dicom
         from mmrp_tpu_torch.data.tokenizer import WordPieceTokenizer
         from mmrp_tpu_torch.labels import LABEL_COLS
@@ -1003,17 +1444,37 @@ def main() -> int:
     phase_done("environment")
 
     # -- 2. build --------------------------------------------------------------
+    # the kernels with nvcc, and beside them the native DICOM decoder with g++
+    # (python -m mmrp_tpu_torch.data.native): every later decode takes it
     t0 = time.perf_counter()
-    nvcc_log = _build.build(force=True)
-    log(f"build: {time.perf_counter() - t0:.1f} s -> {_build.LIB_PATH.relative_to(REPO)}")
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(native.build, True)
+        nvcc_log = _build.build(force=True)
+        host.result()
+    log(f"build: {time.perf_counter() - t0:.1f} s -> {_build.LIB_PATH.relative_to(REPO)}, "
+        f"{native.LIB_PATH.relative_to(REPO)}")
     (_build.BUILD_DIR / "nvcc.log").write_text(nvcc_log)
     _build.library()
+    if not native.available():
+        fail("build: the native decoder does not load")
     phase_done("build")
     if sys.argv[1:] == ["--pipeline-only"]:  # phases 1, 2 and 8 alone, no result line
         with tempfile.TemporaryDirectory() as tmp:
             pipeline_phase(torch, dev, smi, tmp)
         phase_done("train a run directory")
         log("chip_smoke: --pipeline-only ran phases 1, 2 and 8 alone; no result line")
+        return 0
+    if sys.argv[1:] == ["--cli-only"]:  # phases 1, 2 and 9 alone, no result line
+        import numpy as np
+
+        # a gallery of phase 4c's size: 100,000 seeded rows and 8 request rows
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        rows = torch.randn((100_000 + B, 1024), generator=gen, device=dev).cpu().numpy()
+        ids_ = [f"g{i}" for i in range(100_000)] + [f"req{b}" for b in range(B)]
+        with tempfile.TemporaryDirectory() as tmp:
+            cli_phase(torch, dev, smi, tmp, rows, ids_, list(range(100_000, 100_000 + B)))
+        phase_done("the Quick start through the cli")
+        log("chip_smoke: --cli-only ran phases 1, 2 and 9 alone; no result line")
         return 0
 
     # -- 3. kernels against their plain versions -------------------------------
@@ -1708,7 +2169,8 @@ def main() -> int:
         inproc = MMRPredictor(model, LABEL_COLS)
         req_emb = inproc.embed(req_images, req_ids, req_mask)["joint_emb"]
         run_ids = gallery_ids[:len(gallery)] + [f"req{b}" for b in range(B)]
-        np.save(run / "train_embeddings.npy", np.concatenate([gallery, req_emb]))
+        run_gallery = np.concatenate([gallery, req_emb])  # also phase 9's DLS gallery
+        np.save(run / "train_embeddings.npy", run_gallery)
         (run / "train_ids.json").write_text(json.dumps(run_ids))
         labels_by_id = {rid: (r.random(len(LABEL_COLS)) < 0.1).astype(int) for rid in run_ids}
         # every record names its DICOM file and report, as the data pipeline
@@ -2463,7 +2925,14 @@ def main() -> int:
         launches.update(pipeline_phase(torch, dev, smi, tmp))
     phase_done("train a run directory")
 
-    # -- 8. records ------------------------------------------------------------
+    # -- 9. the Quick start through the cli (cli_phase) ----------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        launches.update(cli_phase(torch, dev, smi, tmp, run_gallery, run_ids,
+                                  list(range(len(run_gallery) - B, len(run_gallery)))))
+    del run_gallery
+    phase_done("the Quick start through the cli")
+
+    # -- records ----------------------------------------------------------------
     # launches, and ms / plain_ms / bound_ms: counted or summed over the calls
     # of one run of the kernel's path at the shapes above (PATH_OF; "per":
     # "predict" on the default route or an int8 mix, "encoder forward" at

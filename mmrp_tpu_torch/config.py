@@ -100,6 +100,9 @@ class Config:
     adam_mu_bf16: bool = True  # Adam's first moment stored in bf16
     augment: bool = False  # on-device rotation / flip of the train step's images
     batch_size: int = 32  # the batch of a stream (serve/stream.py::run_stream)
+    # the galleries of eval/parity.py: exact (gallery.py's top-K) | dls
+    # (retrieval/dls.py, the reference's walk)
+    retrieval_backend: str = "exact"
     # the reranker's weights of embedding cosine, label Jaccard and KG cosine
     rerank_alpha: float = 0.6
     rerank_beta: float = 0.25
@@ -127,6 +130,8 @@ class Config:
             raise ValueError(f"invalid kg_opn: {self.kg_opn!r}")
         if self.dtype_policy not in ("bf16", "f32"):
             raise ValueError(f"invalid dtype_policy: {self.dtype_policy!r}")
+        if self.retrieval_backend not in ("exact", "dls"):
+            raise ValueError(f"invalid retrieval_backend: {self.retrieval_backend!r}")
         if self.pretrained_bert and not self.pretrained_vocab:
             raise ValueError(
                 "pretrained_bert requires pretrained_vocab: the corpus-trained "

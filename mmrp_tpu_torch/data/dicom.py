@@ -9,11 +9,13 @@ Counterpart of ``mmrp_tpu/data/dicom.py`` (numpy only):
   batched on-device equivalents live in ``mmrp_tpu_torch.ops.preprocess``;
 - ``DICOMImagePreprocessor``, a file -> normalized (3, H, W) array.
 
-The JAX package's C++ batch decoder (``native/``, ``data/native.py``) is not
-ported (ROADMAP.md Queue 1 item 10): the preprocessor always takes the
-Python path, which is what the JAX package does where ``libmmrp_io.so`` is
-not built. ``_resize_bilinear`` uses cv2 where it imports and its numpy
-fallback elsewhere, as in the JAX package.
+``DICOMImagePreprocessor.load`` takes the port's C++ decoder
+(``data/native.py``, built by ``python -m mmrp_tpu_torch.data.native``)
+where that library is built, as the JAX package takes ``native/`` where
+``libmmrp_io.so`` is built, and the Python path below everywhere else; the
+two agree within one uint8 quantum after normalization (the resize edge
+conventions differ slightly). ``_resize_bilinear`` uses cv2 where it imports
+and its numpy fallback elsewhere, as in the JAX package.
 
 Behavioral parity targets: window_image maps [center-width/2,
 center+width/2] -> [0,1]; load_raw_array windows with the 0.5/99.5
@@ -379,9 +381,7 @@ class DICOMImagePreprocessor:
     default_window_center: float = 40.0
     default_window_width: float = 400.0
     output_size: Tuple[int, int] = (224, 224)
-    # the JAX package's switch for its C++ decoder, which is not ported
-    # (ROADMAP.md Queue 1 item 10): every value takes the Python path
-    use_native: bool = True
+    use_native: bool = True  # C++ fast path where data/native.py's library is built
 
     def __post_init__(self) -> None:
         self.mean3 = np.asarray(
@@ -396,6 +396,27 @@ class DICOMImagePreprocessor:
             raise ValueError("mean/std must be scalar or length-3")
 
     def load(self, src) -> np.ndarray:
+        if self.use_native and float(self.mean3.std()) == 0 and float(self.std3.std()) == 0:
+            from mmrp_tpu_torch.data import native
+
+            if native.available():
+                blob = (
+                    bytes(src)
+                    if isinstance(src, (bytes, bytearray))
+                    else Path(src).read_bytes()
+                )
+                try:
+                    gray = native.preprocess(
+                        blob,
+                        out_hw=self.output_size,
+                        mean=float(self.mean3[0]),
+                        std=float(self.std3[0]),
+                        default_wc=self.default_window_center,
+                        default_ww=self.default_window_width,
+                    )
+                    return np.repeat(gray[None, :, :], 3, axis=0)
+                except ValueError:
+                    pass  # unsupported file -> python path below
         dcm = read_dicom(src)
         wc = dcm.window_center if dcm.window_center is not None else self.default_window_center
         ww = dcm.window_width if dcm.window_width is not None else self.default_window_width

@@ -90,13 +90,14 @@ def test_config_yaml_loads_alike_in_both_packages(capsys):
     port, jax_cfg = Config.load(YAML), JConfig.load(YAML)
     out = capsys.readouterr().out
     # keys of JAX fields the port has not ported warn and are ignored: the
-    # device mesh, the DLS backend, the benchmark's text length; the training
-    # pipeline's fields (epochs, kg_*, la_*) are the port's own since it trains
+    # device mesh, the benchmark's text length; the training pipeline's fields
+    # (epochs, kg_*, la_*) and retrieval_backend (its parity galleries) are the
+    # port's own
     assert "[WARN] Unknown keys in config file (ignored):" in out
     warned = out.split("[WARN] Unknown keys in config file (ignored):")[1].splitlines()[0]
-    for key in ("mesh_shape", "retrieval_backend", "gallery_shard_axis"):
+    for key in ("mesh_shape", "gallery_shard_axis"):
         assert f"'{key}'" in warned
-    for key in ("epochs", "kg_model", "la_lr"):
+    for key in ("epochs", "kg_model", "la_lr", "retrieval_backend"):
         assert f"'{key}'" not in warned
     for name, got, want in shared(port, jax_cfg):
         assert got == want and type(got) is type(want), name

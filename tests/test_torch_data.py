@@ -25,7 +25,7 @@ from mmrp_tpu.data.tokenizer import WordPieceTokenizer as JTokenizer
 from mmrp_tpu.labels import taxonomy as jtaxonomy
 from mmrp_tpu.ops import preprocess as jpre
 from mmrp_tpu.retrieval import rerank as jrerank
-from mmrp_tpu_torch.data import dataset, dicom
+from mmrp_tpu_torch.data import dataset, dicom, native
 from mmrp_tpu_torch.data.tokenizer import WordPieceTokenizer
 from mmrp_tpu_torch.labels import taxonomy
 from mmrp_tpu_torch.ops import preprocess
@@ -42,10 +42,17 @@ REPORTS = [
 ]
 
 
-@pytest.fixture(autouse=True)
-def no_native_decoder(monkeypatch):
-    """The JAX preprocessor on its Python path, as the port's always is."""
-    monkeypatch.setattr(jnative, "available", lambda: False)
+@pytest.fixture(scope="module", autouse=True)
+def no_native_decoder():
+    """Both preprocessors on their Python paths, whether or not either
+    package's native library is built (they agree only within 0.02 with it,
+    tests/test_native_io.py, tests/test_torch_data_tools.py); for the whole
+    module, its module-scoped fixtures included. The other modules that hold
+    the port's decode against JAX's import it."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "available", lambda: False)
+        mp.setattr(native, "available", lambda: False)
+        yield
 
 
 def test_label_columns_are_the_jax_packages():

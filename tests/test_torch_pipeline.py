@@ -54,6 +54,7 @@ from mmrp_tpu_torch.train import pipeline as tpipe
 from mmrp_tpu_torch.train import runner as trunner
 from mmrp_tpu_torch.train.joint import init_train_state, make_eval_step, make_train_step
 from mmrp_tpu_torch.utils.checkpoint import CheckpointManager
+from test_torch_data import no_native_decoder  # noqa: F401 (autouse)
 from test_torch_train import step_batch, tiny_models
 
 REPO = Path(__file__).resolve().parent.parent
@@ -297,8 +298,10 @@ def tree(tmp_path_factory):
 JAX_RUN = """
 import sys
 from mmrp_tpu.config import Config
+from mmrp_tpu.data import native
 from mmrp_tpu.train.runner import run_training_pipeline
 from test_torch_pipeline import tiny_config
+native.available = lambda: False  # the Python decode, as the port's side (no_native_decoder)
 run_training_pipeline(tiny_config(Config), sys.argv[1], sys.argv[2])
 """
 

@@ -35,7 +35,6 @@ import yaml
 
 from mmrp_tpu.api import serving_forward as jax_serving_forward
 from mmrp_tpu.config import Config as JConfig
-from mmrp_tpu.data import native as jnative
 from mmrp_tpu.kg.label_attention import LabelAttentionTrainer, LabelAttentionTrainerConfig
 from mmrp_tpu.labels import LABEL_COLS
 from mmrp_tpu.models import multimodal as jmm
@@ -57,6 +56,7 @@ from mmrp_tpu_torch.retrieval.gallery import RetrievalEngine
 from mmrp_tpu_torch.serve import app, runner, stream
 from mmrp_tpu_torch.utils.convert import load_flax_params
 from test_stream import _batches
+from test_torch_data import no_native_decoder  # noqa: F401 (autouse)
 from test_torch_config import assert_same_model
 from test_torch_slice import randomize
 
@@ -77,17 +77,17 @@ def report(rng):
     return " ".join(rng.choice(WORDS, size=int(rng.integers(3, 14))))
 
 
-@pytest.fixture(autouse=True)
-def no_native_decoder(monkeypatch):
-    """The JAX preprocessor on its Python path, as the port's always is."""
-    monkeypatch.setattr(jnative, "available", lambda: False)
-
-
 @pytest.fixture(scope="module")
 def run_dir(tmp_path_factory):
     """(run directory, data directory, the JAX params) of a micro run."""
+    return write_run_dir(tmp_path_factory.mktemp("serve") / "data")
+
+
+def write_run_dir(data):
+    """A micro run at ``data / "train"`` with its data directory ``data``, as
+    the module docstring lays it out: (run directory, data directory, the JAX
+    params)."""
     rng = np.random.default_rng(0)
-    data = tmp_path_factory.mktemp("serve") / "data"
     run = data / "train"
     (run / "kg").mkdir(parents=True)
     (data / "splits").mkdir()
