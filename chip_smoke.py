@@ -159,6 +159,38 @@ Phases, each of which fails the run (nonzero exit, no result line):
    exact top-10. ``python3 chip_smoke.py
    --cli-only`` runs phases 1, 2 and 9 alone (on a seeded gallery of that
    size) and prints no result line.
+10. the pretrained bootstrap and the other towers, on phase 8's tree: (a)
+   checkpoints in the published layouts at the published dims, from a seeded
+   generator (no ``transformers`` on the card): a ``BertForPreTraining``
+   ``pytorch_model.bin`` (``bert.`` keys and a ``cls.`` head) at
+   Bio_ClinicalBERT's dims (vocab 28,996, 12 x 768, 12 heads, FFN 3,072, 512
+   positions, 2 token types), a ``SwinModel`` ``model.safetensors`` at
+   swin-base-patch4-window7-224's layout (embed 128, depths 2/2/18/2, heads
+   4/8/16/32; written by this script's own safetensors writer, int64
+   ``relative_position_index`` buffers included), MedCLIP's vision dict
+   (Swin-T ``vision_model.model.*`` + a 512 x 768 projection) and a
+   ``vocab.txt`` of 28,996 lines; (b) ``models/port.py``'s reader returns the
+   tensors written, ``text_config_from_state`` / ``swin_layout_from_state``
+   those dims, and each converted tower loaded into the port's module on the
+   card equals the converter's tensors bit for bit at the module's dtypes; (c)
+   ``run_training_pipeline(flagship=True)`` with ``pretrained_vocab``,
+   ``pretrained_bert`` and ``pretrained_swin`` (batch 64, L512, one epoch per
+   stage): the finetune's first step starts from the converted Swin, the
+   joint's from the converted BERT and the finetuned Swin (f32 masters, bit
+   for bit), ``model_config.json`` holds the checkpoint's text dims, the
+   launches as phase 8's (``RunnerCalls``; no plain call), and
+   ``from_run_dir`` serves each of 8 train records at rank 1 of its own row;
+   (d, e) one serving forward at batch 8, L512 of the flagship's widths
+   (ClinicalBERT-dim text, 5 fusion layers at 1024, 43 labels) with each of
+   the medclip, vit, resnet50 and efficientnet towers from ``init_params``,
+   and of the Swin-B flagship with ``use_shared_ffn`` and with
+   ``use_cls_only``: launches and plain calls as worked out
+   (``EXPECTED_TOWER``; the shared FFN's 5 self-attentions and FFNs on their
+   plain versions, as JAX's XLA branch), pairs/s, and agreement with the f32
+   plain path on the CPU (joint_emb cosine >= 0.9999, max |dprobs| <= 5e-3; a
+   conv or ViT tower that misses it is held to twice the distance of its
+   all-plain bf16 forward). ``python3 chip_smoke.py --pretrained-only`` runs
+   phases 1, 2 and 10 alone (on a tree of its own) and prints no result line.
 Each phase prints its seconds. The last two lines are the kernels' JSON record
 and the result line {"ok": true, "device": {...}}.
 """
@@ -168,6 +200,7 @@ import dataclasses
 import gc
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -590,8 +623,10 @@ class RunnerCalls:
     under the profiler, whose device ms by kernel go to ``device``), the
     losses, each stage's seconds, and every joint model (``kept``); a
     function put in ``first_step["check"]`` is called with the model and the
-    state of a joint stage's first step, and ``resumed["epoch"]`` is the epoch
-    of the full train state a checkpoint restore returned."""
+    state of a joint stage's first step, one in ``first_step["finetune"]``
+    with the model and the f32 masters of a Swin finetune's first step, and
+    ``resumed["epoch"]`` is the epoch of the full train state a checkpoint
+    restore returned."""
 
     KINDS = ("finetune_step", "finetune_val_batch", "joint_step", "eval_batch", "dump_batch")
 
@@ -686,8 +721,13 @@ class RunnerCalls:
 
         def ft_step(model, c, tx):
             step = real["ft"](model, c, tx)
+            check = self.first_step.pop("finetune", None)
 
             def run(*a):
+                nonlocal check
+                if check is not None:  # a[0]: the f32 masters before the update
+                    check(model, a[0])
+                    check = None
                 params, opt, loss = self.timed_call("finetune_step", step, *a)
                 losses["finetune"].append(loss)
                 return params, opt, loss
@@ -800,31 +840,16 @@ class RunnerCalls:
         return statistics.median(ms for _, ms in self.per_call[kind] if ms is not None)
 
 
-def pipeline_phase(torch, dev, smi: str, tmp: str) -> dict:
-    """Phase 8 (module docstring): returns {"pipeline": total launches of the
-    two runs, "finetune_step" / "finetune_val_batch" / "joint_step" /
-    "eval_batch" / "dump_batch": launches of one such call}."""
+def write_pipe_tree(root: Path) -> list:
+    """Phase 8's seeded OpenI-format tree under ``root`` (records_cache.json,
+    splits, PIPE_RECORDS records with 16-bit DICOM files): its records."""
     import numpy as np
 
-    from mmrp_tpu_torch.api import MMRPredictor, serving_forward
-    from mmrp_tpu_torch.config import Config
     from mmrp_tpu_torch.data.dicom import write_dicom
-    from mmrp_tpu_torch.data.tokenizer import WordPieceTokenizer
-    from mmrp_tpu_torch.kg import trainer as kg_trainer
     from mmrp_tpu_torch.labels import LABEL_COLS
-    from mmrp_tpu_torch.models.multimodal import MultiModalConfig, model_routes
-    from mmrp_tpu_torch.train import runner as trunner
-    from mmrp_tpu_torch.utils.checkpoint import CheckpointManager
 
-    calls = RunnerCalls(torch, "train a run directory")
-    reset, read = calls.reset, calls.read
-    per_call, first_step, kept, resumed = (calls.per_call, calls.first_step, calls.kept,
-                                           calls.resumed)
-
-    # -- the data tree ------------------------------------------------------
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED + 8)
-    root = Path(tmp) / "openi"
     (root / "dcm").mkdir(parents=True)
     (root / "splits").mkdir()
     records, split_ids = [], {}
@@ -848,6 +873,62 @@ def pipeline_phase(torch, dev, smi: str, tmp: str) -> dict:
         f"({', '.join(f'{k} {v}' for k, v in PIPE_RECORDS.items())}), reports of 40-700 "
         f"words, 16-bit DICOM {PIPE_DICOM_HW}^2 (cut from ~2048^2 for host decode), written "
         f"in {time.perf_counter() - t0:.1f} s")
+    return records
+
+
+def serve_train_records(torch, dev, out: Path, records, read):
+    """``MMRPredictor.from_run_dir`` on the run ``out``: a predict of its
+    first PIPE_SERVE train records (from their DICOM files, at PIPE_TEXT
+    tokens) -> (the predictor, the inputs, the outputs, the launches ``read``
+    gives after it (set to 0 before it by the caller), whether each record's
+    own gallery row is at rank 1)."""
+    import numpy as np
+
+    from mmrp_tpu_torch.api import MMRPredictor
+    from mmrp_tpu_torch.config import Config
+    from mmrp_tpu_torch.data.dataset import ChestXRDataset
+    from mmrp_tpu_torch.data.tokenizer import WordPieceTokenizer
+
+    pred = MMRPredictor.from_run_dir(str(out), device=dev)
+    tok = WordPieceTokenizer.from_vocab_file(str(out / "vocab.txt"))
+    train_ids = json.loads((out / "train_ids.json").read_text())[:PIPE_SERVE]
+    by_id = {r["id"]: r for r in records}
+    run_cfg = Config.load(str(out / "config.yaml"))
+    ds = ChestXRDataset([by_id[i] for i in train_ids], tok, max_length=PIPE_TEXT,
+                        image_size=run_cfg.image_size)
+    items = [ds[i] for i in range(len(train_ids))]
+    inputs = (np.stack([it["image"] for it in items]),
+              np.stack([it["input_ids"] for it in items]).astype(np.int64),
+              np.stack([it["attention_mask"] for it in items]).astype(np.int64))
+    got = pred.predict(*inputs, K=5, retrieve=False)
+    served = read()
+    ranks = [pred.retrieve(got["joint_emb"][b], K=1, rerank=False)[0][0] == rid
+             for b, rid in enumerate(train_ids)]
+    return pred, inputs, got, served, ranks
+
+
+def pipeline_phase(torch, dev, smi: str, tmp: str) -> dict:
+    """Phase 8 (module docstring): returns {"pipeline": total launches of the
+    two runs, "finetune_step" / "finetune_val_batch" / "joint_step" /
+    "eval_batch" / "dump_batch": launches of one such call}."""
+    import numpy as np
+
+    from mmrp_tpu_torch.api import serving_forward
+    from mmrp_tpu_torch.config import Config
+    from mmrp_tpu_torch.kg import trainer as kg_trainer
+    from mmrp_tpu_torch.labels import LABEL_COLS
+    from mmrp_tpu_torch.models.multimodal import MultiModalConfig, model_routes
+    from mmrp_tpu_torch.train import runner as trunner
+    from mmrp_tpu_torch.utils.checkpoint import CheckpointManager
+
+    calls = RunnerCalls(torch, "train a run directory")
+    reset, read = calls.reset, calls.read
+    per_call, first_step, kept, resumed = (calls.per_call, calls.first_step, calls.kept,
+                                           calls.resumed)
+
+    # -- the data tree ------------------------------------------------------
+    root = Path(tmp) / "openi"
+    records = write_pipe_tree(root)
 
     cfg = Config(batch_size=PIPE_B, text_dim=PIPE_TEXT, epochs=1, patience=10,
                  swin_finetune_epochs=1, kg_epochs=1, la_epochs=1, seed=SEED, data_workers=6,
@@ -931,23 +1012,8 @@ def pipeline_phase(torch, dev, smi: str, tmp: str) -> dict:
 
     # -- served back through from_run_dir -------------------------------------
     reset()
-    pred = MMRPredictor.from_run_dir(str(out), device=dev)
-    tok = WordPieceTokenizer.from_vocab_file(str(out / "vocab.txt"))
-    train_ids = json.loads((out / "train_ids.json").read_text())[:PIPE_SERVE]
-    by_id = {r["id"]: r for r in records}
-    from mmrp_tpu_torch.data.dataset import ChestXRDataset
-
-    run_cfg = Config.load(str(out / "config.yaml"))
-    ds = ChestXRDataset([by_id[i] for i in train_ids], tok, max_length=PIPE_TEXT,
-                        image_size=run_cfg.image_size)
-    items = [ds[i] for i in range(len(train_ids))]
-    image = np.stack([it["image"] for it in items])
-    ids_ = np.stack([it["input_ids"] for it in items]).astype(np.int64)
-    mask_ = np.stack([it["attention_mask"] for it in items]).astype(np.int64)
-    got = pred.predict(image, ids_, mask_, K=5, retrieve=False)
-    served = read()
-    ranks = [pred.retrieve(got["joint_emb"][b], K=1, rerank=False)[0][0] == rid
-             for b, rid in enumerate(train_ids)]
+    pred, (image, ids_, mask_), got, served, ranks = serve_train_records(
+        torch, dev, out, records, read)
     want = serving_forward(model)(torch.from_numpy(image).to(dev), torch.from_numpy(ids_).to(dev),
                                   torch.from_numpy(mask_).to(dev))
     same = np.array_equal(got["probs"], want["probs"].float().cpu().numpy())
@@ -1365,6 +1431,384 @@ def cli_phase(torch, dev, smi: str, tmp: str, gallery, gallery_ids, query_rows) 
     return {"cli": total}
 
 
+# phase 10, the pretrained bootstrap and the other towers: checkpoints in the
+# published layouts and dims (random weights from a seed; no transformers on
+# the card), the runner bootstrapped from them on phase 8's tree, and the
+# reference's backbone ablations and fusion variants at the flagship's widths.
+# Bio_ClinicalBERT's config (vocab, width, layers, heads, FFN, positions,
+# token types) and microsoft/swin-base-patch4-window7-224's / MedCLIP's
+# Swin-Tiny (embed, depths, heads; window 7)
+HF_BERT = dict(vocab=28_996, hidden=768, layers=12, heads=12, ffn=3072, positions=512, types=2)
+HF_SWIN_B = (128, (2, 2, 18, 2), (4, 8, 16, 32))
+HF_SWIN_T = (96, (2, 2, 6, 2), (3, 6, 12, 24))
+MEDCLIP_PROJ = 512
+# launches of one serving forward (batch 8, L512) of each flagship-width
+# model: the ClinicalBERT-dim text tower's 12 K3 and the fusion stack's 25
+# K3 and 5 K2 in each; MedCLIP's Swin-T as phase 4b's (K1 + K2 at stages 1-2,
+# 6 chain steps, 2 windows blocks); ViT, ResNet-50 and EfficientNet-B0 no
+# kernel (JAX computes them outside any Pallas kernel). With the shared FFN
+# the 5 fusion self-attentions and FFNs take their plain versions (JAX's XLA
+# branch), counted in plain_calls.
+_FUSION_ONLY = {**ZERO, "fused_ln_mlp": 5, "fused_attention": 37}
+EXPECTED_TOWER = {
+    "medclip": {**ZERO, "fused_window_attention": 4, "fused_ln_mlp": 9, "fused_attention": 37,
+                "fused_swin_block_chain": 6, "fused_swin_block_windows": 2},
+    "vit": _FUSION_ONLY, "resnet50": _FUSION_ONLY, "efficientnet": _FUSION_ONLY,
+    "shared_ffn": {**EXPECTED["whole"], "fused_ln_mlp": 2, "fused_attention": 32},
+    "cls_only": EXPECTED["whole"],
+}
+EXPECTED_TOWER_PLAIN = {"shared_ffn": {"fused_attention": 5, "fused_ln_mlp_residual": 5}}
+PRE_FIELDS = {"medclip": dict(image_backbone="medclip"), "vit": dict(image_backbone="vit"),
+              "resnet50": dict(image_backbone="resnet50"),
+              "efficientnet": dict(image_backbone="efficientnet"),
+              "shared_ffn": dict(use_shared_ffn=True), "cls_only": dict(use_cls_only=True)}
+
+
+def hf_bert_state(torch, gen) -> dict:
+    """A ``BertForPreTraining`` state dict at HF_BERT's dims: ``bert.`` keys
+    and the pretraining head's ``cls.`` keys, seeded: weights N(0, 0.02^2),
+    LayerNorm weights 1 + N(0, 0.02^2), biases N(0, 0.02^2)."""
+    d = HF_BERT
+    H, F_ = d["hidden"], d["ffn"]
+    sd = {}
+
+    def rnd(*shape, mean=0.0):
+        return torch.randn(shape, generator=gen) * 0.02 + mean
+
+    def lin(name, i, o):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = rnd(o, i), rnd(o)
+
+    def ln(name, n):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = rnd(n, mean=1.0), rnd(n)
+
+    sd["bert.embeddings.word_embeddings.weight"] = rnd(d["vocab"], H)
+    sd["bert.embeddings.position_embeddings.weight"] = rnd(d["positions"], H)
+    sd["bert.embeddings.token_type_embeddings.weight"] = rnd(d["types"], H)
+    ln("bert.embeddings.LayerNorm", H)
+    for i in range(d["layers"]):
+        p = f"bert.encoder.layer.{i}"
+        for n in ("query", "key", "value"):
+            lin(f"{p}.attention.self.{n}", H, H)
+        lin(f"{p}.attention.output.dense", H, H)
+        ln(f"{p}.attention.output.LayerNorm", H)
+        lin(f"{p}.intermediate.dense", H, F_)
+        lin(f"{p}.output.dense", F_, H)
+        ln(f"{p}.output.LayerNorm", H)
+    lin("bert.pooler.dense", H, H)
+    lin("cls.predictions.transform.dense", H, H)
+    ln("cls.predictions.transform.LayerNorm", H)
+    sd["cls.predictions.bias"] = rnd(d["vocab"])
+    # tied to the word embeddings and the head's bias, as HF saves them
+    sd["cls.predictions.decoder.weight"] = sd["bert.embeddings.word_embeddings.weight"]
+    sd["cls.predictions.decoder.bias"] = sd["cls.predictions.bias"]
+    lin("cls.seq_relationship", H, 2)
+    return sd
+
+
+def hf_swin_state(torch, gen, layout, window: int = 7) -> dict:
+    """A ``SwinModel`` state dict of ``layout`` (embed, depths, heads),
+    seeded as :func:`hf_bert_state`, with HF's int64
+    ``relative_position_index`` buffers."""
+    embed, depths, heads = layout
+    sd = {}
+
+    def rnd(*shape, mean=0.0):
+        return torch.randn(shape, generator=gen) * 0.02 + mean
+
+    def lin(name, i, o, bias=True):
+        sd[f"{name}.weight"] = rnd(o, i)
+        if bias:
+            sd[f"{name}.bias"] = rnd(o)
+
+    def ln(name, n):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = rnd(n, mean=1.0), rnd(n)
+
+    sd["embeddings.patch_embeddings.projection.weight"] = rnd(embed, 3, 4, 4)
+    sd["embeddings.patch_embeddings.projection.bias"] = rnd(embed)
+    ln("embeddings.norm", embed)
+    coords = torch.stack(torch.meshgrid(torch.arange(window), torch.arange(window),
+                                        indexing="ij")).flatten(1)
+    rel = (coords[:, :, None] - coords[:, None, :]).permute(1, 2, 0) + window - 1
+    index = rel[..., 0] * (2 * window - 1) + rel[..., 1]
+    for s, (depth, h) in enumerate(zip(depths, heads)):
+        C = embed * 2 ** s
+        for b in range(depth):
+            p = f"encoder.layers.{s}.blocks.{b}"
+            ln(f"{p}.layernorm_before", C)
+            sd[f"{p}.attention.self.relative_position_bias_table"] = rnd((2 * window - 1) ** 2, h)
+            sd[f"{p}.attention.self.relative_position_index"] = index.clone()
+            for n in ("query", "key", "value"):
+                lin(f"{p}.attention.self.{n}", C, C)
+            lin(f"{p}.attention.output.dense", C, C)
+            ln(f"{p}.layernorm_after", C)
+            lin(f"{p}.intermediate.dense", C, 4 * C)
+            lin(f"{p}.output.dense", 4 * C, C)
+        if s < len(depths) - 1:
+            lin(f"encoder.layers.{s}.downsample.reduction", 4 * C, 2 * C, bias=False)
+            ln(f"encoder.layers.{s}.downsample.norm", 4 * C)
+    ln("layernorm", embed * 2 ** (len(depths) - 1))
+    return sd
+
+
+def write_safetensors(path: Path, tensors: dict) -> None:
+    """``tensors`` (CPU, f32 or int64) as a ``.safetensors`` file: an 8-byte
+    little-endian header length, the JSON header, the raw buffers."""
+    names = {"torch.float32": "F32", "torch.int64": "I64"}
+    header, blobs, offset = {"__metadata__": {"format": "pt"}}, [], 0
+    for name, t in tensors.items():
+        raw = t.contiguous().numpy().tobytes()
+        header[name] = {"dtype": names[str(t.dtype)], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+
+
+def pretrained_phase(torch, dev, smi: str, root: Path) -> dict:
+    """Phase 10 (module docstring) on phase 8's tree under ``root``: returns
+    the launches of each path it drives ("bootstrap": both stages and the
+    dumps of the run; "bootstrap_serve": the served predict; one serving
+    forward of each of PRE_FIELDS)."""
+    import numpy as np
+
+    from mmrp_tpu_torch.api import serving_forward
+    from mmrp_tpu_torch.config import Config
+    from mmrp_tpu_torch.labels import LABEL_COLS
+    from mmrp_tpu_torch.models import port
+    from mmrp_tpu_torch.models.medclip import MedCLIPVisionEncoder
+    from mmrp_tpu_torch.models.multimodal import (
+        MultiModalConfig,
+        MultiModalRetrievalModel,
+        plain_routes,
+    )
+    from mmrp_tpu_torch.models.swin import SwinConfig, SwinEncoder
+    from mmrp_tpu_torch.models.text_encoder import TextConfig, TextEncoder
+    from mmrp_tpu_torch.train import runner as trunner
+    from mmrp_tpu_torch.utils.convert import flax_to_state_dict, init_params
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    launches = {}
+    records = json.loads((root / "records_cache.json").read_text())["records"]
+
+    # -- a. the checkpoints and the vocabulary -----------------------------------
+    t0 = time.perf_counter()
+    ck = root / "pretrained"
+    ck.mkdir()
+    gen = torch.Generator().manual_seed(SEED + 10)
+    bert_sd = hf_bert_state(torch, gen)
+    torch.save(bert_sd, ck / "pytorch_model.bin")
+    swin_sd = hf_swin_state(torch, gen, HF_SWIN_B)
+    write_safetensors(ck / "model.safetensors", swin_sd)
+    medclip_sd = {f"vision_model.model.{k}": v
+                  for k, v in hf_swin_state(torch, gen, HF_SWIN_T).items()}
+    t_width = HF_SWIN_T[0] * 2 ** (len(HF_SWIN_T[1]) - 1)  # Swin-T's 768
+    medclip_sd["vision_model.projection_head.weight"] = \
+        torch.randn(MEDCLIP_PROJ, t_width, generator=gen) * 0.02
+    words = sorted(set(PIPE_WORDS) | {"."})
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words
+    vocab += [f"tok{i}" for i in range(HF_BERT["vocab"] - len(vocab))]
+    (ck / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    mib = {p.name: round(p.stat().st_size / 2 ** 20, 1) for p in sorted(ck.iterdir())}
+    log(f"pretrained checkpoints: BertForPreTraining at Bio_ClinicalBERT's dims {HF_BERT} "
+        f"(torch.save), SwinModel at swin-base-patch4-window7-224's layout {HF_SWIN_B} "
+        f"(safetensors), MedCLIP's vision dict (Swin-T {HF_SWIN_T} + projection "
+        f"{MEDCLIP_PROJ} x {t_width}), a vocab.txt of {len(vocab)} lines; MiB {mib}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -- b. what the converters read -----------------------------------------------
+    t0 = time.perf_counter()
+    bert_np = port.load_pretrained_state(ck / "pytorch_model.bin")
+    swin_np = port.load_pretrained_state(ck)  # the directory: its model.safetensors
+    if swin_np.keys() != swin_sd.keys() or not all(
+            np.array_equal(swin_np[k], v.numpy()) and swin_np[k].dtype == v.numpy().dtype
+            for k, v in swin_sd.items()):
+        fail("pretrained: the safetensors reader does not return the tensors written")
+    text_cfg = port.text_config_from_state(bert_np)
+    want_text = TextConfig(vocab_size=HF_BERT["vocab"], hidden_dim=HF_BERT["hidden"],
+                           num_layers=HF_BERT["layers"], num_heads=HF_BERT["heads"],
+                           intermediate_dim=HF_BERT["ffn"], max_positions=HF_BERT["positions"],
+                           type_vocab_size=HF_BERT["types"])
+    layout = port.swin_layout_from_state(swin_np)
+    log(f"text_config_from_state: {text_cfg}; swin_layout_from_state: {layout}")
+    if text_cfg != want_text or layout != HF_SWIN_B[1:]:
+        fail("pretrained: the checkpoints' dims are not read back")
+    trees = {"text": port.convert_hf_bert(bert_np, text_cfg.num_layers),
+             "swin": port.convert_hf_swin(swin_np, layout[0]),
+             "medclip": port.convert_medclip_vit(medclip_sd, HF_SWIN_T[1])}
+    towers = {"text": TextEncoder(text_cfg, bf16, dev),
+              "swin": SwinEncoder(SwinConfig.base(), bf16, dev),
+              "medclip": MedCLIPVisionEncoder(SwinConfig.tiny(), MEDCLIP_PROJ, bf16, dev)}
+    for name, tower in towers.items():
+        state = flax_to_state_dict(trees[name])
+        tower.load_state_dict(state, strict=True)
+        params = dict(tower.named_parameters())
+        same = all(torch.equal(params[k], v.to(dev, params[k].dtype)) for k, v in state.items())
+        log(f"{name} tower on the card: {len(state)} tensors "
+            f"({sum(v.numel() for v in state.values()) / 1e6:.1f} M values) equal to the "
+            f"converter's at the model's dtypes, bit for bit: {same}")
+        if not same:
+            fail(f"pretrained: the converted {name} tower is not the converter's tensors")
+    bert_warm = flax_to_state_dict(trees["text"])
+    swin_warm = flax_to_state_dict(trees["swin"])
+    del towers, trees, bert_np, swin_np, medclip_sd
+    log(f"converters and loads: {time.perf_counter() - t0:.1f} s")
+
+    # -- c. the bootstrap ------------------------------------------------------------
+    cfg = Config(batch_size=PIPE_B, text_dim=PIPE_TEXT, epochs=1, patience=10,
+                 swin_finetune_epochs=1, kg_epochs=1, la_epochs=1, seed=SEED, data_workers=6,
+                 train_use_pallas_attention=True, use_pallas_attention=True, augment=False,
+                 pretrained_vocab=str(ck / "vocab.txt"),
+                 pretrained_bert=str(ck / "pytorch_model.bin"), pretrained_swin=str(ck))
+    calls = RunnerCalls(torch, "pretrained bootstrap")
+    out = root / "pretrained_run"
+    started = {}
+
+    def equal_on(params, prefix, warm):
+        return all(torch.equal(params[prefix + k].cpu(), v) for k, v in warm.items())
+
+    def ft_check(model, params):  # the finetune starts from the converted Swin
+        started["finetune"] = equal_on(params, "swin.", swin_warm)
+
+    def joint_check(model, state):  # the joint towers: ported BERT, finetuned Swin
+        ft = flax_to_state_dict(dict(np.load(out / "swin" / "swin_backbone.npz")))
+        started["joint_text"] = equal_on(state.params, "backbones.text.", bert_warm)
+        started["joint_swin"] = equal_on(state.params, "backbones.swin.", ft)
+        started["joint_swin_moved"] = sum(
+            not torch.equal(state.params["backbones.swin." + k].cpu(), v)
+            for k, v in swin_warm.items())
+
+    calls.first_step.update(finetune=ft_check, check=joint_check)
+    with calls:
+        torch.cuda.reset_peak_memory_stats()
+        calls.reset()
+        t0 = time.perf_counter()
+        summary = trunner.run_training_pipeline(cfg, str(root), str(out), flagship=True,
+                                                device=dev)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        total = calls.read()
+        calls.kept.clear()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    calls.check(total, text_layers=HF_BERT["layers"])
+    launches["bootstrap"] = total
+    log(f"bootstrap: the finetune started from the converted Swin: {started.get('finetune')}; "
+        f"the joint text tower from the converted BERT: {started.get('joint_text')}, its Swin "
+        f"from the finetuned weights: {started.get('joint_swin')} "
+        f"({started.get('joint_swin_moved')} of its {len(swin_warm)} tensors moved from the "
+        "raw checkpoint by the finetune)")
+    if not all(started.get(k) for k in ("finetune", "joint_text", "joint_swin")):
+        fail(f"bootstrap: a tower did not start from its converted weights: {started}")
+    mc = json.loads((out / "model_config.json").read_text())
+    if {k: mc["text"][k] for k in ("vocab_size", "hidden_dim", "num_layers", "num_heads",
+                                   "intermediate_dim", "max_positions", "type_vocab_size")} \
+            != {k: getattr(want_text, k) for k in ("vocab_size", "hidden_dim", "num_layers",
+                                                   "num_heads", "intermediate_dim",
+                                                   "max_positions", "type_vocab_size")}:
+        fail(f"bootstrap: model_config.json text {mc['text']} is not the checkpoint's")
+    comp = summary.get("joint", {}).get("composite")
+    if comp is None or not np.isfinite(comp):
+        fail(f"bootstrap: joint.composite {comp}")
+    calls.reset()
+    pred, _, got, served, ranks = serve_train_records(torch, dev, out, records, calls.read)
+    launches["bootstrap_serve"] = served
+    if served != {**{k: 0 for k in calls.counters}, **pipe_expected(HF_BERT["layers"])[2]}:
+        fail(f"bootstrap: the served predict launched {served}")
+    if not all(ranks) or not np.isfinite(got["probs"]).all():
+        fail(f"bootstrap: from_run_dir: a train record missed its own row ({ranks})")
+    del pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    med = calls.median_ms
+    log(f"bootstrap run (flagship, batch {PIPE_B}, L{PIPE_TEXT}, one epoch per stage): "
+        f"{run_s:.1f} s; by stage { {k: round(v, 1) for k, v in calls.stage_s.items()} }; "
+        f"finetune step median {med('finetune_step'):.1f} ms over "
+        f"{len(calls.per_call['finetune_step'])}, joint step median {med('joint_step'):.1f} ms "
+        f"over {len(calls.per_call['joint_step'])}; peak device memory {peak:.2f} GiB [{smi}]")
+    log(f"bootstrap launches: the run {total}, the served predict {served}; plain_calls 0; "
+        f"served: {sum(ranks)} of {len(ranks)} train records at rank 1 of their own gallery row")
+
+    # -- d., e. the other towers and the fusion variants at the flagship's widths -----------
+    rng = np.random.default_rng(SEED + 10)
+    size = Config().image_size
+    images = rng.random((B, size, size, 3), dtype=np.float32)
+    ids = rng.integers(0, HF_BERT["vocab"], (B, PIPE_TEXT)).astype(np.int64)
+    lengths = np.concatenate([[PIPE_TEXT], rng.integers(4, PIPE_TEXT, B - 1)])
+    mask = (np.arange(PIPE_TEXT)[None, :] < lengths[:, None]).astype(np.int64)
+    cpu_in = tuple(torch.from_numpy(a) for a in (images, ids, mask))
+    card_in = tuple(t.to(dev) for t in cpu_in)
+
+    def cosine(a, b):
+        return (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+
+    def distance(got, want):
+        return (1.0 - float(cosine(got["joint_emb"].float().cpu().numpy(),
+                                   want["joint_emb"].numpy()).min()),
+                float((got["probs"].float().cpu() - want["probs"].float()).abs().max()))
+
+    rows = {}
+    for name, fields in PRE_FIELDS.items():
+        t0 = time.perf_counter()
+        mcfg = MultiModalConfig.from_config(Config(**fields), num_classes=len(LABEL_COLS),
+                                            flagship=True)
+        model = MultiModalRetrievalModel(mcfg, dtype=bf16, device=dev).eval()
+        init_params(model, seed=SEED)
+        fwd = serving_forward(model)
+        calls.reset()
+        got = fwd(*card_in)
+        torch.cuda.synchronize()
+        counts = {k: getattr(fn, attr) for k, (fn, attr) in calls.counters.items()}
+        plain = {fn.__name__: fn.plain_calls for fn in calls.plain if fn.plain_calls}
+        launches[name] = counts
+        want_counts = {k: EXPECTED_TOWER[name].get(k, 0) for k in counts}
+        want_plain = EXPECTED_TOWER_PLAIN.get(name, {})
+        sites = plain_routes(mcfg)
+        if counts != want_counts or plain != want_plain:
+            fail(f"{name}: launches {counts} plain calls {plain}, expected {want_counts} "
+                 f"{want_plain}")
+        if sorted(sites) != (["fusion.ffn", "fusion.self_attention"] if want_plain else []):
+            fail(f"{name}: plain call sites {sites}")
+        ms = cuda_ms(torch, lambda: fwd(*card_in), reps=5, warmup=1)
+        ref = MultiModalRetrievalModel(mcfg, dtype=f32, device="cpu").eval()
+        ref.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+        want = serving_forward(ref)(*cpu_in)
+        dcos, dprobs = distance(got, want)
+        gate = (1.0 - EMB_COS_MIN, PROBS_MAX_DIFF)
+        rule = "the flagship's gate"
+        if (dcos > gate[0] or dprobs > gate[1]) and name in ("vit", "resnet50", "efficientnet"):
+            # the conv and ViT towers in bf16: no further from f32 than twice
+            # the all-plain bf16 forward is (the attention maps' rule)
+            ref16 = MultiModalRetrievalModel(mcfg, dtype=bf16, device="cpu").eval()
+            ref16.load_state_dict(model.state_dict())
+            d16 = distance(serving_forward(ref16)(*cpu_in), want)
+            gate = (max(gate[0], 2 * d16[0]), max(gate[1], 2 * d16[1]))
+            rule = (f"twice the all-plain bf16 forward's distance (1 - cos {d16[0]:.3e}, "
+                    f"|dprobs| {d16[1]:.3e})")
+            del ref16
+        rows[name] = dict(one_minus_cos=dcos, dprobs=dprobs, ms=ms, pairs_s=B / ms * 1e3,
+                          launches={k: v for k, v in counts.items() if v},
+                          plain_calls=plain, plain_routes=sites)
+        log(f"{name} (flagship widths, {mcfg.vision_backbone}, shared FFN "
+            f"{mcfg.use_shared_ffn}, cls only {mcfg.use_cls_only}; batch {B}, L{PIPE_TEXT}): "
+            f"vs the f32 plain path (CPU): joint_emb cosine min {1 - dcos:.6f}, max |dprobs| "
+            f"{dprobs:.3e} (gate: {rule}, 1 - cos <= {gate[0]:.3e}, |dprobs| <= "
+            f"{gate[1]:.3e}); forward {ms:.2f} ms, {B / ms * 1e3:.1f} pairs/s; launches "
+            f"{rows[name]['launches']}; plain_calls {plain}; plain_routes {sites}; "
+            f"{time.perf_counter() - t0:.1f} s [{smi}]")
+        if dcos > gate[0] or dprobs > gate[1]:
+            fail(f"{name}: the kernel route strays from the f32 plain path")
+        del model, ref, fwd, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 10 towers and variants: {json.dumps(rows)}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1475,6 +1919,13 @@ def main() -> int:
             cli_phase(torch, dev, smi, tmp, rows, ids_, list(range(100_000, 100_000 + B)))
         phase_done("the Quick start through the cli")
         log("chip_smoke: --cli-only ran phases 1, 2 and 9 alone; no result line")
+        return 0
+    if sys.argv[1:] == ["--pretrained-only"]:  # phases 1, 2 and 10 alone, no result line
+        with tempfile.TemporaryDirectory() as tmp:
+            write_pipe_tree(Path(tmp) / "openi")
+            pretrained_phase(torch, dev, smi, Path(tmp) / "openi")
+        phase_done("pretrained bootstrap and the other towers")
+        log("chip_smoke: --pretrained-only ran phases 1, 2 and 10 alone; no result line")
         return 0
 
     # -- 3. kernels against their plain versions -------------------------------
@@ -2921,16 +3372,21 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 8. train a run directory (pipeline_phase) -------------------------------
-    with tempfile.TemporaryDirectory() as tmp:
-        launches.update(pipeline_phase(torch, dev, smi, tmp))
-    phase_done("train a run directory")
+    with tempfile.TemporaryDirectory() as tmp8:
+        launches.update(pipeline_phase(torch, dev, smi, tmp8))
+        shutil.rmtree(Path(tmp8) / "openi" / "train")  # phase 10 keeps only the tree
+        phase_done("train a run directory")
 
-    # -- 9. the Quick start through the cli (cli_phase) ----------------------------
-    with tempfile.TemporaryDirectory() as tmp:
-        launches.update(cli_phase(torch, dev, smi, tmp, run_gallery, run_ids,
-                                  list(range(len(run_gallery) - B, len(run_gallery)))))
-    del run_gallery
-    phase_done("the Quick start through the cli")
+        # -- 9. the Quick start through the cli (cli_phase) ----------------------------
+        with tempfile.TemporaryDirectory() as tmp:
+            launches.update(cli_phase(torch, dev, smi, tmp, run_gallery, run_ids,
+                                      list(range(len(run_gallery) - B, len(run_gallery)))))
+        del run_gallery
+        phase_done("the Quick start through the cli")
+
+        # -- 10. the pretrained bootstrap and the other towers (phase 8's tree) --------
+        launches.update(pretrained_phase(torch, dev, smi, Path(tmp8) / "openi"))
+        phase_done("pretrained bootstrap and the other towers")
 
     # -- records ----------------------------------------------------------------
     # launches, and ms / plain_ms / bound_ms: counted or summed over the calls

@@ -31,7 +31,9 @@ class Config:
     data_workers: int = 4  # host decode threads + prefetch
     # the model (MultiModalConfig.from_config)
     num_fusion_layers: int = 5
-    image_backbone: str = "swin"  # swin | swin_small | swin_tiny | swin_micro | medclip (a Swin-Tiny)
+    # swin | swin_small | swin_tiny | swin_micro | medclip (a Swin-Tiny) | vit | resnet50 |
+    # efficientnet
+    image_backbone: str = "swin"
     modality: str = "multimodal"  # multimodal | image | text
     joint_dim: int = 1024
     num_heads: int = 8
@@ -88,7 +90,9 @@ class Config:
     swin_finetune_epochs: int = 12
     swin_finetune_lr: float = 1e-4
     run_label_attention: bool = True
-    # pretrained bootstrap: not ported, the runner raises (ROADMAP item 9)
+    # pretrained bootstrap (train/runner.py, models/port.py): a BERT vocab.txt,
+    # required with pretrained_bert; HF BERT / Swin checkpoints as local files
+    # or directories (.bin / .pt / .pth / .safetensors)
     pretrained_vocab: str = ""
     pretrained_bert: str = ""
     pretrained_swin: str = ""

@@ -14,6 +14,8 @@ parameters stay f32. Training keeps f32 master copies outside the model
 
 from __future__ import annotations
 
+from typing import Dict
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -176,6 +178,8 @@ class Mlp(nn.Module):
         self.Dense_0 = nn.Linear(dim, hidden, dtype=dtype, device=device)
         self.Dense_1 = nn.Linear(hidden, out_dim or dim, dtype=dtype, device=device)
 
+    weights = MlpParams.weights
+
     def forward(self, x: torch.Tensor, generator: torch.Generator = None) -> torch.Tensor:
         x = gelu(self.Dense_0(x))
         if generator is not None:
@@ -238,3 +242,70 @@ class SelfAttentionBlock(nn.Module):
                 generator: torch.Generator = None) -> torch.Tensor:
         y = self.LayerNorm_0(x)
         return x + self.MultiHeadDotProductAttention_0(y, y, mask, generator)
+
+
+def same_pads(size: int, kernel: int, stride: int):
+    """(before, after) padding of Flax / XLA ``padding="SAME"`` along one axis:
+    the output has ceil(size / stride) positions and an odd total pad puts the
+    extra element after (at 224 px a 3x3/2 conv pads (0, 1), a 7x7/2 (2, 3),
+    where torch's ``padding=k // 2`` would pad both sides alike)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def pad_same(x: torch.Tensor, kernel: int, stride: int, value: float = 0.0) -> torch.Tensor:
+    """``x`` (B, C, H, W) padded as Flax's ``SAME`` for a ``kernel`` x
+    ``kernel`` window at ``stride`` (``value``: -inf for a max-pool)."""
+    top, bottom = same_pads(x.shape[2], kernel, stride)
+    left, right = same_pads(x.shape[3], kernel, stride)
+    if top == bottom == left == right == 0:
+        return x
+    return F.pad(x, (left, right, top, bottom), value=value)
+
+
+class Conv(nn.Conv2d):
+    """Flax ``nn.Conv`` on NCHW tensors: a square kernel, ``SAME`` padding
+    (:func:`pad_same`), optional groups (depthwise) and bias. The weight is
+    torch's (out, in / groups, kh, kw), the Flax kernel (kh, kw, in / groups,
+    out) transposed by ``utils/convert.py``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 groups: int = 1, bias: bool = False, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__(in_ch, out_ch, kernel, stride=stride, groups=groups, bias=bias,
+                         dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(pad_same(x, self.kernel_size[0], self.stride[0]))
+
+
+def max_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """Flax ``nn.max_pool(..., padding="SAME")`` on NCHW: pads with -inf."""
+    return F.max_pool2d(pad_same(x, window, stride, float("-inf")), window, stride)
+
+
+class GroupNorm(nn.Module):
+    """Flax ``nn.GroupNorm`` (eps 1e-6, not torch's 1e-5) on NCHW tensors:
+    statistics and affine in f32, output cast to ``dtype``; ``weight`` /
+    ``bias`` are Flax's ``scale`` / ``bias``."""
+
+    def __init__(self, num_groups: int, dim: int, dtype: torch.dtype = torch.float32,
+                 device=None, eps: float = 1e-6):
+        super().__init__()
+        self.num_groups = num_groups
+        self.weight = nn.Parameter(torch.ones(dim, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=torch.float32, device=device))
+        self.dtype = dtype
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+        return y.to(self.dtype)
+
+
+def nchw_to_tokens(y: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """A conv tower's (B, C, H, W) output -> dict(patches (B, H*W, C) in
+    row-major order, global: their mean)."""
+    patches = y.flatten(2).transpose(1, 2)
+    return {"patches": patches, "global": patches.float().mean(dim=1).to(patches.dtype)}

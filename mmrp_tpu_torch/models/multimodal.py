@@ -1,4 +1,4 @@
-"""MultiModalRetrievalModel — Swin + BERT towers, fusion stack, 43-label head.
+"""MultiModalRetrievalModel — vision + BERT towers, fusion stack, 43-label head.
 
 Counterpart of ``mmrp_tpu/models/multimodal.py`` on its serving route:
 per-modality projections into the joint space, ``num_fusion_layers`` fusion
@@ -7,6 +7,15 @@ LN + FFN + residual (K2) -> bottleneck adapter -> LN, pooled into the joint
 embedding), then the MLP classifier with f32 logits. Modes: multimodal,
 image and text (the missing modality is a learned null token). As in the
 JAX model, each fusion layer re-attends the same backbone features.
+
+The vision tower is ``vision_backbone``'s, under JAX's submodule name:
+``swin`` (``models/swin.py``), ``medclip`` (Swin-Tiny + a 512-wide
+projection), ``vit`` (``ViTConfig.small`` at the image size), ``resnet``
+(ResNet-50) or ``efficientnet`` (B0); the last three run outside any kernel,
+as in JAX. ``use_shared_ffn`` gives every fusion layer one shared MLP
+(``shared_ffn``) and sends its self-attention and FFN to the plain versions,
+where JAX takes its XLA branch (``multimodal.py:233-239, 327-328``);
+``use_cls_only`` pools each layer's first token instead of the mean.
 
 The explain hooks of the JAX model (``multimodal.py:367-509``):
 ``return_attention`` (each fusion layer's cross-attention weights, its fusion
@@ -61,6 +70,7 @@ from mmrp_tpu_torch.models.layers import (
     DropPath,
     LayerNorm,
     MhaParams,
+    Mlp,
     MlpParams,
     dropout,
     gelu,
@@ -68,6 +78,9 @@ from mmrp_tpu_torch.models.layers import (
     remat,
     sinusoidal_positions,
 )
+from mmrp_tpu_torch.models.efficientnet import EfficientNetConfig, EfficientNetEncoder
+from mmrp_tpu_torch.models.medclip import MedCLIPVisionEncoder
+from mmrp_tpu_torch.models.resnet import ResNetConfig, ResNetEncoder
 from mmrp_tpu_torch.models.swin import SwinConfig, SwinEncoder, plan_names, train_plan
 from mmrp_tpu_torch.models.text_encoder import (
     TextConfig,
@@ -76,9 +89,12 @@ from mmrp_tpu_torch.models.text_encoder import (
     qlinear_multi,
 )
 from mmrp_tpu_torch.models.text_encoder import attention_route as text_attention_route
+from mmrp_tpu_torch.models.vit import ViTConfig, ViTEncoder
 from mmrp_tpu_torch.ops import _build
 from mmrp_tpu_torch.ops import fused_mlp as K2
 from mmrp_tpu_torch.ops.fused_mlp import fused_ln_mlp_residual, ln_mlp_plain
+
+MEDCLIP_DIM = 512  # MedCLIP's projection width
 
 
 @dataclass(frozen=True)
@@ -91,8 +107,8 @@ class MultiModalConfig:
     num_heads: int = 8
     num_classes: int = 43
     mode: str = "multimodal"  # multimodal | image | text
-    use_shared_ffn: bool = False  # not ported: raises
-    use_cls_only: bool = False  # not ported: raises
+    use_shared_ffn: bool = False  # one MLP shared by the fusion layers (plain routes)
+    use_cls_only: bool = False  # each fusion layer pools its first token
     dropout: float = 0.1  # training only
     drop_path: float = 0.1  # training only: fusion layer i gets drop_path * i / (L - 1)
     max_text_len: int = 512
@@ -167,19 +183,53 @@ class MultiModalConfig:
             quant="int8" if sq != "none" else "none", remat_backbone=bool(cfg.remat_backbone))
 
 
+def vision_tower(config: MultiModalConfig):
+    """The vision tower's config: the ``SwinConfig`` for swin and medclip (its
+    Swin-Tiny), ``ViTConfig.small`` at the image size, ``ResNetConfig.resnet50``
+    or ``EfficientNetConfig.b0``, as JAX's ``Backbones`` builds them."""
+    vb = config.vision_backbone
+    if vb in ("resnet50", "resnet"):
+        return ResNetConfig.resnet50()
+    if vb == "efficientnet":
+        return EfficientNetConfig.b0()
+    if vb == "vit":
+        return ViTConfig.small(img_size=config.swin.img_size)
+    return config.swin
+
+
+def vision_dims(config: MultiModalConfig):
+    """(patches, features) of the vision tower's output at the image size."""
+    tower, size = vision_tower(config), config.swin.img_size
+    if config.vision_backbone == "medclip":
+        return tower.num_patches, MEDCLIP_DIM
+    if isinstance(tower, (ResNetConfig, EfficientNetConfig)):
+        return tower.num_patches(size), tower.num_features
+    return tower.num_patches, tower.num_features
+
+
+def _swin_tower(config: MultiModalConfig) -> bool:
+    return config.mode != "text" and config.vision_backbone in ("swin", "medclip")
+
+
 def fusion_routes(config: MultiModalConfig) -> Dict[str, str]:
     """The routes of one fusion layer (every layer has the same shapes): its
     four fusion attentions, the self-attention over [cls, patches, text] and
-    the FFN."""
+    the FFN. With ``use_shared_ffn`` the self-attention and the FFN are
+    "plain" (JAX's XLA branch), the FFN also at ``quant="int8"``, where JAX
+    runs the shared MLP unquantized."""
     D, h, q = config.joint_dim, config.num_heads, config.quant == "int8"
-    Np = 1 if config.mode == "text" else config.swin.num_patches
+    Np = 1 if config.mode == "text" else vision_dims(config)[0]
     Lt = config.max_text_len
-    ffn = "int8" if q else ("kernel" if K2.kernel_takes(D, 4 * D) else "plain")
+    shared = config.use_shared_ffn
+    ffn = ("plain" if shared else "int8" if q else
+           "kernel" if K2.kernel_takes(D, 4 * D) else "plain")
+    self_attn = ("int8" if q else "plain" if shared else
+                 attention_route(D, h, Np + 2, Np + 2, q))
     return {"txt_enh": attention_route(D, h, Lt, Lt, q),
             "img_enh": attention_route(D, h, Np, Np, q),
             "txt2img": attention_route(D, h, Lt, Np, q),
             "img2txt": attention_route(D, h, Np, Lt, q),
-            "self_attention": attention_route(D, h, Np + 2, Np + 2, q), "ffn": ffn}
+            "self_attention": self_attn, "ffn": ffn}
 
 
 def model_routes(config: MultiModalConfig, train: bool = False) -> Dict[str, str]:
@@ -189,14 +239,16 @@ def model_routes(config: MultiModalConfig, train: bool = False) -> Dict[str, str
     ``train``, those of the training route, where every tower takes its JAX
     XLA branch and no serving kernel runs: the Swin attention core of each
     stage with more than one window, ``swin.stage{s}.core`` ("kernel" or
-    "plain", ``models/swin.py::train_plan``)."""
+    "plain", ``models/swin.py::train_plan``). The Swin sites are those of the
+    swin and medclip towers; the ViT, ResNet and EfficientNet towers are no
+    kernel call site (JAX computes them outside any Pallas kernel)."""
     if train:
-        if config.mode == "text":
+        if not _swin_tower(config):
             return {}
         return {f"swin.stage{s}.core": route
                 for s, route in enumerate(train_plan(config.swin)) if route}
     routes = {}
-    if config.mode != "text":
+    if _swin_tower(config):
         for s, names in enumerate(plan_names(config.swin)):
             routes.update({f"swin.stage{s}.step{i}": n for i, n in enumerate(names)})
     if config.mode != "image":
@@ -211,28 +263,43 @@ def plain_routes(config: MultiModalConfig, train: bool = False) -> list:
 
 
 class Backbones(nn.Module):
-    """Vision + text encoders; the unimodal modes build only their tower."""
+    """Vision + text encoders; the unimodal modes build only their tower. The
+    vision tower is a submodule named as in JAX (:func:`vision_tower`)."""
 
     def __init__(self, config: MultiModalConfig, dtype=torch.float32, device=DEFAULT_DEVICE):
         super().__init__()
         device = resolve_device(device, "Backbones")
         self.config = config
+        self.vision_name = None
         if config.mode != "text":
-            if config.vision_backbone != "swin":
-                raise NotImplementedError(
-                    f"vision backbone {config.vision_backbone!r} is not ported yet "
-                    "(ROADMAP.md Queue 1 item 9); the port runs 'swin'")
-            self.swin = SwinEncoder(config.swin, dtype, device)
-            self.swin.remat = config.remat_backbone
+            vb, tower = config.vision_backbone, vision_tower(config)
+            if vb in ("resnet50", "resnet"):
+                self.resnet = ResNetEncoder(tower, dtype, device)
+            elif vb == "efficientnet":
+                self.efficientnet = EfficientNetEncoder(tower, dtype, device)
+            elif vb == "vit":
+                self.vit = ViTEncoder(tower, dtype, device)
+            elif vb == "medclip":
+                self.medclip = MedCLIPVisionEncoder(tower, MEDCLIP_DIM, dtype, device)
+                self.medclip.swin.remat = config.remat_backbone
+            else:
+                self.swin = SwinEncoder(tower, dtype, device)
+                self.swin.remat = config.remat_backbone
+            self.vision_name = next(iter(self._modules))
         if config.mode != "image":
             self.text = TextEncoder(config.text, dtype, device)
             self.text.remat = config.remat_backbone
+
+    @property
+    def vision(self) -> Optional[nn.Module]:
+        """The vision tower (None in the text mode)."""
+        return self._modules[self.vision_name] if self.vision_name else None
 
     def forward(self, image, input_ids, attention_mask, deterministic: bool = True,
                 generator: torch.Generator = None) -> Dict[str, torch.Tensor]:
         out = {}
         if self.config.mode != "text":
-            vis = self.swin(image, deterministic, generator)
+            vis = self.vision(image, deterministic, generator)
             out.update(img_patches=vis["patches"], img_global=vis["global"])
         if self.config.mode != "image":
             txt = self.text(input_ids, attention_mask, deterministic, generator)
@@ -243,10 +310,12 @@ class Backbones(nn.Module):
 class FusionLayer(nn.Module):
     """Cross-modal fusion -> pos + LN + self-attention + residual (K3) ->
     LN + FFN + residual (K2) -> adapter -> LN; returns the mean over the
-    sequence. At ``quant="int8"`` the JAX XLA branch with W8A8 GEMMs."""
+    sequence (``use_cls_only``: its first token). At ``quant="int8"`` the JAX
+    XLA branch with W8A8 GEMMs. ``shared_ffn`` (the model's, not a submodule
+    of the layer) replaces the layer's own FFN."""
 
     def __init__(self, config: MultiModalConfig, num_patches: int, dtype=torch.float32,
-                 device=None, drop_path: float = 0.0):
+                 device=None, drop_path: float = 0.0, shared_ffn: Optional[Mlp] = None):
         super().__init__()
         if config.quant not in ("none", "int8"):
             raise ValueError(f"MultiModalConfig.quant must be none or int8, got {config.quant!r}")
@@ -263,15 +332,20 @@ class FusionLayer(nn.Module):
         self.LayerNorm_0 = LayerNorm(D, dtype, device)
         self.attention = MhaParams(D, dtype, device)
         self.LayerNorm_1 = LayerNorm(D, dtype, device)
-        self.ffn = MlpParams(4 * D, D, dtype, device)
+        self.cls_only = config.use_cls_only
+        # the model owns the shared FFN: kept out of this layer's submodules
+        object.__setattr__(self, "shared_ffn", shared_ffn)
+        if shared_ffn is None:
+            self.ffn = MlpParams(4 * D, D, dtype, device)
         self.adapter_down = nn.Linear(D, D // 4, dtype=dtype, device=device)
         self.adapter_up = nn.Linear(D // 4, D, dtype=dtype, device=device)
         self.LayerNorm_2 = LayerNorm(D, dtype, device)
         # sequence = [cls, patches, pooled text]
         sin = torch.from_numpy(sinusoidal_positions(num_patches + 2, D))
         self.register_buffer("sin_pos", sin.to(device=device, dtype=dtype), persistent=False)
-        if self.quant:
-            attach_int8_all((*self.attention.linears(), self.ffn.Dense_0, self.ffn.Dense_1))
+        if self.quant:  # JAX runs a shared FFN unquantized
+            attach_int8_all(self.attention.linears() if shared_ffn is not None else
+                            (*self.attention.linears(), self.ffn.Dense_0, self.ffn.Dense_1))
 
     def forward(self, img_patches, img_global, txt_tokens, txt_mask,
                 return_attention: bool = False):
@@ -289,11 +363,16 @@ class FusionLayer(nn.Module):
                             self.LayerNorm_0.bias, *self.attention.weights(),
                             pos=self.sin_pos[:L], num_heads=self.num_heads, ln_mode="pre",
                             include_residual=True)
+        return self._adapter_pool(self._ffn(seq))
+
+    def _ffn(self, seq: torch.Tensor) -> torch.Tensor:
+        """LN + FFN + residual on the FFN's route (K2, or its plain version)."""
+        B, L, D = seq.shape
+        mlp = self.shared_ffn if self.shared_ffn is not None else self.ffn
         args = (seq.reshape(B * L, D), self.LayerNorm_1.weight, self.LayerNorm_1.bias,
-                *self.ffn.weights())
-        seq = (fused_ln_mlp_residual(*args) if self.ffn_route == "kernel" else
-               _build.run_plain(fused_ln_mlp_residual, ln_mlp_plain, *args)).reshape(B, L, D)
-        return self._adapter_pool(seq)
+                *mlp.weights())
+        return (fused_ln_mlp_residual(*args) if self.ffn_route == "kernel" else
+                _build.run_plain(fused_ln_mlp_residual, ln_mlp_plain, *args)).reshape(B, L, D)
 
     def forward_train(self, img_patches, img_global, txt_tokens, txt_mask,
                       generator: torch.Generator) -> torch.Tensor:
@@ -316,6 +395,11 @@ class FusionLayer(nn.Module):
         q, k, v = lins(y, (a.query, a.key, a.value))
         ctx = mha_train(q, k, v, self.num_heads, None, rate, generator)
         seq = seq + branch(lins(ctx, (a.out,))[0])
+        if self.shared_ffn is not None:
+            if generator is None:  # deterministic: its plain route, counted
+                return self._adapter_pool(self._ffn(seq))
+            y = ln_f32(seq, self.LayerNorm_1.weight, self.LayerNorm_1.bias, seq.dtype)
+            return self._adapter_pool(seq + branch(self.shared_ffn(y, generator)))
         y = ln_f32(seq, self.LayerNorm_1.weight, self.LayerNorm_1.bias, seq.dtype)
         y = dropout(gelu(lins(y, (self.ffn.Dense_0,))[0]), rate, generator)
         y = dropout(lins(y, (self.ffn.Dense_1,))[0], rate, generator)
@@ -324,6 +408,8 @@ class FusionLayer(nn.Module):
     def _adapter_pool(self, seq: torch.Tensor) -> torch.Tensor:
         a = self.adapter_up(gelu(self.adapter_down(seq)))
         seq = self.LayerNorm_2(seq + a)
+        if self.cls_only:
+            return seq[:, 0, :]
         return seq.float().mean(dim=1).to(seq.dtype)
 
 
@@ -341,17 +427,14 @@ class MultiModalRetrievalModel(nn.Module):
         device = resolve_device(device, "MultiModalRetrievalModel")
         if config.mode not in ("multimodal", "image", "text"):
             raise ValueError(f"invalid mode {config.mode!r}")
-        if config.use_shared_ffn or config.use_cls_only:
-            raise NotImplementedError(
-                "use_shared_ffn and use_cls_only are not ported (ROADMAP.md Queue 1 item 9)")
         self.config = config
         self.routes = model_routes(config)
         self.dtype = dtype
         D = config.joint_dim
         kw = dict(dtype=dtype, device=device)
         self.backbones = Backbones(config, dtype, device)
+        Np, F_img = vision_dims(config)
         if config.mode != "text":
-            F_img = config.swin.num_features
             self.img_proj = nn.Linear(F_img, D, **kw)
             self.img_global_proj = nn.Linear(F_img, D, **kw)
         if config.mode != "image":
@@ -363,11 +446,15 @@ class MultiModalRetrievalModel(nn.Module):
         if config.mode == "text":
             self.null_img = nn.Parameter(torch.zeros(1, 1, D, **kw))
         self.joint_init = nn.Linear(2 * D, D, **kw)
-        num_patches = 1 if config.mode == "text" else config.swin.num_patches
+        shared = None
+        if config.use_shared_ffn:
+            self.shared_ffn = shared = Mlp(D, 4 * D, rate=config.dropout, dtype=dtype,
+                                           device=device)
+        num_patches = 1 if config.mode == "text" else Np
         for i in range(config.num_fusion_layers):
             dp = config.drop_path * i / max(config.num_fusion_layers - 1, 1)
             self.add_module(f"fusion_layer{i}",
-                            FusionLayer(config, num_patches, dtype, device, dp))
+                            FusionLayer(config, num_patches, dtype, device, dp, shared))
             self.add_module(f"joint_norm{i}", LayerNorm(D, dtype, device))
         self.cls_hidden = nn.Linear(D, 4 * D, **kw)
         self.cls_out = nn.Linear(4 * D, config.num_classes, dtype=torch.float32,

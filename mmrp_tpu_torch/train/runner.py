@@ -10,7 +10,9 @@ order, each stage skipped when its artifact already exists:
   stage 2: KG build + KGE training  -> <out>/kg/
            + LabelAttention pooling -> <out>/label_attention.npz
   stage 3: joint model              -> <out>/joint/ (vision tower warm-started
-           from stage 1; ``cfg.resume`` continues from its last full state)
+           from stage 1 and/or ``cfg.pretrained_swin``, text tower from
+           ``cfg.pretrained_bert``; ``cfg.resume`` continues from its last
+           full state)
   stage 4: embedding dumps + label-overlap GT + retrieval eval
            (``pipeline_summary.json``)
 
@@ -27,9 +29,15 @@ in the optimizers; in f32 on the CPU, where each kernel wrapper runs its plain
 version. The train-time model takes ``use_pallas_attention =
 cfg.train_use_pallas_attention`` as JAX's does: the validation and dump
 forwards run the Swin routes that gives (``model_routes``), while
-``config.yaml`` keeps the serving setting. The pretrained bootstrap
-(``cfg.pretrained_bert`` / ``cfg.pretrained_swin``) waits for ROADMAP.md
-Queue 1 item 9 and raises.
+``config.yaml`` keeps the serving setting.
+
+The pretrained bootstrap, as JAX's: ``cfg.pretrained_vocab`` (the
+checkpoint's own ``vocab.txt``, copied into the run), ``cfg.pretrained_bert``
+(an HF BERT checkpoint: the text tower is built at its dims, written to
+``model_config.json``, and starts from its weights) and ``cfg.pretrained_swin``
+(an HF Swin checkpoint of the configured variant: the Swin finetune starts
+from it, and the joint Swin tower from the finetuned weights, else from it).
+Each names a local file or directory (``models/port.py``); nothing is fetched.
 """
 
 from __future__ import annotations
@@ -52,9 +60,69 @@ def _model_dtype(device: torch.device) -> torch.dtype:
     return torch.bfloat16 if device.type == "cuda" else torch.float32
 
 
+def _load_pretrained_backbones(cfg: Config, mm_swin_cfg, tok):
+    """``cfg.pretrained_bert`` / ``cfg.pretrained_swin`` -> (the TextConfig of
+    the BERT checkpoint, its converted tree, the converted Swin tree), each
+    None where not configured, with JAX's checks: the vocab file must be the
+    checkpoint's, the Swin layout the configured variant's."""
+    from mmrp_tpu_torch.models import port
+
+    text_override, bert_params, swin_params = None, None, None
+    if cfg.pretrained_bert:
+        sd = port.load_pretrained_state(cfg.pretrained_bert)
+        text_override = port.text_config_from_state(sd)
+        if text_override.vocab_size != len(tok.vocab):
+            raise ValueError(
+                f"pretrained_vocab has {len(tok.vocab)} tokens but the BERT "
+                f"embedding table has {text_override.vocab_size} rows — the "
+                "vocab file must be the checkpoint's own vocab.txt")
+        bert_params = port.convert_hf_bert(sd, text_override.num_layers)
+    if cfg.pretrained_swin:
+        sd = port.load_pretrained_state(cfg.pretrained_swin)
+        depths, heads = port.swin_layout_from_state(sd)
+        if tuple(depths) != tuple(mm_swin_cfg.depths):
+            raise ValueError(
+                f"pretrained_swin depths {depths} != configured "
+                f"image_backbone depths {tuple(mm_swin_cfg.depths)} — set "
+                "image_backbone to the checkpoint's variant")
+        if tuple(heads) != tuple(mm_swin_cfg.num_heads):
+            raise ValueError(
+                f"pretrained_swin heads {heads} != configured "
+                f"image_backbone heads {tuple(mm_swin_cfg.num_heads)} — "
+                "same depths but a different variant (e.g. Swin-S vs -B)")
+        swin_params = port.convert_hf_swin(sd, depths)
+    return text_override, bert_params, swin_params
+
+
+def _warm_start(subtrees):
+    """fn(masters) copying each {tower: Flax tree} onto the masters named
+    ``backbones.<tower>.*``: each tree must cover its tower, leaf for leaf
+    and shape for shape (JAX's tree_map over the two), else it raises."""
+    from mmrp_tpu_torch.utils.convert import flax_to_state_dict
+
+    warm = {f"backbones.{tower}.{k}": v for tower, tree in subtrees.items()
+            for k, v in flax_to_state_dict(tree).items()}
+    prefixes = tuple(f"backbones.{tower}." for tower in subtrees)
+
+    def warm_start(params):
+        missing = [k for k in params if k.startswith(prefixes) and k not in warm]
+        if missing:
+            raise ValueError(f"warm start: the pretrained weights lack {missing[:3]} "
+                             f"({len(missing)} parameters)")
+        with torch.no_grad():
+            for k, v in warm.items():
+                have = tuple(params[k].shape) if k in params else "no such parameter"
+                if have != tuple(v.shape):
+                    raise ValueError(f"warm start: {k} {tuple(v.shape)} does not fit the "
+                                     f"model ({have})")
+                params[k].copy_(v)
+    return warm_start
+
+
 def _run_swin_finetune_stage(cfg: Config, out: Path, split_recs, mm_cfg, tok, writer,
-                             device: torch.device):
-    """Stage 1: label-aware Swin finetune on a balanced subset; cached as a
+                             device: torch.device, pretrained_swin_params=None):
+    """Stage 1: label-aware Swin finetune on a balanced subset, from
+    ``pretrained_swin_params`` (a Flax tree) where given; cached as a
     Flax-named npz of the backbone + metrics JSON. Returns the backbone's
     flat Flax tree (f32 masters)."""
     from mmrp_tpu_torch.utils.checkpoint import load_param_tree, save_param_tree
@@ -96,7 +164,8 @@ def _run_swin_finetune_stage(cfg: Config, out: Path, split_recs, mm_cfg, tok, wr
                             device=device)
     res = finetune(model, ft_cfg, train_batches=lambda: iter(train_loader),
                    val_batches=lambda: iter(val_loader), base_pos_weight=pw,
-                   metric_writer=writer, class_names=LABEL_COLS)
+                   metric_writer=writer, class_names=LABEL_COLS,
+                   init_backbone=pretrained_swin_params)
     swin_params = {k[len("swin."):]: v for k, v in res["params"].items()
                    if k.startswith("swin.")}
     swin_flat = state_dict_to_flax_flat(model.swin, swin_params)
@@ -164,14 +233,10 @@ def run_training_pipeline(
     from mmrp_tpu_torch.retrieval.gallery import RetrievalEngine
     from mmrp_tpu_torch.train.pipeline import dump_embeddings, run_joint_training
     from mmrp_tpu_torch.utils.checkpoint import save_param_tree
-    from mmrp_tpu_torch.utils.convert import flax_to_state_dict, state_dict_to_flax_flat
+    from mmrp_tpu_torch.utils.convert import state_dict_to_flax_flat
     from mmrp_tpu_torch.utils.logging import MetricWriter
 
     dev = resolve_device(device, "run_training_pipeline")
-    if cfg.pretrained_bert or cfg.pretrained_swin:
-        raise NotImplementedError(
-            "pretrained_bert / pretrained_swin: the pretrained bootstrap (models/port.py) is "
-            "not ported (ROADMAP.md Queue 1 item 9)")
     data = Path(data_dir)
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
@@ -208,12 +273,15 @@ def run_training_pipeline(
     train_cfg = dataclasses.replace(cfg, use_pallas_attention=cfg.train_use_pallas_attention)
     mm_cfg0 = MultiModalConfig.from_config(train_cfg, num_classes=len(LABEL_COLS),
                                            flagship=flagship)
+    # ---- pretrained bootstrap --------------------------------------------------
+    text_override, bert_params, swin_pre_params = _load_pretrained_backbones(
+        cfg, mm_cfg0.swin, tok)
 
     # ---- stage 1: Swin finetune ----------------------------------------------
     swin_ft_params = None
     if cfg.run_swin_finetune and mm_cfg0.vision_backbone == "swin":
         swin_ft_params = _run_swin_finetune_stage(cfg, out, split_recs, mm_cfg0, tok, writer,
-                                                  dev)
+                                                  dev, swin_pre_params)
 
     # ---- stage 2: KG (before joint so alignment targets exist) -------------
     kg_dir = out / "kg"
@@ -252,7 +320,7 @@ def run_training_pipeline(
 
     # ---- stage 3: joint model -----------------------------------------------
     mm_cfg = MultiModalConfig.from_config(train_cfg, num_classes=len(LABEL_COLS),
-                                          flagship=flagship)
+                                          flagship=flagship, text_override=text_override)
     model = MultiModalRetrievalModel(mm_cfg, dtype=_model_dtype(dev), device=dev)
     # the resolved model shape, which serving rebuilds from, as JAX writes it:
     # its text tower's kernel switches at the values its from_config leaves
@@ -265,14 +333,15 @@ def run_training_pipeline(
                  "use_fused_ffn": False, "use_fused_attention": True},
     }, indent=1))
 
-    warm_start = None
-    if swin_ft_params is not None and mm_cfg.vision_backbone == "swin":
-        warm = {f"backbones.swin.{k}": v for k, v in flax_to_state_dict(swin_ft_params).items()}
-
-        def warm_start(params):
-            with torch.no_grad():
-                for k, v in warm.items():
-                    params[k].copy_(v)
+    # the joint towers start from the finetuned Swin (before the raw
+    # checkpoint) and the ported BERT, never from random init where given
+    warm_subtrees = {}
+    vision_warm = swin_ft_params if swin_ft_params is not None else swin_pre_params
+    if vision_warm is not None and mm_cfg.vision_backbone == "swin":
+        warm_subtrees["swin"] = vision_warm
+    if bert_params is not None:
+        warm_subtrees["text"] = bert_params
+    warm_start = _warm_start(warm_subtrees) if warm_subtrees else None
 
     class KGDataset(ChestXRDataset):
         def __getitem__(self, idx):

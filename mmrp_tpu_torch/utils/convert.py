@@ -10,18 +10,22 @@ in both packages; leaves change as follows:
 - Dense ``kernel`` (in, out) -> nn.Linear ``weight`` (out, in), which covers
   the ``MhaParams`` query/key/value/out kernels and the Swin ``qkv`` (C, 3C)
   kernel, whose [q | k | v] columns become rows;
-- the PatchEmbed conv ``kernel`` (kh, kw, in, out) -> ``weight``
-  (out, kh*kw*in), flattened in the (kh, kw, in) order of the space-to-depth
-  patches;
+- the Swin PatchEmbed conv ``kernel`` (kh, kw, in, out), under ``proj`` ->
+  ``weight`` (out, kh*kw*in), flattened in the (kh, kw, in) order of the
+  space-to-depth patches;
+- every other conv ``kernel`` (kh, kw, in / groups, out) -> nn.Conv2d
+  ``weight`` (out, in / groups, kh, kw), the depthwise convs (in / groups 1)
+  included (the ViT, ResNet and EfficientNet towers);
 - the Flax ``nn.MultiHeadDotProductAttention`` DenseGeneral kernels:
   ``query`` / ``key`` / ``value`` (in, h, d) -> ``weight`` (h * d, in),
   ``out`` (h, d, out) -> ``weight`` (out, h * d), and their (h, d) biases
   flattened (the finetune head, ``models/finetune_head.py``);
-- LayerNorm ``scale`` -> ``weight``; ``nn.Embed`` ``embedding`` -> ``weight``;
-- ``bias``, ``rel_bias_table``, ``pos_embed``, ``alpha`` and the null tokens
-  keep name and layout, and so does the train state's top-level ``kg_proj``
-  (joint_dim, kg_dim), which is no model parameter: :func:`load_flax_params`
-  returns it for the train state (``train/state.py``).
+- LayerNorm and GroupNorm ``scale`` -> ``weight``; ``nn.Embed`` ``embedding``
+  -> ``weight``;
+- ``bias``, ``rel_bias_table``, ``pos_embed``, ``cls_token``, ``alpha`` and
+  the null tokens keep name and layout, and so does the train state's
+  top-level ``kg_proj`` (joint_dim, kg_dim), which is no model parameter:
+  :func:`load_flax_params` returns it for the train state (``train/state.py``).
 
 Int8 weight caches (``ops/quant.py``): the JAX package quantizes the f32
 parameters for its static Swin cache and its ``quant_dot`` GEMMs, so after a
@@ -49,7 +53,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from mmrp_tpu_torch.models.layers import LayerNorm, MultiHeadDotProductAttention
+from mmrp_tpu_torch.models.layers import GroupNorm, LayerNorm, MultiHeadDotProductAttention
 from mmrp_tpu_torch.models.quant_calib import build_quant_cache
 from mmrp_tpu_torch.models.swin import PatchEmbed, WindowAttention
 
@@ -71,7 +75,9 @@ def _convert_leaf(leaf: str, arr: np.ndarray, parent: str = ""):
     if leaf == "bias" and arr.ndim == 2:  # a DenseGeneral's (h, d)
         return leaf, arr.reshape(-1)
     if leaf == "kernel":
-        if arr.ndim == 4:  # (kh, kw, in, out) conv kernel of PatchEmbed
+        if arr.ndim == 4 and parent != "proj":  # conv (kh, kw, in/g, out)
+            return "weight", arr.transpose(3, 2, 0, 1)
+        if arr.ndim == 4:  # (kh, kw, in, out) conv kernel of the Swin PatchEmbed
             arr = arr.reshape(-1, arr.shape[-1])
         elif arr.ndim == 3:  # DenseGeneral: out (h, d, D), query/key/value (D, h, d)
             arr = (arr.reshape(-1, arr.shape[-1]) if parent == "out" else
@@ -128,8 +134,10 @@ def state_dict_to_flax_flat(model: nn.Module,
     flat with ``/``-joined keys (the keys ``save_param_tree`` writes for the
     model's tree), f32:
     nn.Linear ``weight`` -> ``kernel`` (in, out), PatchEmbed's as the conv
-    kernel (kh, kw, in, out), LayerNorm ``weight`` -> ``scale``, nn.Embedding
-    ``weight`` -> ``embedding``; every other leaf keeps name and layout.
+    kernel (kh, kw, in, out), nn.Conv2d ``weight`` -> the conv ``kernel``
+    (kh, kw, in / groups, out), LayerNorm and GroupNorm ``weight`` ->
+    ``scale``, nn.Embedding ``weight`` -> ``embedding``; every other leaf
+    keeps name and layout.
     :func:`flax_to_state_dict` maps it back exactly."""
     patch = {f"{path}.proj": m.patch_size for path, m in model.named_modules()
              if isinstance(m, PatchEmbed)}
@@ -152,13 +160,17 @@ def state_dict_to_flax_flat(model: nn.Module,
                     arr = arr.reshape(h, -1, arr.shape[-1])
                 elif h:
                     arr = arr.reshape(arr.shape[0], h, -1)
+            elif isinstance(module, nn.Conv2d) and name == "weight":
+                name, arr = "kernel", arr.transpose(2, 3, 1, 0)
             elif h and name == "bias" and not path.endswith(".out"):
                 arr = arr.reshape(h, -1)
-            elif isinstance(module, LayerNorm) and name == "weight":
+            elif isinstance(module, (LayerNorm, GroupNorm)) and name == "weight":
                 name = "scale"
             elif isinstance(module, nn.Embedding) and name == "weight":
                 name = "embedding"
-            flat["/".join(path.split(".") + [name])] = np.array(arr, order="C")
+            # a parameter of the root module itself (a null token, the ViT's
+            # cls token) has no path
+            flat["/".join((path.split(".") if path else []) + [name])] = np.array(arr, order="C")
     return flat
 
 
@@ -178,11 +190,12 @@ def init_params(model: nn.Module, seed: int = 0) -> None:
     every parameter nonzero (Flax starts biases, LN offsets and ``alpha`` at
     zero, which would hide whole branches from a check):
 
-    - nn.Linear weights lecun-normal (std 1/sqrt(fan_in)), biases N(0, 0.02^2);
-    - LayerNorm weights 1 + N(0, 0.02^2), biases N(0, 0.02^2);
+    - nn.Linear and nn.Conv2d weights lecun-normal (std 1/sqrt(fan_in), a
+      conv's fan_in in / groups * kh * kw), biases N(0, 0.02^2);
+    - LayerNorm and GroupNorm weights 1 + N(0, 0.02^2), biases N(0, 0.02^2);
     - ``alpha`` U(0.25, 0.75);
     - everything else (embeddings, positional tables, relative-position
-      tables, null tokens) N(0, 0.02^2).
+      tables, null and cls tokens) N(0, 0.02^2).
 
     The window biases and the int8 weight caches are rebuilt from the new
     weights.
@@ -198,7 +211,9 @@ def init_params(model: nn.Module, seed: int = 0) -> None:
         for name, p in module.named_parameters(recurse=False):
             if isinstance(module, nn.Linear) and name == "weight":
                 normal(p, module.in_features ** -0.5)
-            elif isinstance(module, LayerNorm) and name == "weight":
+            elif isinstance(module, nn.Conv2d) and name == "weight":
+                normal(p, p[0].numel() ** -0.5)
+            elif isinstance(module, (LayerNorm, GroupNorm)) and name == "weight":
                 normal(p, 0.02, mean=1.0)
             elif name == "alpha":
                 p.copy_(torch.rand(p.shape, generator=gen, device=device) * 0.5 + 0.25)

@@ -46,7 +46,8 @@ CASES = [
     ("text_override", dict(image_backbone="swin_tiny", text_dim=256,
                            serve_quant="int8_static"), False, TEXT_OVERRIDE),
 ]
-# MedCLIP's vision tower is Swin-Tiny (its wrapper's parameters are not ported)
+# MedCLIP's vision tower is Swin-Tiny (the whole model's parameters:
+# tests/test_torch_backbones.py)
 MEDCLIP = ("medclip", dict(image_backbone="medclip", use_pallas_attention=False), False, None)
 
 
@@ -134,8 +135,10 @@ def test_config_load_coerces_and_warns(tmp_path, capsys):
 def test_fields_not_ported_raise():
     """remat_backbone is carried, served (tests/test_torch_serve.py) and
     trained: make_train_step steps a remat model (its gradients equal the
-    plain step's bit for bit: tests/test_torch_pipeline.py); the fields whose
-    behaviour is not ported raise."""
+    plain step's bit for bit: tests/test_torch_pipeline.py). The fields that
+    raised until the other towers and the fusion variants were ported
+    (use_shared_ffn, use_cls_only, the resnet50 and medclip backbones) build
+    the model (tests/test_torch_backbones.py holds them to JAX's)."""
     from mmrp_tpu_torch.train.joint import init_train_state, make_train_step
 
     cfg = Config(remat_backbone=True, joint_dim=32, num_heads=2, num_fusion_layers=1,
@@ -158,8 +161,13 @@ def test_fields_not_ported_raise():
     for fields in (dict(use_shared_ffn=True), dict(use_cls_only=True),
                    dict(image_backbone="resnet50"), dict(image_backbone="medclip")):
         cfg = MultiModalConfig.from_config(Config(joint_dim=64, num_heads=4, **fields))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            MultiModalRetrievalModel(cfg, device="meta")
+        model = MultiModalRetrievalModel(cfg, device="meta")
+        keys = model.state_dict().keys()
+        assert ("shared_ffn.Dense_0.weight" in keys) == cfg.use_shared_ffn
+        assert model.fusion_layer0.cls_only == cfg.use_cls_only
+        tower = {"resnet50": "resnet", "medclip": "medclip"}.get(cfg.vision_backbone, "swin")
+        assert model.backbones.vision_name == tower
+        assert any(k.startswith(f"backbones.{tower}.") for k in keys)
     assert MultiModalConfig.from_config(Config(image_backbone="resnet50")).vision_backbone \
         == "resnet50"
 

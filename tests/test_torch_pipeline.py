@@ -750,7 +750,8 @@ def test_run_training_pipeline_writes_the_jax_run_directory(tree, port_run, jax_
         assert getattr(jcfg, f.name) == getattr(cfg, f.name), f.name
     assert json.loads((out / "model_config.json").read_text()).keys() == \
         json.loads((jout / "model_config.json").read_text()).keys()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    # a checkpoint name that is no local path: nothing is fetched
+    with pytest.raises(FileNotFoundError, match="fetches nothing"):
         trunner.run_training_pipeline(Config(pretrained_swin="x"), str(tree),
                                       str(tmp_path / "no"), device="cpu")
 
