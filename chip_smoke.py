@@ -147,8 +147,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    64`` (one block per Swin block, no launch), ``parity --explain-n 2`` (every
    section; every embed on the default route's launches), ``stream`` (its
    batches' launches), ``eval-cls``, ``eval-ret --variants --run-dir``,
-   ``kg-probe`` and ``mapper`` (exit 0, their artifacts), ``export-serving``
-   and ``bench`` (exit 2); each subcommand's seconds. Then DLS
+   ``kg-probe`` and ``mapper`` (exit 0, their artifacts), ``export-serving
+   --batches 1,8`` (``python -m mmrp_tpu_torch.cli`` in a process of its own:
+   exit 0, JAX's JSON keys) and ``bench`` (exit 2); each subcommand's seconds. Then DLS
    (``make_retrieval_engine("dls")``) over phase 4c's 100,008 x 1024 gallery
    at the engine's default link threshold and as a 10-NN graph: the build
    seconds, the links of the first 1,024 rows and of the 8 request rows
@@ -191,6 +192,33 @@ Phases, each of which fails the run (nonzero exit, no result line):
    conv or ViT tower that misses it is held to twice the distance of its
    all-plain bf16 forward). ``python3 chip_smoke.py --pretrained-only`` runs
    phases 1, 2 and 10 alone (on a tree of its own) and prints no result line.
+11. the serving artifact and explain over the int8 mixes (run after 4d, on
+   4c's run directory and phase 4's requests at L512): (a) the run exported
+   for cuda (``serve/exported.py``) at buckets 1, 8 and 32, seconds per
+   bucket and bytes; the artifact loaded in a fresh process (load seconds,
+   ``memory_allocated``, no ``mmrp_tpu_torch.models`` module imported) and
+   called at n = 1, 3, 8, 9, 32 and 40 (4c's 8 requests cycled): per row the
+   bf16 gate against the f32 plain path, the largest difference from the live
+   ``serving_forward`` on the same rows padded to the same buckets, the
+   launches per call those of a live predict with no plain call, and the
+   CUDA-event time per call at batch 8 and 32 beside the live forward's; (b)
+   the same at bucket 8 for ``int8_static`` (4b's calibration: its launches,
+   cosine > 0.995 against the f32 unquantized plain path); (d)
+   ``predict(explain=True)`` at batch 1, L512, 5 targets, 50 IG steps over
+   ``serve_quant="int8"`` and ``"int8_static"`` (launches, host clock), the
+   maps of 3 targets, token IG and pixel IG against the same mix in f32 on
+   the CPU (``compare_maps``: Pearson >= 0.99 and IoU@20% >= 0.8, or no more
+   than twice as far as the farthest map of its kind of the plain versions
+   in bf16 on the card; the attention maps for information), pixel IG over
+   ``int8_static`` raising;
+   then the W8A8 gradient routes of K3 (BERT at L512), the dynamic windows
+   (Swin-B stages 2-4) and raw (stage 3) blocks at batch 8: the int8
+   forward within 2^-4 of its plain version, every input gradient bit-equal
+   to the unquantized plain route's, one launch each; and the host time of
+   one K3 call through ``torch.ops.mmrp`` and directly. (c) is phase 9's
+   ``export-serving``. ``python3 chip_smoke.py --export-only`` runs phases 1,
+   2 and 11 alone (its inputs made as phases 4-4c make them) and prints no
+   result line.
 Each phase prints its seconds. The last two lines are the kernels' JSON record
 and the result line {"ok": true, "device": {...}}.
 """
@@ -327,6 +355,33 @@ PATH_OF.update({name: "int8_static_per_row" for name in (
 PATH_OF.update({"fused_swin_block_windows_dynamic": "swin_int8", "fused_swin_block_raw": None,
                 "fused_swin_block_raw_dynamic": None, "wattn_core_fwd": "train",
                 "wattn_core_bwd": "train", "window_attention_heads": None})
+# kernel -> (wrapper module of mmrp_tpu_torch.ops, the wrapper, the wrapper's
+# count of that kernel's launches)
+COUNTERS = {
+    "fused_window_attention": ("fused_window_attention", "fused_window_attention_windows",
+                               "launches"),
+    "fused_ln_mlp": ("fused_mlp", "fused_ln_mlp_residual", "launches"),
+    "fused_attention": ("fused_attention", "fused_attention", "launches"),
+    "fused_attention_int8": ("fused_attention", "fused_attention", "launches_int8"),
+    **{f"fused_swin_block_{flavor}{suffix}": (
+        "fused_swin_block" if flavor in ("windows", "raw") else "fused_swin_pair",
+        f"fused_swin_block_{flavor}", "launches" + suffix)
+       for flavor, suffixes in (("windows", ("", "_static", "_per_row", "_dynamic")),
+                                ("raw", ("", "_dynamic")), ("chain", ("", "_static", "_per_row")),
+                                ("pair", ("", "_static", "_per_row")))
+       for suffix in suffixes},
+}
+assert set(COUNTERS) == set(SERVING)
+
+
+def serving_counters() -> dict:
+    """kernel -> (its wrapper, the name of the wrapper's count of its launches)."""
+    import importlib
+
+    return {name: (getattr(importlib.import_module(f"mmrp_tpu_torch.ops.{mod}"), fn), attr)
+            for name, (mod, fn, attr) in COUNTERS.items()}
+
+
 SOURCES = {  # kernel -> (CUDA source, the pallas_call of the TPU kernel it replaces)
     "fused_window_attention": ("mmrp_tpu_torch/csrc/window_attention.cu",
                                "mmrp_tpu/ops/fused_window_attention.py:152"),
@@ -1375,8 +1430,23 @@ def cli_phase(torch, dev, smi: str, tmp: str, gallery, gallery_ids, query_rows) 
          *(root / "onto" / f"{c}_label2ontology.json"
            for c in ("disease", "finding", "symptom", "normal")))
     total = calls.read()
-    run("export-serving", ["export-serving", "--run-dir", str(run_dir),
-                           "--out-path", str(root / "artifact.npz")], rc=2)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mmrp_tpu_torch.cli", "export-serving",
+                           "--run-dir", str(run_dir), "--data", str(data), "--out-path",
+                           str(root / "artifact.npz"), "--batches", "1,8"], cwd=str(REPO),
+                          capture_output=True, text=True, timeout=600)
+    seconds["export-serving"] = round(time.perf_counter() - t0, 2)
+    if proc.returncode != 0:
+        fail(f"cli export-serving: exit status {proc.returncode}:\n{proc.stderr[-3000:]}")
+    printed = json.loads(proc.stdout)
+    want_keys = {"artifact", "label_names", "threshold", "image_size", "text_len",
+                 "batch_sizes", "platforms", "outputs"}
+    log(f"cli export-serving --batches 1,8: {seconds['export-serving']} s, printed "
+        f"{sorted(printed)}, batch_sizes {printed.get('batch_sizes')}, platforms "
+        f"{printed.get('platforms')}, artifact {(root / 'artifact.npz').stat().st_size} bytes")
+    if set(printed) != want_keys or printed["batch_sizes"] != [1, 8] \
+            or printed["platforms"] != ["cuda"]:
+        fail(f"cli export-serving: printed {sorted(printed)}, expected JAX's {sorted(want_keys)}")
     run("bench", ["bench"], rc=2)
     log(f"cli: seconds per subcommand {seconds} [{smi}]")
     log(f"cli: launches of the cli path {total}")
@@ -1809,6 +1879,562 @@ def pretrained_phase(torch, dev, smi: str, root: Path) -> dict:
     return launches
 
 
+# phase 11, the serving artifact and explain over the int8 mixes: the
+# flagship run of phase 4c exported for cuda at EXPORT_BUCKETS, loaded in a
+# fresh process and called at EXPORT_NS rows (cycled over the 8 requests of
+# phase 4 at L512, so that each output row has its f32 plain-path row); the
+# int8_static mix (phase 4b's calibration) at bucket 8; then
+# predict(explain=True) over the int8 mixes and the W8A8 gradient routes
+EXPORT_BUCKETS = (1, 8, 32)
+EXPORT_NS = (1, 3, 8, 9, 32, 40)
+EXPORT_TIMED = (8, 32)
+INT8_EXPORT_BUCKET = 8
+INT8_EXPLAIN_MIXES = ("int8", "int8_static")
+EXPLAIN_INT8_TARGETS = 3  # targets compared with the CPU (each costs a CPU probe forward)
+
+EXPORT_LOAD = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import importlib
+import numpy as np
+import torch
+from mmrp_tpu_torch.serve.exported import ExportedPredictor
+
+spec = json.loads(sys.argv[1])
+wrappers = {name: (getattr(importlib.import_module("mmrp_tpu_torch.ops." + m), fn), attr)
+            for name, (m, fn, attr) in spec["counters"].items()}
+
+
+def counts():
+    got = {name: getattr(fn, attr) for name, (fn, attr) in wrappers.items()}
+    got["plain_calls"] = sum(fn.plain_calls for fn, _ in wrappers.values())
+    return got
+
+
+def reset():
+    for fn, attr in wrappers.values():
+        setattr(fn, attr, 0)
+        fn.plain_calls = 0
+
+
+req = np.load(spec["requests"])
+report = {"import_s": time.perf_counter() - t0}
+out = {}
+for label, art in spec["artifacts"].items():
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    pred = ExportedPredictor.load(art["path"], platform="cuda")
+    torch.cuda.synchronize()
+    rep = {"load_s": time.perf_counter() - t1,
+           "memory_allocated": torch.cuda.memory_allocated() - base,
+           "launches": {}, "ms": {}, "call_s": {}}
+    for n in art["ns"]:
+        rows = req["rows_%d" % n]
+        reset()
+        t1 = time.perf_counter()
+        got = pred.call(req["images"][rows], req["ids"][rows], req["mask"][rows])
+        rep["call_s"][n] = time.perf_counter() - t1
+        rep["launches"][n] = counts()
+        for k, v in got.items():
+            out["%s/%d/%s" % (label, n, k)] = v
+    for b in art["timed"]:
+        rows = req["rows_%d" % b]
+        x = [torch.from_numpy(a[rows]).cuda() for a in (req["images"], req["ids"], req["mask"])]
+        prog = pred._programs[b]
+        with torch.inference_mode():
+            for _ in range(3):
+                prog(pred._state, *x)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            for _ in range(10):
+                prog(pred._state, *x)
+            ev[1].record()
+            torch.cuda.synchronize()
+        rep["ms"][b] = ev[0].elapsed_time(ev[1]) / 10
+    report[label] = rep
+    del pred
+    torch.cuda.empty_cache()
+report["models_imported"] = sorted(m for m in sys.modules
+                                   if m.startswith("mmrp_tpu_torch.models"))
+np.savez(spec["out"], **out)
+print(json.dumps(report))
+"""
+
+
+def export_rows(n: int):
+    """The request rows of an n-row call: the 8 requests cycled in a stride
+    of 3, so that neighbouring rows differ."""
+    import numpy as np
+
+    return (np.arange(n) * 3) % B
+
+
+def bucket_chunks(n: int, buckets):
+    """[(first row, rows, bucket)] of an n-row call, as ExportedPredictor.call
+    splits it: the smallest bucket that fits, else chunks of the largest."""
+    fit = [b for b in buckets if b >= n]
+    if fit:
+        return [(0, n, fit[0])]
+    big = max(buckets)
+    return [(i, min(big, n - i), big) for i in range(0, n, big)]
+
+
+def export_phase(torch, dev, smi: str, run: Path, ex: dict) -> tuple:
+    """Phase 11 (module docstring) on the flagship run directory ``run``.
+    ``ex``: the 8 requests at L512 ("images", "ids", "mask"), their f32
+    plain path ("want_joint", "want_probs"), and the flagship's weights at
+    the int8 mixes on the card ("int8": {mix: model}). Returns (launches by
+    path, gradient routes by kernel) for the kernels line."""
+    import numpy as np
+
+    from mmrp_tpu_torch.api import MMRPredictor, serving_forward
+    from mmrp_tpu_torch.labels import LABEL_COLS
+    from mmrp_tpu_torch.models.explain import ExplanationEngine, compare_maps
+    from mmrp_tpu_torch.models.multimodal import MultiModalRetrievalModel
+    from mmrp_tpu_torch.ops import fused_attention as K3
+    from mmrp_tpu_torch.ops import fused_swin_block as SB
+    from mmrp_tpu_torch.ops import fused_window_attention as K1
+    from mmrp_tpu_torch.serve import exported as EX
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    counters = serving_counters()
+    wrappers = {fn for fn, _ in counters.values()}
+
+    def reset_counts():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        for fn in wrappers:
+            fn.plain_calls = 0
+
+    def read_counts(plain_ok=False):
+        plain = {fn.__name__: fn.plain_calls for fn in wrappers if fn.plain_calls}
+        if plain and not plain_ok:
+            fail(f"calls on a plain route: {plain}")
+        return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+
+    def plain_copy(m):
+        """``m``'s weights on the card with every kernel call site on its
+        plain version: each Swin step, and each module's kernel route."""
+        c = MultiModalRetrievalModel(m.config, dtype=bf16, device=dev).eval()
+        c.load_state_dict(m.state_dict())
+        swin = c.backbones.swin
+        swin.plan = [[st._replace(kernel=False) for st in steps] for steps in swin.plan]
+        for mod in c.modules():
+            for attr in ("route", "attn_route", "ffn_route"):
+                if getattr(mod, attr, None) == "kernel":
+                    setattr(mod, attr, "plain")
+        return c
+
+    def cosine(a, b):
+        return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+    images, ids, mask = ex["images"], ex["ids"], ex["mask"]
+    x1 = (images[:1], ids[:1], mask[:1])
+    n_tok = int(mask[0].sum())
+
+    def maps_of(engine, targets, pixels):
+        """The maps (d) compares: explain of ``targets`` at the request's IG
+        steps, token IG of the first at 4 steps and pixel IG at 2 (as 4d)."""
+        out = engine.explain(*x1, targets, ig_steps=EXPLAIN_STEPS)
+        out["token"] = engine.token_attribution(*x1, targets[0], n_steps=4)[0, :n_tok]
+        if pixels:
+            out["pixels"] = engine.integrated_gradients_pixels(*x1, targets[0], n_steps=2)
+        return out
+
+    out_dir = run.parent / "artifacts"
+    out_dir.mkdir(exist_ok=True)
+    launches = {}
+
+    # -- (a) the flagship run exported for cuda at EXPORT_BUCKETS ----------------
+    served = MMRPredictor.from_run_dir(str(run), device=dev)
+    model = served.model
+    meta = EX.run_meta(served, EXPORT_BUCKETS, ("cuda",))
+    if meta["text_len"] != ids.shape[1]:
+        fail(f"export: the run's text length is {meta['text_len']}, not {ids.shape[1]}")
+    programs, export_s = {}, {}
+    for b in EXPORT_BUCKETS:
+        t0 = time.perf_counter()
+        programs.update(EX.export_serving_programs(
+            model, image_size=meta["image_size"], text_len=meta["text_len"], batch_sizes=(b,),
+            platforms=("cuda",)))
+        export_s[b] = round(time.perf_counter() - t0, 2)
+    flagship = out_dir / "flagship.npz"
+    t0 = time.perf_counter()
+    EX.save_artifact(flagship, programs, EX.serving_state(model), meta)
+    log(f"export: seconds per bucket {export_s}, program bytes "
+        f"{ {k: len(v) for k, v in programs.items()} }, artifact {flagship.stat().st_size} "
+        f"bytes written in {time.perf_counter() - t0:.1f} s [{smi}]")
+    m8 = ex["int8"]["int8_static"]
+    t0 = time.perf_counter()
+    p8 = EX.export_serving_programs(m8, image_size=meta["image_size"],
+                                    text_len=meta["text_len"],
+                                    batch_sizes=(INT8_EXPORT_BUCKET,), platforms=("cuda",))
+    int8_art = out_dir / "int8_static.npz"
+    EX.save_artifact(int8_art, p8, EX.serving_state(m8),
+                     dict(meta, batch_sizes=[INT8_EXPORT_BUCKET]))
+    log(f"export int8_static at bucket {INT8_EXPORT_BUCKET}: {time.perf_counter() - t0:.1f} s, "
+        f"artifact {int8_art.stat().st_size} bytes")
+    del programs, p8
+
+    # -- load and call in a fresh process ----------------------------------------
+    req = out_dir / "requests.npz"
+    np.savez(req, images=images, ids=ids, mask=mask,
+             **{f"rows_{n}": export_rows(n) for n in set(EXPORT_NS) | {INT8_EXPORT_BUCKET}})
+    spec = {"requests": str(req), "out": str(out_dir / "outputs.npz"), "counters": COUNTERS,
+            "artifacts": {
+                "flagship": {"path": str(flagship), "ns": list(EXPORT_NS),
+                             "timed": list(EXPORT_TIMED)},
+                "int8_static": {"path": str(int8_art), "ns": [INT8_EXPORT_BUCKET],
+                                "timed": [INT8_EXPORT_BUCKET]}}}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", EXPORT_LOAD, json.dumps(spec)], cwd=str(REPO),
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"export: loading in a fresh process failed:\n{proc.stderr[-4000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"export: fresh process {time.perf_counter() - t0:.1f} s (imports "
+        f"{report['import_s']:.1f} s); models imported {report['models_imported']}")
+    if report["models_imported"]:
+        fail(f"export: loading imported model code {report['models_imported']}")
+    outs = np.load(out_dir / "outputs.npz")
+
+    live = serving_forward(model)
+    live8 = serving_forward(m8)
+
+    def live_padded(fwd, rows, buckets):
+        """The live forward on ``rows`` split and padded as
+        ExportedPredictor.call does (padded mask rows are ones)."""
+        parts = []
+        for first, k, b in bucket_chunks(len(rows), buckets):
+            r = rows[first:first + k]
+            pad = b - k
+            x = [np.concatenate([a[r], np.full((pad,) + a.shape[1:], fill, a.dtype)])
+                 for a, fill in ((images, 0), (ids, 0), (mask, 1))]
+            got = fwd(*(torch.from_numpy(a).to(dev) for a in x))
+            parts.append({key: v.float().cpu().numpy()[:k] for key, v in got.items()})
+        return {key: np.concatenate([p[key] for p in parts]) for key in parts[0]}
+
+    problems = []
+    for label, fwd, ns, buckets in (("flagship", live, EXPORT_NS, EXPORT_BUCKETS),
+                                    ("int8_static", live8, (INT8_EXPORT_BUCKET,),
+                                     (INT8_EXPORT_BUCKET,))):
+        rep = report[label]
+        log(f"export {label}: load {rep['load_s']:.2f} s, memory_allocated after load "
+            f"{rep['memory_allocated']} bytes")
+        for n in ns:
+            rows = export_rows(n)
+            got = {key: outs[f"{label}/{n}/{key}"] for key in EX.OUTPUTS}
+            want_live = live_padded(fwd, rows, buckets)
+            dlive = max(float(np.abs(got[k] - want_live[k]).max()) for k in got)
+            cos = cosine(got["joint_emb"], ex["want_joint"][rows])
+            dprobs = np.abs(got["probs"] - ex["want_probs"][rows]).max(-1)
+            calls = len(bucket_chunks(n, buckets))
+            want_l = {k: v * calls for k, v in EXPECTED["whole" if label == "flagship"
+                                                          else "int8_static"].items()}
+            got_l = {k: v for k, v in rep["launches"][str(n)].items() if k != "plain_calls"}
+            log(f"export {label} n={n}: {calls} call(s), {rep['call_s'][str(n)]:.3f} s; vs the "
+                f"live forward on the same padded rows max |d| {dlive:.3e}; vs the f32 plain "
+                f"path joint_emb cosine min {cos.min():.6f}, max |dprobs| {dprobs.max():.3e}; "
+                f"launches {({k: v for k, v in got_l.items() if v})}, plain calls "
+                f"{rep['launches'][str(n)]['plain_calls']}")
+            if got_l != want_l or rep["launches"][str(n)]["plain_calls"]:
+                problems.append(f"export {label} n={n}: launches {got_l}, expected {want_l}")
+            if any(got[k].shape[0] != n or not np.isfinite(got[k]).all() for k in got):
+                problems.append(f"export {label} n={n}: outputs not finite or of wrong rows")
+            if label == "flagship" and not (cos.min() >= EMB_COS_MIN
+                                            and dprobs.max() <= PROBS_MAX_DIFF):
+                problems.append(f"export flagship n={n}: strays from the f32 plain path")
+            if label == "int8_static" and not cos.min() > INT8_COS_MIN:
+                problems.append(f"export int8_static n={n}: cosine {cos.min()} against the "
+                                "f32 unquantized plain path")
+        for b in (EXPORT_TIMED if label == "flagship" else (INT8_EXPORT_BUCKET,)):
+            x = [torch.from_numpy(a[export_rows(b)]).to(dev) for a in (images, ids, mask)]
+            live_ms = cuda_ms(torch, lambda: fwd(*x), reps=10)
+            log(f"export {label}: batch {b} per call {rep['ms'][str(b)]:.3f} ms exported, "
+                f"{live_ms:.3f} ms live (CUDA events) [{smi}]")
+        launches[f"exported_{label}"] = {k: v for k, v in rep["launches"][
+            str(INT8_EXPORT_BUCKET)].items() if k != "plain_calls"}
+    if problems:
+        fail("; ".join(problems))
+    del served, model, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the W8A8 gradient routes at their phase-3 / 4b shapes ---------------------
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+
+    def rnd(shape, scale=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def ln(C):
+        return 1 + rnd((C,), 0.1, f32), rnd((C,), 0.1, f32)
+
+    def block(C, heads, res, shift):
+        blk = (*ln(C), rnd((3 * C, C), C ** -0.5), rnd((3 * C,), 0.1),
+               rnd((C, C), C ** -0.5), rnd((C,), 0.1), *ln(C),
+               rnd((4 * C, C), C ** -0.5), rnd((4 * C,), 0.1),
+               rnd((C, 4 * C), (4 * C) ** -0.5), rnd((C,), 0.1))
+        table = rnd(((2 * 7 - 1) ** 2, heads), 0.5, f32)
+        return blk, K1.build_bias_full(table, 7, res, res, shift)
+
+    L, D = ids.shape[1], 768
+    key_mask = torch.zeros((B, L), device=dev)
+    key_mask[1:, 3 * L // 4:] = -1e9
+    w = [t for _ in range(4) for t in (rnd((D, D), D ** -0.5), rnd((D,), 0.1))]
+    kw = dict(num_heads=12, ln_mode="post")
+    cases = [("fused_attention_int8", f"BERT (8,{L},{D}) post",
+              lambda *a: K3.fused_attention(*a, **kw, quant=True),
+              lambda *a: K3.attention_plain(*a, **kw, quant=True),
+              lambda *a: K3.attention_plain(*a, **kw),
+              (rnd((B, L, D)), *ln(D), *w, None, key_mask), {12})]
+    for C, heads, res in ((256, 8, 28), (512, 16, 14), (1024, 32, 7)):
+        blk, bias = block(C, heads, res, 0)
+        nW = (res // 7) ** 2
+        cases.append(("fused_swin_block_windows_dynamic", f"xw(8,{nW},49,{C}) h{heads}",
+                      lambda *a, h=heads: SB.fused_swin_block_windows(*a, h, quant=True),
+                      lambda *a, h=heads: SB.swin_block_plain(*a, h, quant=True),
+                      lambda *a, h=heads: SB.swin_block_plain(*a, h),
+                      (rnd((B, nW, 49, C)), *blk, bias), set()))
+    blk, bias = block(512, 16, 14, 3)
+    cases.append(("fused_swin_block_raw_dynamic", "map(8,14,14,512) h16",
+                  lambda *a: SB.fused_swin_block_raw(*a, 16, 7, quant=True),
+                  lambda *a: SB.raw_plain(*a, num_heads=16, ws=7, quant=True),
+                  lambda *a: SB.raw_plain(*a, num_heads=16, ws=7),
+                  (rnd((B, 14, 14, 512)), *blk, bias), set()))
+    routes = {}
+    reset_counts()
+    for name, label, call, plain8, plain, tensors, masks in cases:
+        leaves = [None if t is None else
+                  t.detach().clone().requires_grad_(t.is_floating_point() and i not in masks)
+                  for i, t in enumerate(tensors)]
+        wrt = [t for t in leaves if t is not None and t.requires_grad]
+        fn, attr = counters[name]
+        n0 = getattr(fn, attr)
+        out = call(*leaves)
+        launched = getattr(fn, attr) - n0
+        with torch.no_grad():
+            want8 = plain8(*leaves)
+        ref_out = plain(*leaves)
+        cot = torch.randn(out.shape, generator=gen, device=dev).to(out.dtype)
+        got = torch.autograd.grad(out, wrt, cot)
+        want = torch.autograd.grad(ref_out, wrt, cot)
+        rel = ((out.detach().float() - want8.float()).abs()
+               / want8.float().abs().clamp(min=1)).max().item()
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        gdiff = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+
+        def fwd_bwd(fn=call):
+            torch.autograd.grad(fn(*leaves), wrt, cot)
+
+        ms = cuda_ms(torch, fwd_bwd, reps=5, warmup=1)
+        plain_ms = cuda_ms(torch, lambda: fwd_bwd(plain), reps=5, warmup=1)
+        log(f"gradient route {name:32s} {label:24s} int8 forward max_rel_err {rel:.3e} (tol "
+            f"{INT8_TOL:.3e}) against its int8 plain version; {len(wrt)} input gradients "
+            f"bit-equal to the unquantized plain route: {equal} (max |d| {gdiff:.3e}), launches "
+            f"{launched}; forward + backward {ms:.4f} ms against the all-plain route's "
+            f"{plain_ms:.4f} ms [{smi}]")
+        if rel > INT8_TOL or not equal or launched != 1:
+            problems.append(f"gradient route {name} {label}: max_rel_err {rel}, gradients "
+                            f"equal {equal}, launches {launched}")
+        agg = routes.setdefault(name, dict(cases=0, max_rel_err=0.0, max_grad_diff=0.0,
+                                           grads_bit_equal=True, ms=0.0, plain_ms=0.0))
+        agg.update(cases=agg["cases"] + 1, max_rel_err=max(agg["max_rel_err"], rel),
+                   max_grad_diff=max(agg["max_grad_diff"], gdiff),
+                   grads_bit_equal=agg["grads_bit_equal"] and equal,
+                   ms=agg["ms"] + ms, plain_ms=agg["plain_ms"] + plain_ms)
+        del leaves, wrt, out, ref_out, got, want, want8
+    read_counts()
+    if problems:
+        fail("; ".join(problems))
+
+    # -- the dispatcher's host cost, which the eager path skips ---------------------
+    # one K3 call at the BERT layer's shape of a batch-8 L64 predict, host time
+    # per call through torch.ops.mmrp.seq_attention and through its launch
+    # function directly (the queue never fills: 600 launches)
+    x, (ln_s, ln_b) = rnd((B, 64, D)), ln(D)
+    args = (x, ln_s, ln_b, *w, None, None, None, None, [])
+    k3 = dict(num_heads=12, ln_mode="post", include_residual=True, residual_from_raw=False,
+              eps=1e-6, quant=False)
+
+    def host_us(fn, n=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    with torch.inference_mode():
+        turns = [(host_us(lambda: torch.ops.mmrp.seq_attention(*args, **k3)),
+                  host_us(lambda: K3._launch(*args, **k3))) for _ in range(3)]
+    log(f"host time per K3 call (batch 8, L64): through the dispatcher "
+        f"{[round(a, 1) for a, _ in turns]} us, the launch function directly "
+        f"{[round(b, 1) for _, b in turns]} us [{smi}]")
+    # -- (d) explain over the int8 mixes -------------------------------------------
+    # predict(explain=True) on the card; then the engine's maps of the first
+    # EXPLAIN_INT8_TARGETS targets (IG at the request's 50 steps), token IG and
+    # pixel IG against the same mix in f32 on the CPU; a map that
+    # misses the gate is held to twice the distance of the farthest map of
+    # its kind of the plain versions in bf16 on the card (every call site of
+    # the same weights on its plain version); the attention maps are printed
+    # for information
+    for mix in INT8_EXPLAIN_MIXES:
+        m = ex["int8"][mix]
+        pred = MMRPredictor(m, LABEL_COLS)
+        reset_counts()
+        t0 = time.perf_counter()
+        pred_x = pred.predict(*x1, explain=True)
+        launches[f"explain_{mix}"] = read_counts()
+        targets = list(pred_x["explanation"]["per_target"])
+        log(f"explain {mix}: predict(explain=True), batch 1, L{ids.shape[1]}, {len(targets)} "
+            f"targets, {EXPLAIN_STEPS} IG steps: {time.perf_counter() - t0:.3f} s (host "
+            f"clock) [{smi}]; launches "
+            f"{ {k: v for k, v in launches[f'explain_{mix}'].items() if v} }")
+        if len(targets) != 5:
+            fail(f"explain {mix}: {len(targets)} targets")
+        for t, maps in pred_x["explanation"]["per_target"].items():
+            for key, mp in maps.items():
+                if mp.shape != (1, 224, 224) or not np.isfinite(mp).all():
+                    fail(f"explain {mix}: target {t} {key}: shape {mp.shape} or not finite")
+        cmp_t = targets[:EXPLAIN_INT8_TARGETS]
+        static = mix == "int8_static"
+        plain = plain_copy(m)
+        reset_counts()
+        plain16 = maps_of(ExplanationEngine(plain), cmp_t, not static)
+        plain_launches = {k: v for k, v in read_counts(plain_ok=True).items() if v}
+        if plain_launches:
+            fail(f"explain {mix}: the all-plain copy launched {plain_launches}")
+        got = maps_of(pred.explainer, cmp_t, not static)
+        t0 = time.perf_counter()
+        ref = MultiModalRetrievalModel(m.config, dtype=f32, device="cpu").eval()
+        ref.load_state_dict({k: v.float().cpu() for k, v in m.state_dict().items()})
+        want = maps_of(ExplanationEngine(ref), cmp_t, not static)
+        log(f"explain {mix}: the f32 plain path's maps on the CPU: "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        kinds = {}  # map kind -> [(what, card vs f32, plain bf16 vs f32, gate met)]
+
+        def hold(what, kind, pick):
+            """A map of the card against the f32 plain path: Pearson >=
+            MAP_PEARSON_MIN and IoU@20% >= MAP_IOU_MIN, else judged with its
+            kind below; a Grad-CAM map flat on the CPU must be flat on the card.
+            kind None: printed for information."""
+            got_m, want_m, p16 = (np.asarray(pick(d)) for d in (got, want, plain16))
+            if kind == "grad_cam" and np.ptp(want_m) <= 0:
+                log(f"explain {mix} {what}: flat on the CPU, on the card flat: "
+                    f"{np.ptp(got_m) <= 0}")
+                if np.ptp(got_m) > 0:
+                    problems.append(f"explain {mix} {what}: flat on the CPU, not on the card")
+                return
+            cmp, pf, kp = (compare_maps(a, b) for a, b in ((got_m, want_m), (p16, want_m),
+                                                           (got_m, p16)))
+            met = cmp["pearson"] >= MAP_PEARSON_MIN and cmp["iou@20%"] >= MAP_IOU_MIN
+            log(f"explain {mix} {what}: pearson {cmp['pearson']:.5f}, iou@20% "
+                f"{cmp['iou@20%']:.3f} against f32 (gate {MAP_PEARSON_MIN} / {MAP_IOU_MIN}: "
+                f"{met}); the plain bf16 path on the card {pf['pearson']:.5f} / "
+                f"{pf['iou@20%']:.3f}; the card against that path {kp['pearson']:.5f} / "
+                f"{kp['iou@20%']:.3f}" + ("" if kind else " (for information)"))
+            if kind:
+                kinds.setdefault(kind, []).append((what, cmp, pf, met))
+
+        hold("attn_final", None, lambda d: d["attention"]["attn_final"])
+        for t in cmp_t:
+            for key in ("ig", "grad_cam"):
+                hold(f"target {t} {key}", key, lambda d, t=t, key=key: d["per_target"][t][key])
+        hold("token_attribution", "token_attribution", lambda d: d["token"])
+        if static:
+            try:
+                pred.explainer.integrated_gradients_pixels(*x1, cmp_t[0], n_steps=1)
+            except RuntimeError as e:
+                log(f"explain {mix} integrated_gradients_pixels raises, as JAX's jax.grad: {e}")
+                if "static W8A8 block has no gradient" not in str(e):
+                    problems.append(f"explain {mix}: pixel IG raised another error: {e}")
+            else:
+                problems.append(f"explain {mix}: pixel IG over the static Swin did not raise")
+        else:
+            hold("integrated_gradients_pixels", "integrated_gradients_pixels",
+                 lambda d: d["pixels"])
+        # a map that misses the gate: no more than ATTN_BF16_FACTOR times as far
+        # from f32 (1 - Pearson, 1 - IoU@20%) as the farthest map of its kind
+        # of the plain versions in bf16 on the card: at the int8 mixes a map's
+        # distance from f32 is the noise of int8 steps that bf16 inputs flip,
+        # which one map of one path samples once
+        for kind, rows in kinds.items():
+            far_p = max(1 - pf["pearson"] for _, _, pf, _ in rows)
+            far_i = max(1 - pf["iou@20%"] for _, _, pf, _ in rows)
+            for what, cmp, _, met in rows:
+                near = (1 - cmp["pearson"] <= ATTN_BF16_FACTOR * far_p
+                        and 1 - cmp["iou@20%"] <= ATTN_BF16_FACTOR * far_i)
+                if not met:
+                    log(f"explain {mix} {what}: 1 - pearson {1 - cmp['pearson']:.5f}, 1 - "
+                        f"iou@20% {1 - cmp['iou@20%']:.3f} against {ATTN_BF16_FACTOR}x the "
+                        f"plain bf16 path's farthest {kind} map ({far_p:.5f}, {far_i:.3f}): "
+                        f"{'within' if near else 'beyond'}")
+                if not (met or near):
+                    problems.append(f"explain {mix} {what}: {cmp}")
+        del ref, plain, pred, got, want, plain16
+        gc.collect()
+        torch.cuda.empty_cache()
+    if problems:
+        fail("; ".join(problems))
+    return launches, routes
+
+
+def export_alone(torch, dev, root: Path) -> tuple:
+    """Phase 11's inputs for ``--export-only``, made as phases 4, 4b and 4c
+    make them: the flagship from the seeded init, 8 seeded requests at L512
+    and their f32 plain path on the CPU, a run directory of its weights, and
+    the int8 mixes (act_amax calibrated on the requests). Returns (run, ex)."""
+    import numpy as np
+
+    from mmrp_tpu_torch.api import serving_forward
+    from mmrp_tpu_torch.config import Config
+    from mmrp_tpu_torch.models.multimodal import MultiModalConfig, MultiModalRetrievalModel
+    from mmrp_tpu_torch.models.quant_calib import calibrate_swin_act_amax, save_act_amax
+    from mmrp_tpu_torch.utils.convert import init_params, save_param_tree, state_dict_to_flax_flat
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = MultiModalConfig.flagship()
+    model = MultiModalRetrievalModel(cfg, dtype=bf16, device=dev).eval()
+    init_params(model, seed=SEED)
+    r = np.random.default_rng(SEED)
+    L = RUN_TEXT_LEN
+    images = r.random((B, cfg.swin.img_size, cfg.swin.img_size, 3), dtype=np.float32)
+    ids = r.integers(0, cfg.text.vocab_size, (B, L)).astype(np.int64)
+    lengths = np.concatenate([[L], r.integers(4, L, B - 1)])
+    mask = (np.arange(L)[None, :] < lengths[:, None]).astype(np.int64)
+    ref = MultiModalRetrievalModel(cfg, dtype=f32, device="cpu").eval()
+    ref.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+    want = serving_forward(ref)(*(torch.from_numpy(a) for a in (images, ids, mask)))
+    del ref
+    run = root / "run"
+    (run / "joint").mkdir(parents=True)
+    (run / "config.yaml").write_text(
+        "image_backbone: swin\nimage_size: 224\njoint_dim: 1024\nnum_fusion_layers: 5\n"
+        "num_heads: 8\ntext_dim: 512\nserve_quant: none\ndtype_policy: bf16\n")
+    text_dims = {k: v for k, v in dataclasses.asdict(cfg.text).items() if k != "quant"}
+    (run / "model_config.json").write_text(json.dumps(
+        {"flagship": True, "vision_backbone": "swin", "text": text_dims}))
+    (run / "vocab.txt").write_text("\n".join(
+        ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+        + [f"w{i}" for i in range(cfg.text.vocab_size - 5)]) + "\n")
+    save_param_tree(run / "joint" / "params.npz",
+                    {f"model/{k}": v for k, v in state_dict_to_flax_flat(model).items()})
+    amax_path = root / "swin_act_amax.json"
+    save_act_amax(str(amax_path), calibrate_swin_act_amax(model.backbones.swin, images,
+                                                          batch_size=B))
+    int8 = {}
+    for mix, kw in (("int8", {}), ("int8_static", dict(swin_act_amax_path=str(amax_path)))):
+        int8[mix] = MultiModalRetrievalModel(MultiModalConfig.from_config(
+            Config(serve_quant=mix, **kw), flagship=True), dtype=bf16, device=dev).eval()
+        int8[mix].load_state_dict(model.state_dict())
+    return run, dict(images=images, ids=ids, mask=mask, want_joint=want["joint_emb"].numpy(),
+                     want_probs=want["probs"].numpy(), int8=int8)
+
+
 def main() -> int:
     import torch
 
@@ -1926,6 +2552,12 @@ def main() -> int:
             pretrained_phase(torch, dev, smi, Path(tmp) / "openi")
         phase_done("pretrained bootstrap and the other towers")
         log("chip_smoke: --pretrained-only ran phases 1, 2 and 10 alone; no result line")
+        return 0
+    if sys.argv[1:] == ["--export-only"]:  # phases 1, 2 and 11 alone, no result line
+        with tempfile.TemporaryDirectory() as tmp:
+            export_phase(torch, dev, smi, *export_alone(torch, dev, Path(tmp)))
+        phase_done("the serving artifact and explain over the int8 mixes")
+        log("chip_smoke: --export-only ran phases 1, 2 and 11 alone; no result line")
         return 0
 
     # -- 3. kernels against their plain versions -------------------------------
@@ -2326,24 +2958,7 @@ def main() -> int:
     gallery_ids = [f"g{i}" for i in range(len(gallery))] + [f"req{b}" for b in range(B)]
     engine = RetrievalEngine(np.concatenate([gallery, emb]), gallery_ids, device=dev)
 
-    counters = {  # kernel -> (its wrapper, the wrapper's count of that kernel's launches)
-        "fused_window_attention": (K1.fused_window_attention_windows, "launches"),
-        "fused_ln_mlp": (K2.fused_ln_mlp_residual, "launches"),
-        "fused_attention": (K3.fused_attention, "launches"),
-        "fused_attention_int8": (K3.fused_attention, "launches_int8"),
-        "fused_swin_block_windows": (SB.fused_swin_block_windows, "launches"),
-        "fused_swin_block_windows_static": (SB.fused_swin_block_windows, "launches_static"),
-        "fused_swin_block_windows_per_row": (SB.fused_swin_block_windows, "launches_per_row"),
-        "fused_swin_block_windows_dynamic": (SB.fused_swin_block_windows, "launches_dynamic"),
-        "fused_swin_block_raw": (SB.fused_swin_block_raw, "launches"),
-        "fused_swin_block_raw_dynamic": (SB.fused_swin_block_raw, "launches_dynamic"),
-        "fused_swin_block_chain": (SP.fused_swin_block_chain, "launches"),
-        "fused_swin_block_chain_static": (SP.fused_swin_block_chain, "launches_static"),
-        "fused_swin_block_chain_per_row": (SP.fused_swin_block_chain, "launches_per_row"),
-        "fused_swin_block_pair": (SP.fused_swin_block_pair, "launches"),
-        "fused_swin_block_pair_static": (SP.fused_swin_block_pair, "launches_static"),
-        "fused_swin_block_pair_per_row": (SP.fused_swin_block_pair, "launches_per_row"),
-    }
+    counters = serving_counters()
 
     plain_counters = (K1.fused_window_attention_windows, K2.fused_ln_mlp_residual,
                       K3.fused_attention, SB.fused_swin_block_windows, SB.fused_swin_block_raw,
@@ -2565,6 +3180,7 @@ def main() -> int:
             times.append((time.perf_counter() - t0) * 1e3)
     log(f"top-10 over {len(gallery_ids)} x {cfg.joint_dim}: p50 "
         f"{statistics.median(times):.3f} ms (host clock, query upload to ids)")
+    int8_models = {mix: routes[mix] for mix in INT8_EXPLAIN_MIXES}  # phase 11's
     del model_k1k2, routes, m, engine, fwd, img_d, ids_d, mask_d
     gc.collect()
     torch.cuda.empty_cache()
@@ -3129,10 +3745,23 @@ def main() -> int:
                 or len(payload["retrieval"]) != 5 or not payload["agreement"]:
             fail("demo: /health or /api/predict did not answer with a full payload")
         del served, demo_ctx, eng, pred_x, got, want, got_b, want_b
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_done("explain and the demo")
+
+        # -- 11. the serving artifact and explain over the int8 mixes ------------
+        ids_l, mask_l = text_batch(RUN_TEXT_LEN)
+        got_launches, got_routes = export_phase(torch, dev, smi, run, dict(
+            images=images, ids=ids_l, mask=mask_l, want_joint=wants[RUN_TEXT_LEN][0],
+            want_probs=wants[RUN_TEXT_LEN][1],
+            int8=int8_models))
+        launches.update(got_launches)
+        grad_route.update(got_routes)
+        del int8_models
+        phase_done("the serving artifact and explain over the int8 mixes")
     del model, gallery
     gc.collect()
     torch.cuda.empty_cache()
-    phase_done("explain and the demo")
 
 
     # -- 5. the training kernels against their plain versions ------------------

@@ -13,7 +13,7 @@ every subcommand of ``python -m mmrp_tpu.cli``, with its flags:
     serve       web demo (web/app.py)
     stream      streaming embed + retrieve + predict over a split
     calibrate   int8_static activation calibration (models/quant_calib.py)
-    export-serving  not ported: exits 2 (ROADMAP.md Queue 1 item 10b)
+    export-serving  a serving artifact of a run (serve/exported.py), cuda and/or cpu programs
     bench       not ported: exits 2 (ROADMAP.md Queue 1 item 1)
 
 The subcommands that run a model or a gallery (train, eval-ret, parity,
@@ -257,8 +257,16 @@ def _not_ported(what: str, item: str) -> int:
 
 
 def cmd_export_serving(args) -> int:
-    return _not_ported("export-serving (serve/exported.py, a serialized serving artifact)",
-                       "item 10b")
+    from mmrp_tpu_torch.serve.exported import export_run
+
+    meta = export_run(
+        args.run_dir, args.out_path,
+        batch_sizes=tuple(int(b) for b in args.batches.split(",")),
+        platforms=tuple(args.platforms.split(",")),
+        data_dir=args.data,
+    )
+    print(json.dumps({"artifact": args.out_path, **meta}, indent=1))
+    return 0
 
 
 def cmd_bench(args) -> int:
@@ -376,13 +384,15 @@ def main(argv=None) -> int:
     p = sub.add_parser(
         "export-serving",
         help="package a trained run into a serialized serving artifact "
-             "(not ported: exits 2, ROADMAP.md Queue 1 item 10b)",
+             "(torch.export; loading needs the op library, no model code)",
     )
     p.add_argument("--run-dir", required=True)
     p.add_argument("--out-path", required=True, help="artifact .npz path")
     p.add_argument("--data", default=None, help="data pipeline output dir")
     p.add_argument("--batches", default="1,8,32", help="batch buckets")
-    p.add_argument("--platforms", default="cpu", help="comma list")
+    p.add_argument("--platforms", default="cuda",
+                   help="comma list of cuda (the kernels, traced on the card: the "
+                        "default, where JAX's is cpu) and cpu (the plain versions)")
     p.set_defaults(fn=cmd_export_serving)
 
     p = sub.add_parser("bench", help="benchmark (not ported: exits 2, ROADMAP.md Queue 1 item 1)")

@@ -20,9 +20,17 @@ On the card the head runs its kernels forward; a gradient goes through each
 wrapper's gradient route (``ops/_build.py::KernelRecompute``: the kernel's
 forward, the plain version's backward). The engine runs outside
 ``inference_mode`` with the model's parameters frozen for its calls, so
-autograd differentiates only the delta or feature inputs. The int8 serving
-mixes are refused (ROADMAP.md Queue 1 item 5b). All outputs are numpy
-arrays; maps are shaped (B, H, W) in [0, 1].
+autograd differentiates only the delta or feature inputs.
+
+The int8 serving mixes differentiate as JAX's do: the fusion stack's W8A8
+GEMMs (``ops/quant.py::quant_dot``) through the per-row activation scale,
+K3's W8A8 form and the dynamic whole-block forms by their straight-through
+routes (the int8 forward, the unquantized backward). Attention maps, patch
+IG, Grad-CAM and token IG differentiate only the head, so they run on every
+mix. Pixel IG differentiates the Swin tower too: over ``serve_quant=
+"int8_static"`` its static W8A8 blocks have no gradient, in JAX (no VJP,
+``jax.grad`` raises) as here, and the call raises naming them. All outputs
+are numpy arrays; maps are shaped (B, H, W) in [0, 1].
 """
 
 from __future__ import annotations
@@ -149,13 +157,6 @@ class ExplanationEngine:
     device; eval mode). ``image_hw`` None: each input image's own H, W."""
 
     def __init__(self, model, image_hw: Optional[Tuple[int, int]] = None):
-        cfg = model.config
-        quant = [name for name, q in (("serve quant", cfg.quant), ("swin", cfg.swin.quant),
-                                      ("text", cfg.text.quant)) if q != "none"]
-        if quant:
-            raise NotImplementedError(
-                f"explanations over an int8 serving mix ({', '.join(quant)}) are not ported "
-                "(ROADMAP.md Queue 1 item 5b)")
         self.model = model
         self.image_hw = image_hw
         self._lock = threading.Lock()

@@ -342,6 +342,15 @@ class WindowAttention(nn.Module):
         return build_bias_full(self.rel_bias_table, self.window_size, H, W, self.shift)
 
 
+def cached(quant) -> bool:
+    """Whether a W8A8 step takes the int8 weight caches: always the static
+    form; the dynamic one outside grad mode. In grad mode it takes the float
+    weights, from which its gradient route recomputes the unquantized block
+    (``ops/_build.py::quant_grad_route``), and the kernel quantizes them to
+    the numbers its caches hold (``attach_int8(from_master=False)``)."""
+    return quant == "static" or (bool(quant) and not torch.is_grad_enabled())
+
+
 class SwinBlock(nn.Module):
     """A Swin block's parameters and its two single-block routes:
     ``forward`` is x + WindowAttention(LN0 x) (K1), then + MLP(LN1 x) (K2 at
@@ -414,9 +423,9 @@ class SwinBlock(nn.Module):
 
     def kernel_args(self, quant=False) -> Tuple[torch.Tensor, ...]:
         """The 12 weight tensors of the whole-block kernels, in JAX order;
-        with ``quant`` the GEMM weights are the int8 caches."""
+        with ``quant`` the GEMM weights are the int8 caches (:func:`cached`)."""
         q, p, d0, d1 = self.gemm_linears()
-        if quant:
+        if cached(quant):
             return (self.LayerNorm_0.weight, self.LayerNorm_0.bias, q.weight_q, q.bias,
                     p.weight_q, p.bias, self.LayerNorm_1.weight, self.LayerNorm_1.bias,
                     d0.weight_q, d0.bias, d1.weight_q, d1.bias)
@@ -428,7 +437,8 @@ class SwinBlock(nn.Module):
         """``wscales`` (and for "static" ``act_scales``) of the W8A8 flavor."""
         if not quant:
             return {}
-        kw = {"wscales": tuple(lin.weight_scale for lin in self.gemm_linears())}
+        kw = {"wscales": tuple(lin.weight_scale for lin in self.gemm_linears())
+              if cached(quant) else None}
         if quant == "static":
             kw["act_scales"] = self.act_scales
         return kw

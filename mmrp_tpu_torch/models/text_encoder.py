@@ -163,9 +163,13 @@ class BertLayer(nn.Module):
                        x.dtype)
         else:
             q8 = self.quant == "int8_kernel"
-            args = (x, self.attn_norm.weight, self.attn_norm.bias, *self.attention.weights(q8))
+            # in grad mode K3's W8A8 gradient route takes the float weights
+            # (ops/_build.py::quant_grad_route), which the kernel quantizes to
+            # the numbers of their int8 caches
+            c8 = q8 and not torch.is_grad_enabled()
+            args = (x, self.attn_norm.weight, self.attn_norm.bias, *self.attention.weights(c8))
             kw = dict(key_mask=key_mask, num_heads=self.num_heads, ln_mode="post", quant=q8,
-                      wscales=self.attention.scales() if q8 else None)
+                      wscales=self.attention.scales() if c8 else None)
             x = fused_attention(*args, **kw) if self.route == "kernel" else \
                 _build.run_plain(fused_attention, attention_plain, *args, **kw)
         if self.quant == "none":

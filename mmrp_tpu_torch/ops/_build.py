@@ -12,11 +12,24 @@ an exception.
 
 Without ``nvcc`` there is no kernel and no fallback: :func:`build` raises.
 
-The kernels are forward-only. :class:`KernelRecompute` gives a bf16 serving
+Each serving kernel's launch function (it checks its inputs, allocates its
+outputs and scratch, launches and counts) is also the op
+``torch.ops.mmrp.<name>`` (:func:`kernel_op`), with a fake implementation
+that gives the outputs' shape, dtype and strides without touching data, so
+that ``torch.export`` records the kernels in a serving program
+(``serve/exported.py``). The eager path calls the launch function directly
+and the op only while a tracer runs (:func:`traced`): a call through the
+dispatcher costs tens of microseconds of host time, and the serving forward
+makes dozens of calls. Either way the same function launches and counts.
+
+The kernels are forward-only. :class:`KernelRecompute` gives a serving
 kernel its gradient route, the counterpart of the JAX wrappers'
 ``custom_vjp``: the kernel's forward, and a backward that differentiates the
 plain version recomputed on the saved inputs (JAX: ``jax.vjp`` of
-``xla_equivalent`` in ``bwd``).
+``xla_equivalent`` in ``bwd``); for the dynamic W8A8 forms that plain
+version is the unquantized one, a straight-through gradient, as JAX's.
+The static W8A8 forms have no VJP in JAX; :class:`NoGradient` gives them a
+backward that raises.
 """
 
 from __future__ import annotations
@@ -28,9 +41,10 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
+from torch.utils import _pytree as pytree
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -188,6 +202,25 @@ def check_cuda_inputs(op: str, device: torch.device,
                 "(run under torch.inference_mode() or torch.no_grad())")
 
 
+OP_NAMESPACE = "mmrp"
+
+
+def kernel_op(name: str, launch: Callable, fake: Callable):
+    """Register ``launch`` as the op ``torch.ops.mmrp.<name>`` with the fake
+    implementation ``fake`` (same arguments -> empty outputs). ``launch``
+    takes the op's argument types only (tensors, lists of tensors, ints,
+    floats, bools, strings) and writes to no input. Returns the op."""
+    op = torch.library.custom_op(f"{OP_NAMESPACE}::{name}", launch, mutates_args=())
+    op.register_fake(fake)
+    return op
+
+
+def traced() -> bool:
+    """Whether ``torch.export`` or ``torch.compile`` is tracing the caller:
+    the wrappers then call their kernel's op, else its launch function."""
+    return torch.compiler.is_compiling()
+
+
 class KernelRecompute(torch.autograd.Function):
     """``kernel(*tensors)`` forward; backward by autograd through
     ``plain(*tensors)`` recomputed on the saved inputs. ``tensors`` may hold
@@ -213,20 +246,85 @@ class KernelRecompute(torch.autograd.Function):
         return (None, None, *(next(grads) if need else None for need in needs))
 
 
+def tracked(tensors: Sequence[Optional[torch.Tensor]]) -> bool:
+    """Whether autograd records a call on ``tensors``: grad mode on and an
+    input that requires grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in tensors)
+
+
 def grad_route(kernel, plain, tensors: Sequence[Optional[torch.Tensor]]):
     """``kernel(*tensors)``, through :class:`KernelRecompute` when autograd
-    records the call (grad mode on and an input that requires grad)."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+    records the call."""
+    if tracked(tensors):
         return KernelRecompute.apply(kernel, plain, *tensors)
+    return kernel(*tensors)
+
+
+def quant_grad_route(op: str, kernel, plain, tensors: Sequence[Optional[torch.Tensor]],
+                     int8_weights: bool):
+    """:func:`grad_route` of a dynamic W8A8 form: ``plain`` is the
+    unquantized function, which needs the float weights, so a recorded call
+    that was given the int8 copies (``int8_weights``) raises."""
+    if int8_weights and tracked(tensors):
+        raise ValueError(
+            f"{op}: the W8A8 gradient route recomputes the unquantized function from the "
+            "float weights; pass them (wscales=None) instead of their int8 copies")
+    return grad_route(kernel, plain, tensors)
+
+
+class NoGradient(torch.autograd.Function):
+    """``kernel(*tensors)`` forward; a backward that raises ``why``."""
+
+    @staticmethod
+    def forward(ctx, kernel, why, *tensors):
+        ctx.why = why
+        return kernel(*(None if t is None else t.detach() for t in tensors))
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        raise RuntimeError(ctx.why)
+
+
+def static_route(op: str, kernel, tensors: Sequence[Optional[torch.Tensor]]):
+    """``kernel(*tensors)`` of a static W8A8 form, whose backward raises when
+    autograd records the call: JAX's static forms carry no VJP, so
+    ``jax.grad`` through them raises too."""
+    if tracked(tensors):
+        why = (f"{op}: a static W8A8 block has no gradient (JAX's static forms carry no "
+               "VJP either); differentiate a bf16 or dynamic-int8 model")
+        return NoGradient.apply(kernel, why, *tensors)
     return kernel(*tensors)
 
 
 def run_plain(wrapper, plain, *args, **kwargs):
     """``plain(*args, **kwargs)`` on a plain route of a model's plan: a shape
     the kernel behind ``wrapper`` does not take, run by its plain version on
-    any device and counted in ``wrapper.plain_calls``."""
+    any device and counted in ``wrapper.plain_calls``. A W8A8 form
+    (``quant`` in kwargs) keeps the gradient of its kernel route: none for
+    the static form (:func:`static_route`), the unquantized plain version's
+    for the dynamic one (:func:`quant_grad_route`)."""
     wrapper.plain_calls += 1
-    return plain(*args, **kwargs)
+    quant = kwargs.get("quant", False)
+    if not quant:
+        return plain(*args, **kwargs)
+    leaves, spec = pytree.tree_flatten((args, kwargs))
+    at = [i for i, v in enumerate(leaves) if isinstance(v, torch.Tensor)]
+
+    def call(**override):
+        def fn(*tensors):  # plain(*args, **kwargs) with ``tensors`` in their places
+            vals = list(leaves)
+            for i, t in zip(at, tensors):
+                vals[i] = t
+            a, kw = pytree.tree_unflatten(vals, spec)
+            return plain(*a, **{**kw, **override})
+        return fn
+
+    tensors = [leaves[i] for i in at]
+    if quant == "static":
+        return static_route(wrapper.__name__, call(), tensors)
+    return quant_grad_route(wrapper.__name__, call(), call(quant=False, wscales=None), tensors,
+                            kwargs.get("wscales") is not None)
 
 
 def round16(n: int) -> int:

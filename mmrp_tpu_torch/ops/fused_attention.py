@@ -30,11 +30,17 @@ route such shapes to :func:`attention_plain` by their plan, counted in
 ``fused_attention.plain_calls``.
 
 Weights use the nn.Linear layout: each of wq/wk/wv/wo is (C_out, C_in).
+
+The launches are the op ``torch.ops.mmrp.seq_attention`` (``_build.kernel_op``),
+which a traced serving program records. Gradients, as JAX's ``custom_vjp``:
+every form's backward differentiates the unquantized :func:`attention_plain`
+recomputed on the saved inputs (``_build.grad_route``), the kernel's forward
+on a CUDA tensor and the plain version's (int8 for ``quant``) on a CPU one.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -160,27 +166,44 @@ def fused_attention(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
     """One fused attention block over x (B, Nq, C). ``ln_scale``/``ln_bias``
     may be None in ln_mode 'none'. ``quant``: W8A8 projections (module
     docstring). Launches are counted per flavor: ``launches`` (bf16) and
-    ``launches_int8``. The bf16 form has a gradient route
-    (``_build.grad_route``: the kernel forward, the backward through
-    :func:`attention_plain`); the W8A8 form is forward-only."""
+    ``launches_int8``. Both forms have a gradient route through the
+    unquantized :func:`attention_plain` (module docstring); the W8A8 one
+    needs the float weights for it (``wscales=None``)."""
     tensors = (x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, kv, key_mask, pos, alpha)
     kw = dict(num_heads=num_heads, ln_mode=ln_mode, include_residual=include_residual,
               residual_from_raw=residual_from_raw, eps=eps)
+
+    def plain(*t):
+        return attention_plain(*t, **kw)
+
     if x.device.type == "cpu":
-        return attention_plain(*tensors, **kw, quant=quant, wscales=wscales)
-    if x.device.type != "cuda":
+        if not quant:
+            return plain(*tensors)
+
+        def kernel(*t):
+            return attention_plain(*t, **kw, quant=True, wscales=wscales)
+    elif x.device.type != "cuda":
         raise ValueError(f"fused_attention: no kernel for {x.device}")
+    else:
+        def kernel(*t):
+            launch = _op if _build.traced() else _launch
+            return launch(*t, list(wscales or ()), **kw, quant=bool(quant))
     if quant:
-        return _launch(*tensors, **kw, quant=True, wscales=wscales)
-    return _build.grad_route(lambda *t: _launch(*t, **kw),
-                             lambda *t: attention_plain(*t, **kw), tensors)
+        return _build.quant_grad_route("fused_attention", kernel, plain, tensors,
+                                       wscales is not None)
+    return _build.grad_route(kernel, plain, tensors)
 
 
-def _launch(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, kv, key_mask, pos, alpha,
-            *, num_heads: int, ln_mode: str, include_residual: bool,
-            residual_from_raw: bool, eps: float, quant: bool = False,
-            wscales=None) -> torch.Tensor:
-    """The kernels' launches on CUDA tensors (:func:`fused_attention`)."""
+def _launch(x: torch.Tensor, ln_scale: Optional[torch.Tensor], ln_bias: Optional[torch.Tensor],
+            wq: torch.Tensor, bq: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor,
+            wv: torch.Tensor, bv: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
+            kv: Optional[torch.Tensor], key_mask: Optional[torch.Tensor],
+            pos: Optional[torch.Tensor], alpha: Optional[torch.Tensor],
+            wscales: List[torch.Tensor], *, num_heads: int, ln_mode: str,
+            include_residual: bool, residual_from_raw: bool, eps: float,
+            quant: bool) -> torch.Tensor:
+    """The kernels' launches on CUDA tensors (:func:`fused_attention`);
+    ``wscales`` empty: float weights."""
     _check_form(ln_mode, kv)
     B, Nq, C = x.shape
     Nk = Nq if kv is None else kv.shape[1]
@@ -195,7 +218,7 @@ def _launch(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, kv, key_mask, 
     weights = [("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)]
     qa = None
     if quant:
-        w8 = int8_weights([w for _, w in weights], wscales)
+        w8 = int8_weights([w for _, w in weights], wscales or None)
         qa = _build.quant_args(1, w8)
         wspecs = [spec for (n, _), (w, s) in zip(weights, w8)
                   for spec in ((n, w, torch.int8, (C, C)), (f"{n} scale", s, f32, (C,)))]
@@ -229,6 +252,11 @@ def _launch(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, kv, key_mask, 
     return out
 
 
+def _fake(x, *args, **kwargs):
+    return x.new_empty(x.shape)
+
+
+_op = _build.kernel_op("seq_attention", _launch, _fake)
 fused_attention.launches = 0
 fused_attention.launches_int8 = 0
 fused_attention.plain_calls = 0

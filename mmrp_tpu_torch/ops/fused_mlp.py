@@ -13,6 +13,9 @@ the models route such shapes to :func:`ln_mlp_plain` by their plan, counted
 in ``fused_ln_mlp_residual.plain_calls``.
 
 Weights use the nn.Linear layout: ``w1`` (Hd, C), ``w2`` (C, Hd).
+
+The launch is the op ``torch.ops.mmrp.ln_mlp`` (``_build.kernel_op``), which a
+traced serving program records.
 """
 
 from __future__ import annotations
@@ -105,12 +108,13 @@ def fused_ln_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-
         return ln_mlp_plain(*tensors, *flags)
     if x.device.type != "cuda":
         raise ValueError(f"fused_ln_mlp_residual: no kernel for {x.device}")
-    return _build.grad_route(lambda *t: _launch(*t, *flags),
+    return _build.grad_route(lambda *t: (_op if _build.traced() else _launch)(*t, *flags),
                              lambda *t: ln_mlp_plain(*t, *flags), tensors)
 
 
-def _launch(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float, post_ln: bool,
-            include_residual: bool) -> torch.Tensor:
+def _launch(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+            w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+            eps: float, post_ln: bool, include_residual: bool) -> torch.Tensor:
     """The kernel's launch on CUDA tensors (:func:`fused_ln_mlp_residual`)."""
     M, C = x.shape
     Hd = w1.shape[0]
@@ -140,5 +144,10 @@ def _launch(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float, post_ln: bool,
     return out
 
 
+def _fake(x, *args):
+    return x.new_empty(x.shape)
+
+
+_op = _build.kernel_op("ln_mlp", _launch, _fake)
 fused_ln_mlp_residual.launches = 0
 fused_ln_mlp_residual.plain_calls = 0

@@ -47,12 +47,22 @@ activation across the cluster. :func:`kernel_takes` holds the shape limits
 of both launches, the same for every form: the wrapper raises on CUDA
 tensors it refuses, and the Swin encoder's plan routes such steps to their
 plain version, counted in each flavor's ``plain_calls``.
+
+Each flavor's launches are an op (``_build.kernel_op``):
+``torch.ops.mmrp.swin_block_windows`` and ``swin_block_raw`` here,
+``swin_block_chain`` and ``swin_block_pair`` in ``ops/fused_swin_pair.py``;
+a traced serving program records them. Gradients, as JAX's VJPs
+(:func:`quant_route`): the bf16 and dynamic forms differentiate the unquantized
+plain version recomputed on the saved inputs (the dynamic forms need the
+float weights for it, ``wscales=None``), the kernel's forward on a CUDA
+tensor and the plain version's on a CPU one; the static forms have no VJP
+in JAX, and their backward raises.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -67,6 +77,7 @@ BLOCK_ARGS = 12
 # the weights of the four GEMMs (qkv, proj, FC1, FC2) among them
 GEMM_WEIGHTS = (2, 4, 8, 10)
 QUANT_MODES = {False: 0, True: 1, "static": 2}
+QUANT_FORMS = (False, True, "static")  # the inverse of QUANT_MODES
 
 
 def kernel_takes(C: int, num_heads: int, N: int, Hd: int, quant=False) -> bool:
@@ -228,33 +239,72 @@ def count_launch(fn, quant, per_row: bool = False) -> None:
     setattr(fn, name, getattr(fn, name) + 1)
 
 
+def op_args(quant, wscales, act_scales) -> tuple:
+    """(wscales, quant, act_scales) in the ops' argument types."""
+    if quant not in QUANT_MODES:
+        raise ValueError(f"quant must be False, True or 'static', got {quant!r}")
+    return (list(wscales or ()), QUANT_MODES[quant],
+            None if act_scales is None else [float(a) for a in act_scales])
+
+
+def quant_route(op: str, quant, kernel, plain, tensors, wscales):
+    """``kernel(*tensors)`` with the gradient route of the form ``quant``
+    (module docstring); ``plain`` is the unquantized plain version."""
+    if quant == "static":
+        return _build.static_route(op, kernel, tensors)
+    if quant:
+        return _build.quant_grad_route(op, kernel, plain, tensors, wscales is not None)
+    return _build.grad_route(kernel, plain, tensors)
+
+
+def block_fake(x, *args):
+    return x.new_empty(x.shape)
+
+
 def fused_swin_block_windows(xw, ln0_scale, ln0_bias, w_qkv, b_qkv, w_proj, b_proj,
                              ln1_scale, ln1_bias, w1, b1, w2, b2, bias_full,
                              num_heads: int, ln_eps: float = 1e-6, *, quant=False,
                              wscales=None, act_scales=None) -> torch.Tensor:
     """One whole Swin block on windows ``xw`` (B, nW, N, C), raw (pre-LN),
-    already rolled and partitioned; ``quant`` as in the module docstring. The
-    bf16 form has a gradient route (``_build.grad_route``: the kernel
-    forward, the backward through :func:`swin_block_plain`); the W8A8 forms
-    are forward-only."""
+    already rolled and partitioned; ``quant`` and the gradient routes as in
+    the module docstring."""
     blk = (ln0_scale, ln0_bias, w_qkv, b_qkv, w_proj, b_proj, ln1_scale, ln1_bias,
            w1, b1, w2, b2)
-    q = dict(quant=quant, wscales=wscales, act_scales=act_scales)
+
+    def plain(*t):
+        return swin_block_plain(*t, num_heads, ln_eps)
+
     if xw.device.type == "cpu":
-        return swin_block_plain(xw, *blk, bias_full, num_heads, ln_eps, **q)
+        if not quant:
+            return plain(xw, *blk, bias_full)
 
-    def kernel(xw, *blk_bias):
-        out = launch_block("fused_swin_block_windows", xw, blk_bias[:-1], blk_bias[-1],
-                           num_heads, ln_eps, **q)
-        count_launch(fused_swin_block_windows, quant, act_scales is None)
-        return out
+        def kernel(*t):
+            return swin_block_plain(*t, num_heads, ln_eps, quant=quant, wscales=wscales,
+                                    act_scales=act_scales)
+    else:
+        args = op_args(quant, wscales, act_scales)
 
-    if quant:
-        return kernel(xw, *blk, bias_full)
-    return _build.grad_route(
-        kernel, lambda *t: swin_block_plain(*t, num_heads, ln_eps), (xw, *blk, bias_full))
+        def kernel(xw, *t):
+            launch = _windows_op if _build.traced() else _windows
+            ws, q, acts = args
+            return launch(xw, list(t[:-1]), t[-1], ws, num_heads, ln_eps, q, acts)
+    return quant_route("fused_swin_block_windows", quant, kernel, plain, (xw, *blk, bias_full),
+                 wscales)
 
 
+def _windows(xw: torch.Tensor, blk: List[torch.Tensor], bias_full: torch.Tensor,
+             wscales: List[torch.Tensor], num_heads: int, ln_eps: float, quant: int,
+             act_scales: Optional[List[float]]) -> torch.Tensor:
+    """The launch of :func:`fused_swin_block_windows` (``quant`` a mode of
+    ``QUANT_MODES``, ``wscales`` empty for float weights), counted."""
+    q = QUANT_FORMS[quant]
+    out = launch_block("fused_swin_block_windows", xw, blk, bias_full, num_heads, ln_eps,
+                       quant=q, wscales=wscales or None, act_scales=act_scales)
+    count_launch(fused_swin_block_windows, q, act_scales is None)
+    return out
+
+
+_windows_op = _build.kernel_op("swin_block_windows", _windows, block_fake)
 fused_swin_block_windows.launches = 0
 fused_swin_block_windows.launches_dynamic = 0
 fused_swin_block_windows.launches_static = 0
@@ -269,28 +319,44 @@ def fused_swin_block_raw(x, ln0_scale, ln0_bias, w_qkv, b_qkv, w_proj, b_proj,
     """One whole Swin block on the un-partitioned map ``x`` (B, H, W, C),
     pre-rolled for shifted blocks; returns the map, not rolled back.
     ``quant=True`` is the dynamic W8A8 form, as in JAX the raw flavor's only
-    int8 one. The bf16 form has a gradient route through :func:`raw_plain`."""
+    int8 one. Both forms have a gradient route through the unquantized
+    :func:`raw_plain`."""
     if quant not in (False, True):
         raise ValueError(f"fused_swin_block_raw: quant must be False or True, got {quant!r}")
     blk = (ln0_scale, ln0_bias, w_qkv, b_qkv, w_proj, b_proj, ln1_scale, ln1_bias,
            w1, b1, w2, b2)
+
+    def plain(*t):
+        return raw_plain(*t, num_heads=num_heads, ws=ws, ln_eps=ln_eps)
+
     if x.device.type == "cpu":
-        return raw_plain(x, *blk, bias_full, num_heads=num_heads, ws=ws, ln_eps=ln_eps,
-                         quant=quant, wscales=wscales)
+        if not quant:
+            return plain(x, *blk, bias_full)
 
-    def kernel(x, *blk_bias):
-        out = launch_block("fused_swin_block_raw", x, blk_bias[:-1], blk_bias[-1], num_heads,
-                           ln_eps, map_ws=ws, quant=quant, wscales=wscales)
-        count_launch(fused_swin_block_raw, quant)
-        return out
+        def kernel(*t):
+            return raw_plain(*t, num_heads=num_heads, ws=ws, ln_eps=ln_eps, quant=quant,
+                             wscales=wscales)
+    else:
+        wl, q, _ = op_args(quant, wscales, None)
 
-    if quant:
-        return kernel(x, *blk, bias_full)
-    return _build.grad_route(
-        kernel, lambda *t: raw_plain(*t, num_heads=num_heads, ws=ws, ln_eps=ln_eps),
-        (x, *blk, bias_full))
+        def kernel(x, *t):
+            launch = _raw_op if _build.traced() else _raw
+            return launch(x, list(t[:-1]), t[-1], wl, num_heads, ws, ln_eps, q)
+    return quant_route("fused_swin_block_raw", quant, kernel, plain, (x, *blk, bias_full), wscales)
 
 
+def _raw(x: torch.Tensor, blk: List[torch.Tensor], bias_full: torch.Tensor,
+         wscales: List[torch.Tensor], num_heads: int, ws: int, ln_eps: float,
+         quant: int) -> torch.Tensor:
+    """The launch of :func:`fused_swin_block_raw`, counted."""
+    q = QUANT_FORMS[quant]
+    out = launch_block("fused_swin_block_raw", x, blk, bias_full, num_heads, ln_eps,
+                       map_ws=ws, quant=q, wscales=wscales or None)
+    count_launch(fused_swin_block_raw, q)
+    return out
+
+
+_raw_op = _build.kernel_op("swin_block_raw", _raw, block_fake)
 fused_swin_block_raw.launches = 0
 fused_swin_block_raw.launches_dynamic = 0
 fused_swin_block_raw.plain_calls = 0

@@ -29,16 +29,29 @@ plan in ``plain_calls``.
 size TPU VMEM, not anything on the GPU; the port keeps them so that its
 Swin encoder takes the same route as the reference at every geometry
 (``models/swin.py::swin_plan``).
+
+The launches are the ops ``torch.ops.mmrp.swin_block_chain`` and
+``swin_block_pair`` (``_build.kernel_op``). The bf16 forms have a gradient
+route through their plain versions; the static forms, as JAX's, have none:
+their backward raises (``fused_swin_block.quant_route``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
 from mmrp_tpu_torch.ops import _build, fused_swin_block
-from mmrp_tpu_torch.ops.fused_swin_block import count_launch, launch_block, raw_plain
+from mmrp_tpu_torch.ops.fused_swin_block import (
+    QUANT_FORMS,
+    block_fake,
+    count_launch,
+    launch_block,
+    op_args,
+    raw_plain,
+    quant_route,
+)
 
 
 def kernel_takes(C: int, num_heads: int, ws: int, Hd: int, quant=False) -> bool:
@@ -115,26 +128,43 @@ def fused_swin_block_chain(x, blk: Sequence[torch.Tensor], bias, num_heads: int,
     block's frame (``bias`` is this block's (nW, h, N, N) bias_full), then
     the roll by ``roll_after = this_shift - next_shift``. Launches are
     counted as ``launches`` (bf16), ``launches_static`` (calibrated
-    ``act_scales``) and ``launches_per_row`` (static without them). The bf16
-    form has a gradient route through :func:`chain_plain`."""
+    ``act_scales``) and ``launches_per_row`` (static without them)."""
+    quant = _static(quant)
+
+    def plain(x, *t):
+        return chain_plain(x, t[:-1], t[-1], num_heads, ws, roll_after, ln_eps)
+
     if x.device.type == "cpu":
-        return chain_plain(x, blk, bias, num_heads, ws, roll_after, ln_eps, quant, wscales,
-                           act_scales)
+        if not quant:
+            return plain(x, *blk, bias)
 
-    def kernel(x, *blk_bias):
-        out = launch_block("fused_swin_block_chain", x, blk_bias[:-1], blk_bias[-1], num_heads,
-                           ln_eps, map_ws=ws, roll=roll_after, quant=_static(quant),
-                           wscales=wscales, act_scales=act_scales)
-        count_launch(fused_swin_block_chain, quant, act_scales is None)
-        return out
+        def kernel(x, *t):
+            return chain_plain(x, t[:-1], t[-1], num_heads, ws, roll_after, ln_eps, quant,
+                               wscales, act_scales)
+    else:
+        args = op_args(quant, wscales, act_scales)
 
-    if quant:
-        return kernel(x, *blk, bias)
-    return _build.grad_route(
-        kernel, lambda x, *t: chain_plain(x, t[:-1], t[-1], num_heads, ws, roll_after, ln_eps),
-        (x, *blk, bias))
+        def kernel(x, *t):
+            launch = _chain_op if _build.traced() else _chain
+            wl, q, acts = args
+            return launch(x, list(t[:-1]), t[-1], wl, num_heads, ws, roll_after, ln_eps, q,
+                          acts)
+    return quant_route("fused_swin_block_chain", quant, kernel, plain, (x, *blk, bias), wscales)
 
 
+def _chain(x: torch.Tensor, blk: List[torch.Tensor], bias: torch.Tensor,
+           wscales: List[torch.Tensor], num_heads: int, ws: int, roll_after: int,
+           ln_eps: float, quant: int, act_scales: Optional[List[float]]) -> torch.Tensor:
+    """The launch of :func:`fused_swin_block_chain`, counted."""
+    q = QUANT_FORMS[quant]
+    out = launch_block("fused_swin_block_chain", x, blk, bias, num_heads, ln_eps, map_ws=ws,
+                       roll=roll_after, quant=q, wscales=wscales or None,
+                       act_scales=act_scales)
+    count_launch(fused_swin_block_chain, q, act_scales is None)
+    return out
+
+
+_chain_op = _build.kernel_op("swin_block_chain", _chain, block_fake)
 fused_swin_block_chain.launches = 0
 fused_swin_block_chain.launches_static = 0
 fused_swin_block_chain.launches_per_row = 0
@@ -149,31 +179,48 @@ def fused_swin_block_pair(x, blk0: Sequence[torch.Tensor], bias0,
     on the map ``x`` (B, H, W, C); returns the map in the unshifted frame.
     Launches are counted per pair as ``launches`` (bf16), ``launches_static``
     (both blocks with calibrated ``act_scales``) and ``launches_per_row``
-    (static, a block without them). The bf16 form has a gradient route
-    through :func:`pair_plain`."""
-    if x.device.type == "cpu":
-        return pair_plain(x, blk0, bias0, blk1, bias1, num_heads, ws, shift, ln_eps, quant,
-                          wscales0, wscales1, act_scales0, act_scales1)
-    op = "fused_swin_block_pair"
+    (static, a block without them)."""
     quant = _static(quant)
     n = len(blk0)
-
-    def kernel(x, *t):
-        y = launch_block(op, x, t[:n], t[n], num_heads, ln_eps, map_ws=ws, roll=-shift,
-                         quant=quant, wscales=wscales0, act_scales=act_scales0)
-        out = launch_block(op, y, t[n + 1:-1], t[-1], num_heads, ln_eps, map_ws=ws, roll=shift,
-                           quant=quant, wscales=wscales1, act_scales=act_scales1)
-        count_launch(fused_swin_block_pair, quant, act_scales0 is None or act_scales1 is None)
-        return out
-
     tensors = (x, *blk0, bias0, *blk1, bias1)
-    if quant:
-        return kernel(*tensors)
-    return _build.grad_route(
-        kernel, lambda x, *t: pair_plain(x, t[:n], t[n], t[n + 1:-1], t[-1], num_heads, ws,
-                                         shift, ln_eps), tensors)
+
+    def plain(x, *t):
+        return pair_plain(x, t[:n], t[n], t[n + 1:-1], t[-1], num_heads, ws, shift, ln_eps)
+
+    if x.device.type == "cpu":
+        if not quant:
+            return plain(*tensors)
+
+        def kernel(x, *t):
+            return pair_plain(x, t[:n], t[n], t[n + 1:-1], t[-1], num_heads, ws, shift,
+                              ln_eps, quant, wscales0, wscales1, act_scales0, act_scales1)
+    else:
+        ws0, q, acts0 = op_args(quant, wscales0, act_scales0)
+        ws1, _, acts1 = op_args(quant, wscales1, act_scales1)
+
+        def kernel(x, *t):
+            launch = _pair_op if _build.traced() else _pair
+            return launch(x, list(t[:n]), t[n], list(t[n + 1:-1]), t[-1], ws0, ws1,
+                          num_heads, ws, shift, ln_eps, q, acts0, acts1)
+    return quant_route("fused_swin_block_pair", quant, kernel, plain, tensors, wscales0)
 
 
+def _pair(x: torch.Tensor, blk0: List[torch.Tensor], bias0: torch.Tensor,
+          blk1: List[torch.Tensor], bias1: torch.Tensor, wscales0: List[torch.Tensor],
+          wscales1: List[torch.Tensor], num_heads: int, ws: int, shift: int, ln_eps: float,
+          quant: int, act_scales0: Optional[List[float]],
+          act_scales1: Optional[List[float]]) -> torch.Tensor:
+    """The two launches of :func:`fused_swin_block_pair`, counted as one."""
+    op, q = "fused_swin_block_pair", QUANT_FORMS[quant]
+    y = launch_block(op, x, blk0, bias0, num_heads, ln_eps, map_ws=ws, roll=-shift, quant=q,
+                     wscales=wscales0 or None, act_scales=act_scales0)
+    out = launch_block(op, y, blk1, bias1, num_heads, ln_eps, map_ws=ws, roll=shift, quant=q,
+                       wscales=wscales1 or None, act_scales=act_scales1)
+    count_launch(fused_swin_block_pair, q, act_scales0 is None or act_scales1 is None)
+    return out
+
+
+_pair_op = _build.kernel_op("swin_block_pair", _pair, block_fake)
 fused_swin_block_pair.launches = 0
 fused_swin_block_pair.launches_static = 0
 fused_swin_block_pair.launches_per_row = 0

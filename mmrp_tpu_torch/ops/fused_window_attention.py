@@ -17,6 +17,9 @@ the Swin encoder's plan routes such stages to the plain version, counted in
 
 Weights use the nn.Linear layout: ``w_qkv`` is (3C, C) with rows [q | k | v]
 (the transpose of the Flax (C, 3C) kernel), ``w_proj`` is (C, C).
+
+The two launches are the op ``torch.ops.mmrp.window_attention``
+(``_build.kernel_op``), which a traced serving program records.
 """
 
 from __future__ import annotations
@@ -126,11 +129,13 @@ def fused_window_attention_windows(xw, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
         return window_attention_plain(*tensors, *flags)
     if xw.device.type != "cuda":
         raise ValueError(f"fused_window_attention_windows: no kernel for {xw.device}")
-    return _build.grad_route(lambda *t: _launch(*t, *flags),
+    return _build.grad_route(lambda *t: (_op if _build.traced() else _launch)(*t, *flags),
                              lambda *t: window_attention_plain(*t, *flags), tensors)
 
 
-def _launch(xw, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias_full, num_heads: int,
+def _launch(xw: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+            w_qkv: torch.Tensor, b_qkv: torch.Tensor, w_proj: torch.Tensor,
+            b_proj: torch.Tensor, bias_full: torch.Tensor, num_heads: int,
             ln_eps: float, include_residual: bool) -> torch.Tensor:
     """The kernel's launches on CUDA tensors
     (:func:`fused_window_attention_windows`)."""
@@ -160,6 +165,11 @@ def _launch(xw, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias_full, num_
     return out
 
 
+def _fake(xw, *args):
+    return xw.new_empty(xw.shape)
+
+
+_op = _build.kernel_op("window_attention", _launch, _fake)
 fused_window_attention_windows.launches = 0
 fused_window_attention_windows.plain_calls = 0
 

@@ -7,8 +7,9 @@ JSONs and phrase check; ``eval-cls``, ``eval-ret --variants``, ``kg-probe``
 and ``mapper`` write the same reports (timings aside; real values within
 1e-6). The port's ``train`` on its own ``data`` output (the tiny config of
 ``tests/test_end_to_end.py``, ``--device cpu``), then ``calibrate``,
-``stream``, ``parity`` and ``serve`` on that run; ``export-serving`` and
-``bench`` exit 2, naming their ROADMAP items.
+``stream``, ``parity`` and ``serve`` on that run; ``bench`` exits 2, naming
+its ROADMAP item, and ``export-serving --platforms cpu`` on the run below
+prints JAX's meta.
 
 Then both packages' ``run_parity`` on one run directory that both read,
 written as ``tests/test_torch_serve.py`` writes it (orbax for JAX, npz for
@@ -37,6 +38,8 @@ from mmrp_tpu_torch import cli
 from mmrp_tpu_torch.config import Config, dump_flat_yaml
 from mmrp_tpu_torch.eval.gt import build_label_overlap_gt
 from mmrp_tpu_torch.models.swin import SwinConfig
+from mmrp_tpu_torch.serve.exported import ExportedPredictor
+from mmrp_tpu_torch.serve.runner import build_demo_context
 from test_torch_data import no_native_decoder  # noqa: F401 (autouse)
 from test_torch_data_tools import openi_tree
 from test_torch_eval_tools import close, cls_inputs
@@ -100,6 +103,7 @@ def parity_run(tmp_path_factory):
         assert proc.returncode == 0, log[-4000:]
         return run, data, read(run / "parity_jax" / "parity_results.json")
 
+    finished.run, finished.data = run, data  # written: usable before JAX's run ends
     yield finished
     if proc.poll() is None:
         proc.kill()
@@ -269,12 +273,37 @@ def test_cli_parity_on_the_dls_backend(trained, tmp_path, monkeypatch):
             assert 0.0 <= report[gallery][m] <= 1.0, (gallery, m)
 
 
-def test_cli_not_ported_exit_2(capsys):
-    """export-serving and bench exit 2 and name their ROADMAP items."""
-    assert cli.main(["export-serving", "--run-dir", "r", "--out-path", "a.npz"]) == 2
-    assert "ROADMAP.md Queue 1 item 10b" in capsys.readouterr().err
+def test_cli_not_ported_exit_2(parity_run, tmp_path, capsys):
+    """The name is kept from when export-serving and bench both exited 2.
+    bench still exits 2 and names its ROADMAP item; export-serving is
+    ported: ``--platforms cpu --batches 1,4`` on the module's run exits 0 and
+    prints JAX's JSON, whose meta equals JAX's ``cli export-serving`` on the
+    same run, and the artifact's programs equal the run's live forward."""
     assert cli.main(["bench"]) == 2
     assert "ROADMAP.md Queue 1 item 1)" in capsys.readouterr().err
+    run, data = parity_run.run, parity_run.data
+    argv = ["export-serving", "--run-dir", str(run), "--data", str(data), "--batches", "1,4"]
+    def printed():  # the JSON object, after the lines the run's loading prints
+        out = capsys.readouterr().out
+        return json.loads(out[out.index("{\n"):])
+
+    assert cli.main([*argv, "--out-path", str(tmp_path / "port.npz"), "--platforms", "cpu"]) == 0
+    got = printed()
+    assert jcli.main([*argv, "--out-path", str(tmp_path / "jax.npz"), "--platforms", "cpu"]) == 0
+    want = printed()
+    assert got.pop("artifact") == str(tmp_path / "port.npz")
+    assert want.pop("artifact") == str(tmp_path / "jax.npz")
+    assert got == want
+    pred = ExportedPredictor.load(tmp_path / "port.npz", platform="cpu")
+    ctx = build_demo_context(str(run), data_dir=str(data), device="cpu")
+    rng = np.random.default_rng(3)
+    img = rng.random((3, got["image_size"], got["image_size"], 3), dtype=np.float32)
+    ids = rng.integers(0, 64, (3, got["text_len"]))
+    mask = np.ones((3, got["text_len"]), np.int64)
+    live = ctx["predictor"].embed(img, ids, mask)
+    out = pred.call(img, ids, mask)
+    for key in ("probs", "joint_emb"):
+        np.testing.assert_allclose(out[key], live[key], rtol=0, atol=1e-6, err_msg=key)
 
 
 def strip(obj):

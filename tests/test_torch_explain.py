@@ -301,12 +301,23 @@ def test_kernel_recompute_forward_is_the_kernel_backward_the_plain_version():
 
 
 def test_engine_refuses_int8_mixes(micro):
-    """An explanation engine over an int8 serving mix raises, naming its
-    ROADMAP entry."""
-    tcfg = MultiModalConfig(swin=SwinConfig(**SWIN), text=TextConfig.small(**TEXT),
-                            quant="int8", **HEAD)
-    with pytest.raises(NotImplementedError, match="int8 serving mix.*Queue 1 item 5b"):
-        explain.ExplanationEngine(MultiModalRetrievalModel(tcfg, device="cpu"))
+    """The name is kept from when the engine refused every int8 mix. Now an
+    engine over each int8 serving mix is built and explains (Grad-CAM here;
+    ``tests/test_torch_explain_int8.py`` holds every method to JAX's), and
+    only pixel IG over the static W8A8 Swin raises, as ``jax.grad`` through
+    JAX's static blocks does."""
+    _, params, _, img, ids, mask = micro
+    for swin_quant in ("none", "int8_static"):
+        tcfg = MultiModalConfig(swin=SwinConfig(**SWIN, whole_min_c=16, quant=swin_quant),
+                                text=TextConfig.small(**TEXT, quant="int8_kernel"),
+                                quant="int8", **HEAD)
+        model = MultiModalRetrievalModel(tcfg, device="cpu").eval()
+        load_flax_params(model, params["model"])
+        eng = explain.ExplanationEngine(model)
+        cam = eng.grad_cam(img, ids, mask, 3)
+        assert cam.shape == (2, 28, 28) and np.isfinite(cam).all()
+    with pytest.raises(RuntimeError, match="static W8A8 block has no gradient"):
+        eng.integrated_gradients_pixels(img, ids, mask, 3, n_steps=2)
 
 
 @pytest.fixture(scope="module")
