@@ -206,7 +206,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
    cosine > 0.995 against the f32 unquantized plain path); (d)
    ``predict(explain=True)`` at batch 1, L512, 5 targets, 50 IG steps over
    ``serve_quant="int8"`` and ``"int8_static"`` (launches, host clock), the
-   maps of 3 targets, token IG and pixel IG against the same mix in f32 on
+   maps of 2 targets, token IG and pixel IG against the same mix in f32 on
    the CPU (``compare_maps``: Pearson >= 0.99 and IoU@20% >= 0.8, or no more
    than twice as far as the farthest map of its kind of the plain versions
    in bf16 on the card; the attention maps for information), pixel IG over
@@ -216,9 +216,32 @@ Phases, each of which fails the run (nonzero exit, no result line):
    forward within 2^-4 of its plain version, every input gradient bit-equal
    to the unquantized plain route's, one launch each; and the host time of
    one K3 call through ``torch.ops.mmrp`` and directly. (c) is phase 9's
-   ``export-serving``. ``python3 chip_smoke.py --export-only`` runs phases 1,
-   2 and 11 alone (its inputs made as phases 4-4c make them) and prints no
-   result line.
+   ``export-serving``. (e) one artifact exported from the card's model with
+   ``platforms=("cuda", "cpu")`` at bucket 1, loaded once per platform: each
+   program against the live forward on its device (the cpu one on the card's
+   bf16 weights copied to the CPU) and the f32 plain path under the bf16
+   gates, the cuda program with a live predict's launches.
+   ``python3 chip_smoke.py --export-only`` runs phases 1, 2 and 11 alone (its
+   inputs made as phases 4-4c make them) and prints no result line.
+12. the mesh on one card (``parallel/``, after phase 10): (a)
+   ``initialize_distributed`` at world 1 over NCCL on a free port and
+   ``build_mesh(("dp",))``; (b) ``make_train_step_dp`` on the flagship at
+   batch 64, L64, from phase 7's construction, in turns with
+   ``make_train_step`` on a second model from the same seed, under
+   deterministic algorithms: every step's loss and every master after the
+   last bit-equal (both collectives are identities at world 1), C-F 22 and
+   C-B 22 launches a step, no plain core call, the step times beside
+   phase 7's median; (c) ``RetrievalEngine(mesh=)`` over a seeded 100,008 x
+   1024 gallery: ids and scores equal to the single engine's for 8 requests,
+   top-10 p50 of each; (d) ``evaluate_sharded`` on phase 8's 50,000-entity
+   graph equal to ``KGTrainer.evaluate``; (e) ``StreamingPipeline(mesh=)``
+   with the sharded engine at batch 64, L512 over 4 batches (uint8 ingest,
+   10 padded rows): every row equal to the stream without a mesh, a
+   predict's launches a batch; (f) a world-1 data-parallel artifact at
+   bucket 8 (key ``cuda::8::1``) loaded with the mesh: outputs equal to the
+   single-device artifact's; (g) ``dryrun_multichip(4)`` over gloo on the
+   machine's CPU. ``python3 chip_smoke.py --mesh-only`` runs phases 1, 2 and
+   12 alone and prints no result line.
 Each phase prints its seconds. The last two lines are the kernels' JSON record
 and the result line {"ok": true, "device": {...}}.
 """
@@ -1889,8 +1912,11 @@ EXPORT_BUCKETS = (1, 8, 32)
 EXPORT_NS = (1, 3, 8, 9, 32, 40)
 EXPORT_TIMED = (8, 32)
 INT8_EXPORT_BUCKET = 8
+DUAL_PLATFORMS = ("cuda", "cpu")  # (e): one artifact, a program per platform
 INT8_EXPLAIN_MIXES = ("int8", "int8_static")
-EXPLAIN_INT8_TARGETS = 3  # targets compared with the CPU (each costs a CPU probe forward)
+# targets compared with the CPU: each costs a 50-step IG of the f32 plain path on the CPU,
+# the phase's largest item; 2 keep the script well inside its time limit
+EXPLAIN_INT8_TARGETS = 2
 
 EXPORT_LOAD = r"""
 import json, sys, time
@@ -2157,7 +2183,61 @@ def export_phase(torch, dev, smi: str, run: Path, ex: dict) -> tuple:
             str(INT8_EXPORT_BUCKET)].items() if k != "plain_calls"}
     if problems:
         fail("; ".join(problems))
-    del served, model, outs
+    del outs
+
+    # -- (e) one artifact for cuda and cpu, loaded once per platform -------------
+    # the card's model exported with platforms=("cuda", "cpu") at bucket 1: each
+    # platform's program against the live forward on its device (the cpu one
+    # on the card's bf16 weights copied to the CPU) and the f32 plain path,
+    # under the bf16 gates; the cuda program launches the live predict's kernels
+    t0 = time.perf_counter()
+    dual = EX.export_serving_programs(model, image_size=meta["image_size"],
+                                      text_len=meta["text_len"], batch_sizes=(1,),
+                                      platforms=DUAL_PLATFORMS)
+    dual_path = out_dir / "dual.npz"
+    EX.save_artifact(dual_path, dual, EX.serving_state(model),
+                     dict(meta, batch_sizes=[1], platforms=list(DUAL_PLATFORMS)))
+    log(f"export {'+'.join(DUAL_PLATFORMS)} at bucket 1: keys {sorted(dual)}, "
+        f"{time.perf_counter() - t0:.1f} s, artifact {dual_path.stat().st_size} bytes")
+    del dual
+    cpu_model = MultiModalRetrievalModel(model.config, dtype=bf16, device="cpu").eval()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    lives = {"cuda": (live, dev), "cpu": (serving_forward(cpu_model), torch.device("cpu"))}
+    for plat in DUAL_PLATFORMS:
+        fwd, pdev = lives[plat]
+        t0 = time.perf_counter()
+        pred = EX.ExportedPredictor.load(dual_path, platform=plat)
+        load_s = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        got = pred.call(*x1)
+        call_s = time.perf_counter() - t0
+        got_l = read_counts(plain_ok=plat == "cpu")
+        with torch.inference_mode():
+            want_live = {k: v.float().cpu().numpy()
+                         for k, v in fwd(*(torch.from_numpy(a).to(pdev) for a in x1)).items()}
+        dlive = max(float(np.abs(got[k] - want_live[k]).max()) for k in got)
+        cos_live = float(cosine(got["joint_emb"], want_live["joint_emb"]).min())
+        dp_live = float(np.abs(got["probs"] - want_live["probs"]).max())
+        cos = float(cosine(got["joint_emb"], ex["want_joint"][:1]).min())
+        dprobs = float(np.abs(got["probs"] - ex["want_probs"][:1]).max())
+        want_l = EXPECTED["whole"] if plat == "cuda" else ZERO
+        log(f"export {plat} program of the {'+'.join(DUAL_PLATFORMS)} artifact: load "
+            f"{load_s:.2f} s, call {call_s:.3f} s; vs the live forward on {pdev.type} max |d| "
+            f"{dlive:.3e} (cosine {cos_live:.6f}, |dprobs| {dp_live:.3e}); vs the f32 plain path "
+            f"cosine {cos:.6f}, |dprobs| {dprobs:.3e}; launches "
+            f"{({k: v for k, v in got_l.items() if v})}")
+        if not (cos_live >= EMB_COS_MIN and dp_live <= PROBS_MAX_DIFF and cos >= EMB_COS_MIN
+                and dprobs <= PROBS_MAX_DIFF):
+            problems.append(f"export {plat} program of the dual artifact: strays from the live "
+                            "forward or the f32 plain path")
+        if got_l != want_l:
+            problems.append(f"export {plat} program of the dual artifact: launches {got_l}, "
+                            f"expected {want_l}")
+        del pred
+    if problems:
+        fail("; ".join(problems))
+    del served, model, cpu_model, lives, live
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2435,6 +2515,287 @@ def export_alone(torch, dev, root: Path) -> tuple:
                      want_probs=want["probs"].numpy(), int8=int8)
 
 
+# phase 12, the mesh on one card: a one-rank NCCL group and its dp mesh
+# (parallel/), then each mesh path against its single-device run on the same
+# inputs: the flagship data-parallel train step (phase 7's construction, batch
+# 64, L64, MESH_STEPS steps, bit-equal), the sharded engine over a gallery of
+# phase 4c's size, entity-sharded KG eval on phase 8's graph, the mesh stream
+# (batch 64, L512, 4 batches), a world-1 data-parallel artifact at bucket 8;
+# then dryrun_multichip(4) over gloo on the machine's CPU
+MESH_STEPS = 6  # every step held bit for bit; the medians skip the first
+MESH_GALLERY = 100_008
+MESH_ART_BUCKET = 8
+MESH_TIMED = 5  # rounds of the 8 requests timed on each engine
+
+
+def mesh_phase(torch, dev, smi: str, train_ms=None) -> dict:
+    """Phase 12 (module docstring). ``train_ms``: phase 7's median step, for
+    the print. Returns the launches of a dp step and a mesh stream batch."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from mmrp_tpu_torch.api import serving_forward
+    from mmrp_tpu_torch.config import Config
+    from mmrp_tpu_torch.kg import trainer as kg_trainer
+    from mmrp_tpu_torch.kg.sharded_eval import evaluate_sharded
+    from mmrp_tpu_torch.labels import LABEL_COLS
+    from mmrp_tpu_torch.models.multimodal import MultiModalConfig, MultiModalRetrievalModel
+    from mmrp_tpu_torch.ops import wattn_core as WC
+    from mmrp_tpu_torch.ops import window_attention as WA
+    from mmrp_tpu_torch.parallel import mesh as M
+    from mmrp_tpu_torch.parallel.collectives import initialize_distributed
+    from mmrp_tpu_torch.parallel.dryrun import dryrun_multichip, free_port
+    from mmrp_tpu_torch.retrieval.gallery import RetrievalEngine
+    from mmrp_tpu_torch.serve import exported as EX
+    from mmrp_tpu_torch.serve.stream import StreamingPipeline
+    from mmrp_tpu_torch.train.joint import init_train_state, make_train_step, make_train_step_dp
+    from mmrp_tpu_torch.train.pipeline import device_batch
+    from mmrp_tpu_torch.utils.convert import init_params
+
+    bf16 = torch.bfloat16
+    counters = {**serving_counters(), "wattn_core_fwd": (WC.core_forward, "launches"),
+                "wattn_core_bwd": (WC.core_backward, "launches"),
+                "window_attention_heads": (WA.window_attention_heads, "launches")}
+    wrappers = {fn for fn, _ in counters.values()} | {WC.window_attention_core}
+    zero = {name: 0 for name in counters}
+
+    def reset_counts():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        for fn in wrappers:
+            fn.plain_calls = 0
+
+    def read_counts():
+        plain = {fn.__name__: fn.plain_calls for fn in wrappers if fn.plain_calls}
+        if plain:
+            fail(f"mesh: calls on a plain route: {plain}")
+        return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+
+    def phase_clock(label, t0):
+        log(f"mesh {label}: {time.perf_counter() - t0:.1f} s")
+        return time.perf_counter()
+
+    # -- (a) the group and the mesh ---------------------------------------------
+    t0 = time.perf_counter()
+    if not initialize_distributed(f"localhost:{free_port()}", 1, 0, timeout_s=300):
+        fail("mesh: initialize_distributed did not start a group")
+    if dist.get_backend() != "nccl":
+        fail(f"mesh: backend {dist.get_backend()}, expected nccl")
+    mesh = M.build_mesh(("dp",))
+    log(f"mesh: {dist.get_backend()} world {dist.get_world_size()}, mesh "
+        f"{dict(M.mesh_shape(mesh))} on {M.mesh_device(mesh)}")
+    launches = {}
+    try:
+        # -- (b) the data-parallel train step against make_train_step ------------
+        cfg = MultiModalConfig.flagship()
+        tcfg = Config(lr=TRAIN_LR, seed=SEED)
+        rng = np.random.default_rng(SEED + 12)
+        L = 64
+        lengths = np.concatenate([[L], rng.integers(4, L, TRAIN_B - 1)])
+        batch_np = {
+            "image": rng.random((TRAIN_B, 224, 224, 3), dtype=np.float32),
+            "input_ids": rng.integers(0, cfg.text.vocab_size, (TRAIN_B, L)).astype(np.int64),
+            "attention_mask": (np.arange(L)[None, :] < lengths[:, None]).astype(np.int64),
+            "labels": (rng.random((TRAIN_B, cfg.num_classes)) < 0.3).astype(np.float32),
+            "kg_target": rng.standard_normal((TRAIN_B, KG_DIM)).astype(np.float32),
+            "kg_target_valid": np.ones(TRAIN_B, np.float32),
+        }
+        # deterministic algorithms for both runs (the relative-bias tables' gather
+        # backward accumulates with atomics otherwise), so that the two runs can
+        # be held bit for bit; the step times are taken under it
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        runs = {}
+        for label in ("plain", "dp"):
+            m = MultiModalRetrievalModel(cfg, dtype=bf16, device=dev)
+            init_params(m, seed=SEED)
+            state = init_train_state(m, tcfg, seed=SEED, total_steps=TRAIN_WARMUP + TRAIN_TIMED,
+                                     kg_dim=KG_DIM)
+            pw = np.ones(cfg.num_classes, np.float32)
+            if label == "plain":
+                step, rows = make_train_step(m, tcfg, pos_weight=pw), batch_np
+            else:
+                step = make_train_step_dp(m, tcfg, mesh, pos_weight=pw)
+                rows = {k: M.rows_of(v, mesh) for k, v in batch_np.items()}
+            runs[label] = dict(model=m, state=state, step=step, batch=device_batch(rows, dev),
+                               losses=[], ms=[], counts=[])
+        for _ in range(MESH_STEPS):  # in turns, so that both see the same clock
+            for run in runs.values():
+                reset_counts()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                run["state"], metrics = run["step"](run["state"], run["batch"])
+                ev[1].record()
+                ev[1].synchronize()
+                run["ms"].append(ev[0].elapsed_time(ev[1]))
+                run["counts"].append(read_counts())
+                run["losses"].append(metrics["loss/total"])
+        torch.use_deterministic_algorithms(False)
+        plain, dp = runs["plain"], runs["dp"]
+        differ = [k for k in plain["state"].params
+                  if not torch.equal(plain["state"].params[k], dp["state"].params[k])]
+        l_plain, l_dp, c_dp = plain["losses"], dp["losses"], dp["counts"]
+        log(f"mesh dp step (batch {TRAIN_B}, L{L}, {MESH_STEPS} steps, deterministic "
+            f"algorithms): losses {l_dp} against make_train_step {l_plain}; masters bit-equal "
+            f"{not differ} ({len(dp['state'].params)} tensors); step ms "
+            f"{[round(t, 2) for t in dp['ms']]} against {[round(t, 2) for t in plain['ms']]}, "
+            f"medians after the first {statistics.median(dp['ms'][1:]):.2f} against "
+            f"{statistics.median(plain['ms'][1:]):.2f} (phase 7's median "
+            f"{'not run' if train_ms is None else f'{train_ms:.2f}'}) [{smi}]")
+        want_step = {**zero, **EXPECTED_TRAIN}
+        for i, c in enumerate(c_dp):
+            if c != want_step:
+                fail(f"mesh dp step {i + 1}: launches {c}, expected {want_step}")
+        log(f"mesh dp step: launches a step {({k: v for k, v in c_dp[-1].items() if v})}, "
+            "plain core calls 0, every step")
+        if l_dp != l_plain or differ:
+            fail(f"mesh dp step: not bit-equal to make_train_step (losses {l_dp} vs {l_plain}; "
+                 f"masters that differ: {differ[:5]})")
+        launches["mesh_dp_step"] = c_dp[-1]
+        model = dp["model"].eval()
+        del runs, plain, dp
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = phase_clock("(a, b) group and dp step", t0)
+
+        # -- (c) the sharded engine against the single-device engine ------------
+        gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+        gallery = torch.randn((MESH_GALLERY, cfg.joint_dim), generator=gen,
+                              device=dev).cpu().numpy()
+        gallery_ids = [f"g{i}" for i in range(MESH_GALLERY)]
+        queries = np.concatenate([gallery[[5, 77, 100_007, 4_242]],
+                                  rng.standard_normal((B - 4, cfg.joint_dim))]).astype(np.float32)
+        single = RetrievalEngine(gallery, gallery_ids, device=dev)
+        sharded = RetrievalEngine(gallery, gallery_ids, mesh=mesh)
+        for q in queries:
+            (s1, i1), (s2, i2) = (e.retrieve_batch(q[None], 10) for e in (single, sharded))
+            if not (np.array_equal(i1, i2) and np.array_equal(s1, s2)):
+                fail(f"mesh engine: ids {i2[0].tolist()} / scores differ from the single "
+                     f"engine's {i1[0].tolist()}")
+        p50 = {}
+        for label, e in (("single", single), ("sharded", sharded)):
+            lat = []
+            for _ in range(MESH_TIMED):
+                for q in queries:
+                    t1 = time.perf_counter()
+                    e.retrieve(q, K=10)
+                    lat.append((time.perf_counter() - t1) * 1e3)
+            p50[label] = statistics.median(lat)
+        log(f"mesh engine over {MESH_GALLERY} x {cfg.joint_dim}: {B} requests, ids and scores "
+            f"equal to the single engine's; top-10 p50 {p50['sharded']:.3f} ms sharded, "
+            f"{p50['single']:.3f} ms single (host clock) [{smi}]")
+        t0 = phase_clock("(c) engine", t0)
+
+        # -- (d) entity-sharded KG evaluation on phase 8's graph ------------------
+        r = np.random.default_rng(SEED + 9)
+        trip = np.stack([r.integers(0, KG_ENTITIES, KG_TRIPLES),
+                         r.integers(0, KG_RELATIONS, KG_TRIPLES),
+                         r.integers(0, KG_ENTITIES, KG_TRIPLES)], 1)
+        kgt = kg_trainer.KGTrainer(KG_ENTITIES, KG_RELATIONS, kg_trainer.KGTrainerConfig(
+            model="TransE", emb_dim=KG_DIM, neg_size=KG_NEG, batch_size=KG_BATCH, epochs=1,
+            use_bf16=True, seed=SEED), device=dev)
+        kgt.load_triples(trip.tolist())
+        t1 = time.perf_counter()
+        ref = kgt.evaluate(kgt.val_arr)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        got = evaluate_sharded(kgt, kgt.val_arr, mesh)
+        sh_s = time.perf_counter() - t1
+        log(f"mesh KG eval ({KG_ENTITIES} entities, {len(kgt.val_arr)} val triples): sharded "
+            f"{got} in {sh_s:.2f} s; evaluate {ref} in {ref_s:.2f} s [{smi}]")
+        if got != ref:
+            fail("mesh KG eval: evaluate_sharded differs from KGTrainer.evaluate")
+        del kgt, trip
+        t0 = phase_clock("(d) KG eval", t0)
+
+        # -- (e) the mesh stream against the stream without a mesh ----------------
+        threshold = np.full(cfg.num_classes, 0.5, np.float32)
+        batches = []
+        for bi in range(STREAM_BATCHES):
+            lengths = np.concatenate([[RUN_TEXT_LEN], rng.integers(4, RUN_TEXT_LEN,
+                                                                   STREAM_B - 1)])
+            valid = np.ones(STREAM_B, np.float32)
+            if bi == STREAM_BATCHES - 1:
+                valid[-STREAM_PAD:] = 0
+            batches.append({
+                "image": rng.integers(0, 256, (STREAM_B, 224, 224)).astype(np.uint8),
+                "input_ids": rng.integers(5, cfg.text.vocab_size, (STREAM_B, RUN_TEXT_LEN)),
+                "attention_mask": (np.arange(RUN_TEXT_LEN)[None, :]
+                                   < lengths[:, None]).astype(np.int64),
+                "valid": valid, "ids": [f"s{bi * STREAM_B + j}" for j in range(STREAM_B)]})
+        rows = {}
+        for label, m_, eng in (("single", None, single), ("mesh", mesh, sharded)):
+            pipe = StreamingPipeline(model, eng, LABEL_COLS, threshold, K=10, mesh=m_)
+            reset_counts()
+            rows[label] = list(pipe.run(batches))
+            counts_ = read_counts()
+            stats = pipe.stats
+            log(f"mesh stream {label}: {stats['pairs']} pairs, {stats['pairs_per_sec']:.1f} "
+                f"pairs/s (host clock), mesh {stats['mesh']}, launches per batch "
+                f"{({k: v // STREAM_BATCHES for k, v in counts_.items() if v})}")
+            want_b = {k: v * STREAM_BATCHES for k, v in EXPECTED["whole"].items()}
+            if counts_ != {**zero, **want_b}:
+                fail(f"mesh stream {label}: launches {counts_}, expected {want_b}")
+            if label == "mesh":
+                launches["mesh_stream_batch"] = {k: v // STREAM_BATCHES for k, v in
+                                                 counts_.items()}
+        for a_, b_ in zip(rows["single"], rows["mesh"]):
+            same = (np.array_equal(a_["probs"], b_["probs"])
+                    and np.array_equal(a_["joint_emb"], b_["joint_emb"])
+                    and a_["ids"] == b_["ids"] and a_["predicted"] == b_["predicted"]
+                    and a_["retrieval"] == b_["retrieval"])
+            if not same:
+                fail("mesh stream: rows differ from the stream without a mesh")
+        log(f"mesh stream: {STREAM_BATCHES} batches of {STREAM_B} at L{RUN_TEXT_LEN}, rows equal "
+            "to the stream without a mesh (probs, joint_emb, labels, ids, top-10)")
+        del rows, batches, single, sharded, gallery
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = phase_clock("(e) stream", t0)
+
+        # -- (f) a world-1 data-parallel artifact against the single-device one ----
+        with tempfile.TemporaryDirectory() as tmp:
+            kw = dict(image_size=224, text_len=RUN_TEXT_LEN, batch_sizes=(MESH_ART_BUCKET,),
+                      platforms=("cuda",))
+            paths = {}
+            for label, m_ in (("single", None), ("mesh", mesh)):
+                progs = EX.export_serving_programs(model, mesh=m_, **kw)
+                paths[label] = Path(tmp) / f"{label}.npz"
+                EX.save_artifact(paths[label], progs, EX.serving_state(model), {})
+                log(f"mesh artifact {label}: keys {sorted(progs)}")
+            x = (rng.random((MESH_ART_BUCKET, 224, 224, 3), dtype=np.float32),
+                 rng.integers(5, cfg.text.vocab_size, (MESH_ART_BUCKET, RUN_TEXT_LEN)),
+                 np.ones((MESH_ART_BUCKET, RUN_TEXT_LEN), np.int64))
+            outs = {}
+            for label, m_ in (("single", None), ("mesh", mesh)):
+                pred = EX.ExportedPredictor.load(paths[label], platform="cuda", mesh=m_)
+                outs[label] = pred.call(*x)
+                del pred
+        with torch.inference_mode():
+            live = {k: v.float().cpu().numpy() for k, v in serving_forward(model)(
+                *(torch.from_numpy(a).to(dev) for a in x)).items()}
+        dlive = max(float(np.abs(outs["mesh"][k] - live[k]).max()) for k in live)
+        equal = all(np.array_equal(outs["mesh"][k], outs["single"][k]) for k in outs["single"])
+        log(f"mesh artifact at bucket {MESH_ART_BUCKET}: outputs equal to the single-device "
+            f"artifact's {equal}; max |d| from the live forward {dlive:.3e}")
+        if not equal:
+            fail("mesh artifact: the world-1 data-parallel artifact differs from the "
+                 "single-device artifact")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = phase_clock("(f) artifact", t0)
+
+        # -- (g) several ranks over gloo on the CPU -------------------------------
+        res = dryrun_multichip(4, backend="gloo", timeout_s=300)
+        if not res["line"].endswith(" OK") or not res.get("tp_checked"):
+            fail(f"mesh dryrun_multichip(4): {res}")
+        phase_clock("(g) dryrun_multichip(4) over gloo", t0)
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2552,6 +2913,11 @@ def main() -> int:
             pretrained_phase(torch, dev, smi, Path(tmp) / "openi")
         phase_done("pretrained bootstrap and the other towers")
         log("chip_smoke: --pretrained-only ran phases 1, 2 and 10 alone; no result line")
+        return 0
+    if sys.argv[1:] == ["--mesh-only"]:  # phases 1, 2 and 12 alone, no result line
+        mesh_phase(torch, dev, smi)
+        phase_done("the mesh on one card")
+        log("chip_smoke: --mesh-only ran phases 1, 2 and 12 alone; no result line")
         return 0
     if sys.argv[1:] == ["--export-only"]:  # phases 1, 2 and 11 alone, no result line
         with tempfile.TemporaryDirectory() as tmp:
@@ -3180,6 +3546,15 @@ def main() -> int:
             times.append((time.perf_counter() - t0) * 1e3)
     log(f"top-10 over {len(gallery_ids)} x {cfg.joint_dim}: p50 "
         f"{statistics.median(times):.3f} ms (host clock, query upload to ids)")
+    # what lax.top_k's tie order costs on one query's score row
+    from mmrp_tpu_torch.retrieval.gallery import topk_ordered
+
+    row = torch.randn((1, len(gallery_ids)), generator=gen, device=dev)
+    tk_ms = {name: cuda_ms(torch, fn, reps=50, warmup=5) for name, fn in (
+        ("topk_ordered (a stable sort)", lambda: topk_ordered(row, 10)),
+        ("torch.topk (no tie order)", lambda: torch.topk(row, 10)))}
+    log(f"top-10 of one {len(gallery_ids)}-score row (CUDA events, host issue included): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in tk_ms.items()))
     int8_models = {mix: routes[mix] for mix in INT8_EXPLAIN_MIXES}  # phase 11's
     del model_k1k2, routes, m, engine, fwd, img_d, ids_d, mask_d
     gc.collect()
@@ -4016,6 +4391,10 @@ def main() -> int:
         # -- 10. the pretrained bootstrap and the other towers (phase 8's tree) --------
         launches.update(pretrained_phase(torch, dev, smi, Path(tmp8) / "openi"))
         phase_done("pretrained bootstrap and the other towers")
+
+    # -- 12. the mesh on one card (mesh_phase) ------------------------------------
+    launches.update(mesh_phase(torch, dev, smi, train_ms=ms))
+    phase_done("the mesh on one card")
 
     # -- records ----------------------------------------------------------------
     # launches, and ms / plain_ms / bound_ms: counted or summed over the calls

@@ -4,9 +4,10 @@ Counterpart of the fields of ``mmrp_tpu/config.py::Config`` that
 ``MultiModalConfig.from_config``, ``train/`` (the joint step, the Swin
 finetune, the staged runner), ``kg/``, ``serve/runner.py`` and
 ``serve/stream.py`` read, under the same names, defaults and validation, and
-its derived ``run_name``. The JAX fields of the parts not ported (the device
-mesh, the DLS retrieval backend, the benchmark's text length) and those no
-code reads (``fusion_type``, ``project_name``) are left out.
+its derived ``run_name``, with the device mesh's ``mesh_shape`` and
+``parse_mesh_shape`` (``parallel/mesh.py`` builds the mesh). The benchmark's
+text length, which belongs to the port's benchmark, and the fields no code
+reads (``gallery_shard_axis``, ``fusion_type``, ``project_name``) are left out.
 :meth:`Config.load` reads the JAX package's flat YAML files
 (``configs/config.yaml``) without PyYAML, and :func:`dump_flat_yaml` writes
 one that both packages' ``Config.load`` read (a run directory's
@@ -18,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import asdict, dataclass, fields
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -38,8 +39,8 @@ class Config:
     joint_dim: int = 1024
     num_heads: int = 8
     text_dim: int = 512  # longest text sequence
-    use_shared_ffn: bool = False  # not ported: raises where the model is built
-    use_cls_only: bool = False  # not ported: raises where the model is built
+    use_shared_ffn: bool = False  # one FFN shared by the fusion layers (their plain routes)
+    use_cls_only: bool = False  # each fusion layer pools its first token
     image_size: int = 224
     use_pallas_attention: bool = True  # False: every Swin step on its plain version
     remat_backbone: bool = False  # activation checkpointing of the towers in training
@@ -114,6 +115,9 @@ class Config:
     # bf16 | f32: serve/runner.py serves bf16 on the card, where no kernel
     # takes f32 (it refuses "f32" there), and f32 on the CPU
     dtype_policy: str = "bf16"
+    # the device mesh: "auto" (every device on "dp") | "dp=8" | "dp=4,tp=2" ...
+    # (parse_mesh_shape)
+    mesh_shape: str = "auto"
 
     def __post_init__(self):
         if not (isinstance(self.lr, (int, float)) and self.lr >= 0.0):
@@ -162,6 +166,23 @@ class Config:
             else:
                 parts.append(f"{fld.name}={v}")
         return "_".join(parts)
+
+    def parse_mesh_shape(self, n_devices: int) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+        """Resolve ``mesh_shape`` into (axis_names, axis_sizes) for n_devices."""
+        if self.mesh_shape == "auto":
+            return ("dp",), (n_devices,)
+        names, sizes = [], []
+        for part in self.mesh_shape.split(","):
+            k, _, v = part.partition("=")
+            names.append(k.strip())
+            sizes.append(int(v))
+        total = 1
+        for s in sizes:
+            total *= s
+        if total != n_devices:
+            raise ValueError(
+                f"mesh_shape {self.mesh_shape!r} wants {total} devices, have {n_devices}")
+        return tuple(names), tuple(sizes)
 
     def to_dict(self) -> Dict[str, Any]:
         return asdict(self)

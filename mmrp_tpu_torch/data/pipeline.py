@@ -1,20 +1,21 @@
-"""Host-side input pipeline: threaded prefetch.
+"""Host-side input pipeline: threaded prefetch and per-rank batches.
 
-Counterpart of ``PrefetchLoader`` in ``mmrp_tpu/data/pipeline.py``: one
-producer thread runs the batch iterator (which decodes its samples on its own
-thread pool) ahead of the consumer, and a bounded queue applies
-back-pressure. The JAX module's per-host sharding (``shard_for_host``,
-``device_put_sharded_batch``) belongs to the multi-card path, which is not
-ported (ROADMAP.md Queue 1 item 10).
+Counterpart of ``mmrp_tpu/data/pipeline.py``: ``PrefetchLoader``, one
+producer thread that runs the batch iterator (which decodes its samples on
+its own thread pool) ahead of the consumer, with a bounded queue for
+back-pressure; ``shard_for_host``, a host's round-robin slice of the
+records; and ``device_put_sharded_batch``, this rank's rows of a host batch
+on its device.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Sequence
 
 import numpy as np
+import torch
 
 
 class PrefetchLoader:
@@ -71,3 +72,25 @@ class PrefetchLoader:
         t.join()
         if err:
             raise err[0]
+
+
+def shard_for_host(records: Sequence[dict], host_id: int, num_hosts: int) -> List[dict]:
+    """Deterministic per-host slice (round-robin) of the record list."""
+    return [r for i, r in enumerate(records) if i % num_hosts == host_id]
+
+
+def device_put_sharded_batch(batch: Dict[str, np.ndarray], mesh, data_axis: str = "dp"):
+    """A host batch (the same on every rank) -> this rank's block of rows of
+    each array, the batch dimension sharded over ``data_axis``
+    (``Shard(0)``), as a tensor on the rank's device. Non-array entries (the
+    id list) pass through untouched."""
+    from mmrp_tpu_torch.parallel.mesh import mesh_device, rows_of
+
+    dev = mesh_device(mesh)
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, np.ndarray) and v.ndim >= 1:
+            out[k] = torch.from_numpy(np.ascontiguousarray(rows_of(v, mesh, data_axis))).to(dev)
+        else:
+            out[k] = v
+    return out

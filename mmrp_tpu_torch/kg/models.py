@@ -219,6 +219,54 @@ def _dist(diff: torch.Tensor, p_norm: int) -> torch.Tensor:
     return -torch.sqrt((diff * diff).sum(-1) + 1e-12)
 
 
+def score_rows(cfg: KGModelConfig, tails: bool, anchor_emb: torch.Tensor,
+               rel_row: torch.Tensor, w_row: Optional[torch.Tensor],
+               ent: torch.Tensor) -> torch.Tensor:
+    """(B, E') scores of B queries against the candidate rows ``ent`` (the
+    whole entity table, or one rank's block of it in ``kg/sharded_eval.py``):
+    the anchor's embedding (the head for tail replacement, the tail for head
+    replacement), the relation's row and TransH's unnormalized hyperplane row
+    (``w_row``, else None). Only per-candidate operations touch ``ent``, so a
+    block of rows scores as those rows of the whole table do."""
+    if cfg.name in ("TransE", "CompGCN"):
+        # tails: ||(s + r) - o'||  ==  heads: ||(o - r) - s'||
+        query = anchor_emb + rel_row if tails else anchor_emb - rel_row
+        if cfg.p_norm == 1:
+            return -torch.cdist(query[None], ent[None], p=1)[0]
+        return torch.cat([_dist(query[i:i + _ROW_GROUP, None, :] - ent[None], cfg.p_norm)
+                          for i in range(0, len(query), _ROW_GROUP)])
+    if cfg.name == "TransH":
+        w = w_row / torch.clamp(torch.linalg.vector_norm(w_row, dim=-1, keepdim=True), min=1e-8)
+        qe, qr = anchor_emb, rel_row
+        out = []
+        for i in range(0, len(qe), _ROW_GROUP):
+            qw, e, rr = w[i:i + _ROW_GROUP], qe[i:i + _ROW_GROUP], qr[i:i + _ROW_GROUP]
+            ent_p = ent[None] - (ent @ qw.T).T[:, :, None] * qw[:, None, :]  # (b, E, D)
+            q_p = e - (e * qw).sum(-1, keepdim=True) * qw
+            diff = ((q_p + rr)[:, None, :] - ent_p if tails else
+                    ent_p + rr[:, None, :] - q_p[:, None, :])
+            out.append(_dist(diff, cfg.p_norm))
+        return torch.cat(out)
+    if cfg.name == "RotatE":
+        D = cfg.emb_dim
+        re_all, im_all = ent[:, :D], ent[:, D:]
+        ae, ph = anchor_emb, rel_row
+        a_re, a_im = ae[:, :D], ae[:, D:]
+        r_re, r_im = torch.cos(ph), torch.sin(ph)
+        if tails:
+            rot_re, rot_im = a_re * r_re - a_im * r_im, a_re * r_im + a_im * r_re
+        else:  # inverse rotation applied to the (tail) anchor
+            rot_re, rot_im = a_re * r_re + a_im * r_im, a_im * r_re - a_re * r_im
+        out = []
+        for i in range(0, len(ae), _ROW_GROUP):
+            sl = slice(i, i + _ROW_GROUP)
+            d = torch.sqrt((rot_re[sl, None, :] - re_all[None]) ** 2
+                           + (rot_im[sl, None, :] - im_all[None]) ** 2 + 1e-12).sum(-1)
+            out.append(cfg.gamma - d)
+        return torch.cat(out)
+    raise ValueError(cfg.name)
+
+
 def make_score_all_fn(cfg: KGModelConfig, tails: bool = True) -> Callable:
     """score_all(params, anchor, r) -> (B, num_entities) scores against every
     entity as the tail (``tails``) or as the head. ``anchor`` is the head for
@@ -229,44 +277,10 @@ def make_score_all_fn(cfg: KGModelConfig, tails: bool = True) -> Callable:
             ent, rel = compgcn_propagate(cfg, params)
         else:
             ent, rel = params["ent"], params["rel"]
-        if cfg.name in ("TransE", "CompGCN"):
-            # tails: ||(s + r) - o'||  ==  heads: ||(o - r) - s'||
-            query = ent[anchor] + rel[r] if tails else ent[anchor] - rel[r]
-            if cfg.p_norm == 1:
-                return -torch.cdist(query[None], ent[None], p=1)[0]
-            return torch.cat([_dist(query[i:i + _ROW_GROUP, None, :] - ent[None], cfg.p_norm)
-                              for i in range(0, len(query), _ROW_GROUP)])
-        if cfg.name == "TransH":
-            w = params["norm"][r]
-            w = w / torch.clamp(torch.linalg.vector_norm(w, dim=-1, keepdim=True), min=1e-8)
-            qe, qr = ent[anchor], rel[r]
-            out = []
-            for i in range(0, len(qe), _ROW_GROUP):
-                qw, e, rr = w[i:i + _ROW_GROUP], qe[i:i + _ROW_GROUP], qr[i:i + _ROW_GROUP]
-                ent_p = ent[None] - (ent @ qw.T).T[:, :, None] * qw[:, None, :]  # (b, E, D)
-                q_p = e - (e * qw).sum(-1, keepdim=True) * qw
-                diff = ((q_p + rr)[:, None, :] - ent_p if tails else
-                        ent_p + rr[:, None, :] - q_p[:, None, :])
-                out.append(_dist(diff, cfg.p_norm))
-            return torch.cat(out)
-        if cfg.name == "RotatE":
-            D = cfg.emb_dim
-            re_all, im_all = ent[:, :D], ent[:, D:]
-            ae, ph = ent[anchor], rel[r]
-            a_re, a_im = ae[:, :D], ae[:, D:]
-            r_re, r_im = torch.cos(ph), torch.sin(ph)
-            if tails:
-                rot_re, rot_im = a_re * r_re - a_im * r_im, a_re * r_im + a_im * r_re
-            else:  # inverse rotation applied to the (tail) anchor
-                rot_re, rot_im = a_re * r_re + a_im * r_im, a_im * r_re - a_re * r_im
-            out = []
-            for i in range(0, len(ae), _ROW_GROUP):
-                sl = slice(i, i + _ROW_GROUP)
-                d = torch.sqrt((rot_re[sl, None, :] - re_all[None]) ** 2
-                               + (rot_im[sl, None, :] - im_all[None]) ** 2 + 1e-12).sum(-1)
-                out.append(cfg.gamma - d)
-            return torch.cat(out)
-        raise ValueError(cfg.name)
+        if cfg.name not in ("TransE", "CompGCN", "TransH", "RotatE"):
+            raise ValueError(cfg.name)
+        w_row = params["norm"][r] if cfg.name == "TransH" else None
+        return score_rows(cfg, tails, ent[anchor], rel[r], w_row, ent)
 
     return score_all
 

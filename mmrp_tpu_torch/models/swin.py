@@ -53,6 +53,7 @@ PatchMerging concatenating in ``reshape(B, H/2, 2, W/2, 2, C).transpose(0, 1,
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -290,6 +291,26 @@ def train_plan(cfg: SwinConfig) -> List[Optional[str]]:
                     for b in range(cfg.depths[stage]))
         plan.append("kernel" if takes else "plain")
     return plan
+
+
+@contextlib.contextmanager
+def force_core(model: nn.Module, enabled: Optional[bool]):
+    """Within the context, the training route's attention-core sites of
+    every ``SwinEncoder`` in ``model`` (JAX's ``force_core``): False sends
+    each ``kernel`` site to ``plain``; None and True leave the plan as it is
+    (the kernel already runs wherever C-F / C-B take the shapes)."""
+    if enabled is not False:
+        yield
+        return
+    encoders = [m for m in model.modules() if isinstance(m, SwinEncoder)]
+    saved = [enc.train_plan for enc in encoders]
+    for enc in encoders:
+        enc.train_plan = ["plain" if r == "kernel" else r for r in enc.train_plan]
+    try:
+        yield
+    finally:
+        for enc, plan in zip(encoders, saved):
+            enc.train_plan = plan
 
 
 class PatchEmbed(nn.Module):

@@ -1,7 +1,7 @@
 """Where the device time of one flagship forward, or train step, goes.
 
     python -m mmrp_tpu_torch.profile_forward [--batch 8 64] [--text-len 64 512] [--out FILE]
-    python -m mmrp_tpu_torch.profile_forward --train [--batch 64] [--out FILE]
+    python -m mmrp_tpu_torch.profile_forward --train [--dp] [--batch 64] [--out FILE]
 
 On one CUDA device: builds the flagship model (Swin-B 224 px, ClinicalBERT
 dims, 5 fusion layers at 1024) in bf16 from a seeded init, on each route with
@@ -34,6 +34,10 @@ repeated): the step time without the profiler, then the device time by kind,
 where the raw-layout attention core's forward (C-F) and backward (C-B; a
 parent tree's chunk reduction counted with it) are kinds of their own, and
 their device time per launch at each Swin stage (by launch order in the step).
+With ``--dp`` it adds ``train/joint.py::make_train_step_dp`` on a one-rank
+NCCL mesh (route ``train_dp``, its own state, timed in turns with the plain
+step), where the collectives are a kind of their own, and prints the host
+operations whose self time (under the profiler) grew most from the plain step.
 """
 
 from __future__ import annotations
@@ -67,6 +71,7 @@ KINDS = (  # (kind, test on the kernel name), first match wins
     ("whole-block MLP epilogue, int8", lambda n: "block_mlp" in n
      and "block_mlp_kernel<false" not in n),
     ("whole-block MLP epilogue", lambda n: "block_mlp_kernel" in n),
+    ("NCCL collectives", lambda n: "nccl" in n.lower()),
     ("library GEMMs", lambda n: any(k in n.lower() for k in ("gemm", "cutlass", "xmma",
                                                              "nvjet", "sm90_", "cublas"))),
     ("other (copies, casts, elementwise)", lambda n: True),
@@ -136,7 +141,9 @@ def profile(fwd, args, reps: int = 5) -> dict:
         first = evt.time_range.start if first is None else min(first, evt.time_range.start)
         last = evt.time_range.end if last is None else max(last, evt.time_range.end)
     busy = sum(ms for ms, _ in kinds.values())
-    rec = {"busy_ms": busy, "profiled_span_ms": (last - first) / 1e3 / reps if first else None,
+    host = {e.key: e.self_cpu_time_total / 1e3 / reps for e in prof.key_averages()
+            if e.self_cpu_time_total > 0}
+    rec = {"busy_ms": busy, "host_self_ms": host, "profiled_span_ms": (last - first) / 1e3 / reps if first else None,
            "complete": all(n % reps == 0 for _, n in kinds.values()),
            "kinds": {k: {"ms": ms, "launches": n / reps} for k, (ms, n) in kinds.items()}}
     split = {kind: by_stage([us for _, us in sorted(events)], CORE_STAGES[kind], reps)
@@ -215,20 +222,54 @@ def forward_lines(card: str, batches, lengths, dev: torch.device) -> list:
     return lines
 
 
-def train_lines(card: str, batches, dev: torch.device) -> list:
-    """One record per batch for the flagship train step."""
+def paired_ms(fns: dict, reps: int = 10, warmup: int = 2) -> dict:
+    """Median CUDA-event ms of each fn, the fns timed in turns (one clock)."""
+    for _ in range(warmup):
+        for fn in fns.values():
+            fn()
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def train_lines(card: str, batches, dev: torch.device, dp: bool = False) -> list:
+    """One record per batch for the flagship train step; with ``dp`` also
+    one for ``make_train_step_dp`` on a one-rank NCCL mesh (route
+    ``train_dp``), each with its own state, timed in turns with the plain
+    step."""
     from mmrp_tpu_torch.config import Config
-    from mmrp_tpu_torch.train.joint import init_train_state, make_train_step
+    from mmrp_tpu_torch.train.joint import init_train_state, make_train_step, make_train_step_dp
 
     cfg = MultiModalConfig.flagship()
     model = MultiModalRetrievalModel(cfg, dtype=torch.bfloat16, device=dev)
     init_params(model, seed=0)
     tcfg = Config(lr=1e-4)
+    pw = np.ones(cfg.num_classes, np.float32)
     rng = np.random.default_rng(1)
     lines = []
+    if dp:
+        import torch.distributed as dist
+
+        from mmrp_tpu_torch.parallel import mesh as M
+        from mmrp_tpu_torch.parallel.collectives import initialize_distributed
+        from mmrp_tpu_torch.parallel.dryrun import free_port
+
+        initialize_distributed(f"localhost:{free_port()}", 1, 0)
+        mesh = M.build_mesh(("dp",))
     for batch in batches:
-        state = init_train_state(model, tcfg, seed=0, total_steps=1000, kg_dim=300)
-        step = make_train_step(model, tcfg, pos_weight=np.ones(cfg.num_classes, np.float32))
+        steps = {"train": (make_train_step(model, tcfg, pos_weight=pw),
+                           init_train_state(model, tcfg, seed=0, total_steps=1000, kg_dim=300))}
+        if dp:
+            steps["train_dp"] = (make_train_step_dp(model, tcfg, mesh, pos_weight=pw),
+                                 init_train_state(model, tcfg, seed=0, total_steps=1000,
+                                                  kg_dim=300))
         data = {"image": rng.random((batch, 224, 224, 3), dtype=np.float32),
                 "input_ids": rng.integers(0, cfg.text.vocab_size, (batch, 64)),
                 "attention_mask": np.ones((batch, 64), np.int64),
@@ -236,15 +277,27 @@ def train_lines(card: str, batches, dev: torch.device) -> list:
                 "kg_target": rng.standard_normal((batch, 300)).astype(np.float32),
                 "kg_target_valid": np.ones(batch, np.float32)}
         data = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
-
-        def run(state=state, step=step, data=data):
-            step(state, data)  # the state is updated in place
-
-        ms = forward_ms(run, ())
-        rec = {"card": card, "route": "train", "batch": batch, "step_ms": ms,
-               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-               **profile(run, ())}
-        lines.append(report(rec, ms))
+        runs = {route: (lambda step=step, state=state: step(state, data))  # state in place
+                for route, (step, state) in steps.items()}
+        ms, recs = paired_ms(runs), {}
+        for route, run in runs.items():
+            torch.cuda.reset_peak_memory_stats()
+            rec = {"card": card, "route": route, "batch": batch, "step_ms": ms[route],
+                   **profile(run, ()),
+                   "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            lines.append(report(rec, ms[route]))
+            recs[route] = rec
+        if dp:  # where the dp step's host time goes beyond the plain step's
+            a, b = recs["train"]["host_self_ms"], recs["train_dp"]["host_self_ms"]
+            diff = sorted(((b.get(k, 0.0) - a.get(k, 0.0), k) for k in set(a) | set(b)),
+                          reverse=True)
+            print(f"host self time under the profiler: train {sum(a.values()):.3f} ms, "
+                  f"train_dp {sum(b.values()):.3f} ms; the largest differences (ms):", flush=True)
+            for d, k in diff[:12]:
+                print(f"  {d:+9.3f}  {k}", flush=True)
+        del steps, runs
+    if dp:
+        dist.destroy_process_group()
     return lines
 
 
@@ -255,6 +308,8 @@ def main(argv=None) -> None:
                     help="text lengths of the serving forward (up to 512)")
     ap.add_argument("--train", action="store_true",
                     help="profile the flagship train step (default batch 64)")
+    ap.add_argument("--dp", action="store_true",
+                    help="with --train: also make_train_step_dp on a one-rank NCCL mesh")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -265,7 +320,7 @@ def main(argv=None) -> None:
                           check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     if args.train:
-        lines = train_lines(card, args.batch or [64], dev)
+        lines = train_lines(card, args.batch or [64], dev, dp=args.dp)
     else:
         lines = forward_lines(card, args.batch or [8, 64], args.text_len, dev)
     if args.out:

@@ -191,9 +191,9 @@ def make_retrieval_engine(
     **kw,
 ):
     """Factory mirroring reference make_retrieval_engine (retrieval.py:273-304);
-    ``device`` goes to either engine. The JAX exact engine's mesh options are
-    not ported (ROADMAP.md Queue 1 item 10c) and, as JAX does with keys it
-    does not know, are dropped."""
+    ``device`` goes to either engine, and the exact engine also takes
+    ``mesh`` and ``shard_axis``. As JAX does, each engine drops the keys it
+    does not know."""
     if backend == "dls":
         allowed = {
             "max_links", "link_threshold", "seed_size", "max_steps",
@@ -203,5 +203,6 @@ def make_retrieval_engine(
             embeddings, ids, **{k: v for k, v in kw.items() if k in allowed}
         )
     if backend == "exact":
-        return RetrievalEngine(embeddings, ids, device=kw.get("device", DEFAULT_DEVICE))
+        allowed = {"mesh", "shard_axis", "device"}
+        return RetrievalEngine(embeddings, ids, **{k: v for k, v in kw.items() if k in allowed})
     raise ValueError(f"unknown retrieval backend {backend!r}")

@@ -20,8 +20,15 @@ import the op registrations (``mmrp_tpu_torch.ops``) and nothing of
   ``cuda``, as every entry point of the port runs on the card unless asked
   otherwise (JAX's default is ``cpu``). Exporting ``cuda`` without a card
   raises: a ``cuda`` key never holds a plain-version program. ``tpu``
-  raises, and so does ``mesh`` (data-parallel programs over several cards
-  are ROADMAP.md Queue 1 item 10c).
+  raises.
+- **Data-parallel programs**: with a one-axis ``mesh`` (``parallel/
+  mesh.py``) each bucket's program is traced at the per-rank batch
+  (bucket / mesh size; buckets the size does not divide are refused, as
+  JAX refuses them) and its key records the replica count,
+  ``{platform}::{batch}::{replicas}``. ``ExportedPredictor.load`` refuses a
+  multi-replica artifact without a mesh, and a mesh of another size; under a
+  mesh every rank calls ``call`` with the whole request, runs its block of
+  the padded rows and all-gathers the outputs.
 - **Weights once**: a program takes the model's state (parameters and
   buffers by name) as its first input, as JAX's takes ``params``; the file
   holds each tensor once under ``p::<name>`` whatever the number of
@@ -82,11 +89,15 @@ class _Program(torch.nn.Module):
             self._serving[0], {f"model.{k}": v for k, v in state.items()}, (image, ids, mask))
 
 
-def _check_platforms(platforms: Sequence[str], mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel serving programs over a mesh of cards are not ported "
-            "(ROADMAP.md Queue 1 item 10c)")
+def _mesh_size(mesh) -> int:
+    """The size of a one-axis mesh (JAX's ``(axis,) = mesh.axis_names``)."""
+    if len(mesh.mesh_dim_names) != 1:
+        raise ValueError(f"a data-parallel artifact takes a one-axis mesh, not "
+                         f"{mesh.mesh_dim_names}")
+    return int(mesh.size())
+
+
+def _check_platforms(platforms: Sequence[str]) -> None:
     for plat in platforms:
         if plat not in PLATFORMS:
             raise ValueError(f"platform {plat!r}: the port exports {list(PLATFORMS)} "
@@ -101,8 +112,15 @@ def export_serving_programs(model, *, image_size: int, text_len: int,
     ``{"{platform}::{batch}": bytes}``. A ``cuda`` program needs the model
     on the card (bf16, the kernels' precision); a ``cpu`` program is traced
     on CPU stand-ins of the same state, dtypes included, so that both
-    platforms take the one state the artifact stores."""
-    _check_platforms(platforms, mesh)
+    platforms take the one state the artifact stores. ``mesh``: one program
+    per bucket at the per-rank batch, keyed ``{platform}::{batch}::{replicas}``
+    (module docstring)."""
+    _check_platforms(platforms)
+    replicas = 1 if mesh is None else _mesh_size(mesh)
+    if mesh is not None:
+        bad = [b for b in batch_sizes if b % replicas]
+        if bad:
+            raise ValueError(f"batch buckets {bad} not divisible by mesh size {replicas}")
     state = serving_state(model)
     prog = _Program(model)
     out: Dict[str, bytes] = {}
@@ -120,14 +138,16 @@ def export_serving_programs(model, *, image_size: int, text_len: int,
             example = {k: v if v.device.type == "cpu" else torch.empty_like(v, device=dev)
                        for k, v in state.items()}
         for b in sorted(set(int(x) for x in batch_sizes)):
-            args = (example, torch.zeros((b, image_size, image_size, 3), device=dev),
-                    torch.zeros((b, text_len), dtype=torch.long, device=dev),
-                    torch.ones((b, text_len), dtype=torch.long, device=dev))
+            rows = b // replicas
+            args = (example, torch.zeros((rows, image_size, image_size, 3), device=dev),
+                    torch.zeros((rows, text_len), dtype=torch.long, device=dev),
+                    torch.ones((rows, text_len), dtype=torch.long, device=dev))
             ep = torch.export.export(prog, args, strict=False)
             ep._example_inputs = None  # the state is stored once, beside the programs
             buf = io.BytesIO()
             torch.export.save(ep, buf)
-            out[f"{plat}{_SEP}{b}"] = buf.getvalue()
+            key = f"{plat}{_SEP}{b}" + ("" if mesh is None else f"{_SEP}{replicas}")
+            out[key] = buf.getvalue()
     return out
 
 
@@ -155,6 +175,15 @@ def _json(z, key: str):
     return json.loads(bytes(z[key].tobytes()).decode("utf-8"))
 
 
+def _check_replicas(replicas, mesh) -> None:
+    if set(replicas) - {1} and mesh is None:
+        raise ValueError(f"artifact programs span {sorted(replicas)} devices — pass a "
+                         "same-size mesh to load()")
+    if mesh is not None and set(replicas) != {_mesh_size(mesh)}:
+        raise ValueError(f"mesh size {_mesh_size(mesh)} does not match the artifact's "
+                         f"program device count {sorted(replicas)}")
+
+
 class ExportedPredictor:
     """Load an artifact and serve embed + predict without any model code.
 
@@ -162,19 +191,23 @@ class ExportedPredictor:
     largest bucket, chunked, for oversize requests) and trims the outputs
     back to the true row count."""
 
-    def __init__(self, programs, state, meta, device: torch.device):
+    def __init__(self, programs, state, meta, device: torch.device, replicas=frozenset({1}),
+                 mesh=None):
         self._programs = programs  # {batch: callable(state, image, ids, mask)}
         self._state = state
         self.meta = meta
         self.device = device
         self.batch_sizes = sorted(programs)
+        self._mesh = mesh
+        _check_replicas(replicas, mesh)
 
     @classmethod
     def load(cls, path, platform: Optional[str] = None, mesh=None) -> "ExportedPredictor":
         """The programs of ``platform`` (default ``cuda``; ``cpu`` runs the
-        plain versions) and the state on its device, once for all buckets."""
+        plain versions) and the state on its device, once for all buckets;
+        with ``mesh``, on this rank's device (the mesh's)."""
         plat = platform or "cuda"
-        _check_platforms((plat,), mesh)
+        _check_platforms((plat,))
         if plat == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ExportedPredictor.load: no CUDA device here "
                                "(torch.cuda.is_available() is false); pass platform='cpu' "
@@ -193,7 +226,16 @@ class ExportedPredictor:
         if not matching:
             raise ValueError(f"artifact has no programs for platform {plat!r} "
                              f"(available: {avail}); re-export with --platforms {plat}")
+        # "{platform}::{batch}[::{replicas}]"
+        replicas = {int(k.split(_SEP)[2]) if k.count(_SEP) == 2 else 1 for k in matching}
+        _check_replicas(replicas, mesh)  # before anything is deserialized
         dev = torch.device(plat)
+        if mesh is not None:
+            from mmrp_tpu_torch.parallel.mesh import mesh_device
+
+            dev = mesh_device(mesh)
+            if dev.type != plat:
+                raise ValueError(f"platform {plat!r} on a mesh of {dev.type} devices")
         state = {}
         for k, a in arrays.items():
             t = torch.from_numpy(a)
@@ -202,7 +244,7 @@ class ExportedPredictor:
             state[k] = t.to(dev)
         programs = {int(k.split(_SEP)[1]): torch.export.load(io.BytesIO(v)).module()
                     for k, v in matching.items()}
-        return cls(programs, state, meta, dev)
+        return cls(programs, state, meta, dev, replicas, mesh)
 
     def _run_bucket(self, b: int, image, ids, mask) -> Dict[str, np.ndarray]:
         n = image.shape[0]
@@ -212,11 +254,24 @@ class ExportedPredictor:
             ids = np.concatenate([ids, np.zeros((pad,) + ids.shape[1:], ids.dtype)])
             mask = np.concatenate([mask, np.ones((pad,) + mask.shape[1:], mask.dtype)])
         dev = self.device
+        if self._mesh is not None:  # this rank's block of the padded rows
+            from mmrp_tpu_torch.parallel.mesh import rows_of
+
+            axis = self._mesh.mesh_dim_names[0]
+            image, ids, mask = (rows_of(x, self._mesh, axis) for x in (image, ids, mask))
         with torch.inference_mode():
             outs = self._programs[b](self._state, torch.from_numpy(image).to(dev),
                                      torch.from_numpy(ids).to(dev),
                                      torch.from_numpy(mask).to(dev))
+            if self._mesh is not None:
+                outs = {k: self._gather(v) for k, v in outs.items()}
         return {k: v.float().cpu().numpy()[:n] for k, v in outs.items()}
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's block of rows, in rank order."""
+        from mmrp_tpu_torch.parallel.collectives import all_gather_cat
+
+        return all_gather_cat(t, self._mesh.get_group())
 
     def call(self, image, ids, mask) -> Dict[str, np.ndarray]:
         image = np.asarray(image, np.float32)
@@ -256,7 +311,7 @@ def export_run(run_dir: str, out_path: str, *, batch_sizes: Sequence[int] = (1, 
     programs per platform, its state once, JAX's ``meta``."""
     from mmrp_tpu_torch.serve.runner import build_demo_context
 
-    _check_platforms(platforms, None)
+    _check_platforms(platforms)
     predictor = build_demo_context(run_dir, data_dir=data_dir,
                                    device="cuda" if "cuda" in platforms else "cpu")["predictor"]
     meta = run_meta(predictor, batch_sizes, platforms)

@@ -1,13 +1,19 @@
 """Streaming embed + retrieve + predict at batch.
 
-Counterpart of the single-device path of ``mmrp_tpu/serve/stream.py``: one
-serving forward per batch (``api.serving_forward``, the kernels of the
-serving route), the exact gallery top-K on its device-resident embeddings
+Counterpart of ``mmrp_tpu/serve/stream.py``: one serving forward per batch
+(``api.serving_forward``, the kernels of the serving route), the exact
+gallery top-K on its device-resident embeddings
 (``RetrievalEngine.retrieve_batch_device``), per-class calibrated
 thresholds, and ``run_stream`` to push a data split of a trained run through
-it into ``predictions.jsonl``. The JAX package's mesh path (a data-parallel
-forward and a sharded gallery) waits for the multi-card work (ROADMAP.md
-Queue 1 item 10): ``stats["mesh"]`` is always None.
+it into ``predictions.jsonl``.
+
+With a ``mesh`` (every rank runs the pipeline over the same loader, its model
+on its device) the forward is data-parallel: each rank runs its block of
+every batch's rows, the probabilities and embeddings are all-gathered over
+the ``dp`` axis, and the top-K runs on the gathered embeddings (over the
+engine's sharded gallery when the engine has the mesh), so every rank yields
+the rows the single-device stream yields. ``stats["mesh"]`` is the mesh's
+shape as JAX prints it.
 
 Compact ingest, finished on the device, as in JAX:
 
@@ -40,6 +46,8 @@ from mmrp_tpu_torch.config import Config
 from mmrp_tpu_torch.data.dataset import ChestXRDataset, build_dataloader
 from mmrp_tpu_torch.device import DEFAULT_DEVICE
 from mmrp_tpu_torch.ops.preprocess import window_normalize
+from mmrp_tpu_torch.parallel.collectives import all_gather_cat
+from mmrp_tpu_torch.parallel.mesh import axis_group, mesh_shape, rows_of
 from mmrp_tpu_torch.retrieval.gallery import RetrievalEngine
 from mmrp_tpu_torch.serve.runner import build_demo_context
 
@@ -47,12 +55,13 @@ from mmrp_tpu_torch.serve.runner import build_demo_context
 class StreamingPipeline:
     def __init__(self, model, engine: Optional[RetrievalEngine] = None,
                  label_names: Optional[Sequence[str]] = None,
-                 threshold: "float | np.ndarray" = 0.5, K: int = 10):
+                 threshold: "float | np.ndarray" = 0.5, K: int = 10, mesh=None):
         self.model = model
         self.engine = engine
         self.label_names = list(label_names) if label_names else None
         self.threshold = np.asarray(threshold)
         self.K = K
+        self.mesh = mesh
         self.device = next(model.parameters()).device
         self._fwd = serving_forward(model)
         # set by run() once the stream is consumed; None until then
@@ -98,13 +107,19 @@ class StreamingPipeline:
         the results into pinned host memory, behind which an event is
         recorded. The copies sit on the stream ahead of the next batch's
         forward, so waiting for this event does not wait for that forward."""
-        tb = self._put(batch)
+        rows = batch
+        if self.mesh is not None:  # this rank's block of the rows
+            rows = {k: rows_of(np.asarray(batch[k]), self.mesh, "dp")
+                    for k in self._DEVICE_KEYS if k in batch}
+        tb = self._put(rows)
         image = self._ingest(tb["image"], tb.get("window_center"), tb.get("window_width"),
                              np.asarray(batch["image"]).dtype == np.uint16)
         out = self._fwd(image, tb["input_ids"].long(), tb["attention_mask"].long())
         dev = [out["probs"].float(), out["joint_emb"].float()]
+        if self.mesh is not None:
+            dev = [self._gather(t) for t in dev]
         if self.engine is not None:
-            dev += self.engine.retrieve_batch_device(out["joint_emb"], self.K)
+            dev += self.engine.retrieve_batch_device(dev[1], self.K)
         if self.device.type != "cuda":
             return batch, dev, None
         host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in dev]
@@ -113,6 +128,10 @@ class StreamingPipeline:
         done = torch.cuda.Event()
         done.record()
         return batch, host, done
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's block of rows, in rank order (enqueued, no host sync)."""
+        return all_gather_cat(t, axis_group(self.mesh, "dp"))
 
     def _finish(self, batch, host, done) -> Dict[str, Any]:
         """Wait for a dispatched batch's own copies (the only sync), then on
@@ -177,7 +196,7 @@ class StreamingPipeline:
             "pairs_per_sec": n / dt if dt > 0 else 0.0,
             "retrieval": self.engine is not None,
             "depth": depth,
-            "mesh": None,
+            "mesh": None if self.mesh is None else str(mesh_shape(self.mesh)),
         }
 
 

@@ -1,7 +1,8 @@
 """The joint multi-modal train step: loss assembly, backward, clip, AdamW.
 
 Counterpart of ``mmrp_tpu/train/joint.py`` (``init_train_state``,
-``compute_losses``, ``assemble_losses``, ``make_train_step``):
+``compute_losses``, ``assemble_losses``, ``make_train_step``,
+``make_train_step_dp``, ``make_eval_step``):
 
     loss = cls_weight * hybrid(BCE + focal, pos_weight)
          + cont_weight * (InfoNCE(img, txt) + weight_img_joint * InfoNCE(img, joint)
@@ -109,11 +110,78 @@ def make_train_step(model: MultiModalRetrievalModel, cfg: Config,
     unclipped gradients, as Python floats. A ``remat_backbone`` model
     recomputes each tower block's activations in the backward
     (``models/layers.py::remat``): the same gradients, less memory."""
+    return _make_step(model, cfg, pos_weight)
+
+
+# the model outputs and the batch entries the loss of a data-parallel step
+# reads across ranks
+_GATHER_OUT = ("logits", "img_emb", "txt_emb", "joint_emb")
+_GATHER_BATCH = ("labels", "valid", "kg_target", "kg_target_valid")
+
+
+def make_train_step_dp(model: MultiModalRetrievalModel, cfg: Config, mesh, pos_weight=None,
+                       *, axis_name: str = "dp",
+                       core_kernel: Optional[bool] = None) -> Callable:
+    """Data-parallel ``step(state, batch)``: every rank of ``mesh`` calls it
+    with its own rows of the global batch (``data/pipeline.py::
+    device_put_sharded_batch``) and the same state, and gets the same
+    updated state and metrics as ``make_train_step`` on the whole batch.
+
+    Each rank runs the training route on its rows, so the attention core
+    (C-F / C-B) takes per-rank shapes, as JAX's ``shard_map`` hands its
+    Pallas core per-shard shapes. The batch-coupled losses (in-batch InfoNCE
+    negatives, global masked means) see the whole batch: ``logits``,
+    ``img_emb``, ``txt_emb`` and ``joint_emb``, and the batch's ``labels``,
+    ``valid``, ``kg_target`` and ``kg_target_valid``, are all-gathered over
+    ``axis_name`` with autograd (``parallel/collectives.py::
+    all_gather_rows``), and every rank assembles the global loss. The
+    gather's backward sums the ranks' identical cotangents, so each rank's
+    gradients are n times its rows' share; their all-reduce divided by n is
+    the global gradient (``parallel/collectives.py::all_reduce_mean``: one
+    concatenation, one cast to f32 and one all-reduce; the optimizer takes
+    the f32 views as they are).
+
+    Dropout is drawn from the same per-step generator on every rank over its
+    local shape: the masks differ from the single-program step's (same
+    distribution; exact comparisons use dropout 0). ``core_kernel``: None
+    or True, the model's training route (C-F / C-B on the card); False, the
+    plain core (``models/swin.py::force_core``).
+
+    A state placed by ``parallel/mesh.py::shard_state`` keeps its
+    rule-matched masters and moments as ``DTensor`` blocks: the norm is
+    taken over the whole gradients, each rank updates its blocks, and the
+    masters are gathered whole into the model."""
+    return _make_step(model, cfg, pos_weight, mesh=mesh, axis_name=axis_name,
+                      core_kernel=core_kernel)
+
+
+def _make_step(model: MultiModalRetrievalModel, cfg: Config, pos_weight, mesh=None,
+               axis_name: str = "dp", core_kernel: Optional[bool] = None) -> Callable:
+    from mmrp_tpu_torch.models.swin import force_core
+
     device = next(model.parameters()).device
     pw = None if pos_weight is None else torch.as_tensor(pos_weight, dtype=torch.float32,
                                                          device=device)
     named = dict(model.named_parameters())
     write_back = make_write_back(model)
+    if mesh is not None:
+        from mmrp_tpu_torch.parallel import mesh as M
+        from mmrp_tpu_torch.parallel.collectives import all_gather_rows, all_reduce_mean
+
+        group = M.axis_group(mesh, axis_name)
+
+    def losses(kg_proj, batch, generator):
+        if mesh is None:
+            return compute_losses(model, kg_proj, batch, generator, cfg, pw)
+        image = batch["image"]
+        if cfg.augment:
+            image = preprocess.augment_batch(image, generator)
+        with force_core(model, core_kernel):
+            out = model(image, batch["input_ids"], batch["attention_mask"],
+                        deterministic=False, generator=generator)
+        gout = {k: all_gather_rows(out[k], group) for k in _GATHER_OUT}
+        gbatch = {k: all_gather_rows(batch[k], group) for k in _GATHER_BATCH if k in batch}
+        return assemble_losses(kg_proj, gout, gbatch, cfg, pw)
 
     def step(state: TrainState, batch: Batch):
         generator = state.step_generator(device)
@@ -121,7 +189,7 @@ def make_train_step(model: MultiModalRetrievalModel, cfg: Config,
         if kg_proj is not None:
             kg_proj.requires_grad_(True)
         model.zero_grad(set_to_none=True)
-        total, metrics = compute_losses(model, kg_proj, batch, generator, cfg, pw)
+        total, metrics = losses(kg_proj, batch, generator)
         total.backward()
         grads = {name: p.grad if p.grad is not None else torch.zeros_like(p)
                  for name, p in named.items()}
@@ -132,12 +200,45 @@ def make_train_step(model: MultiModalRetrievalModel, cfg: Config,
             kg_proj.requires_grad_(False)
             kg_proj.grad = None
         metrics = {k: float(v.detach()) for k, v in metrics.items()}
-        metrics["grad_norm"] = state.tx.apply(state, grads)
+        if mesh is None:
+            metrics["grad_norm"], params = state.tx.apply(state, grads), state.params
+        else:
+            grads = dict(zip(grads, all_reduce_mean(list(grads.values()), group)))
+            metrics["grad_norm"], params = _apply_placed(state, grads, mesh)
         model.zero_grad(set_to_none=True)
-        write_back(state.params)
+        write_back(params)
         return state, metrics
 
     return step
+
+
+def _apply_placed(state: TrainState, grads: Dict[str, torch.Tensor], mesh
+                  ) -> Tuple[float, Dict[str, torch.Tensor]]:
+    """AdamW on a state whose masters and moments may be ``DTensor`` blocks:
+    the norm of the whole gradients, then the update of this rank's blocks
+    (each rank holds the whole, identical gradients). Returns the norm and
+    the whole masters (the placed ones gathered)."""
+    from torch.distributed.tensor import DTensor
+
+    from mmrp_tpu_torch.parallel.mesh import local, local_block, whole
+    from mmrp_tpu_torch.train.state import global_norm
+
+    placed = {k: v.placements for k, v in state.params.items() if isinstance(v, DTensor)}
+    if not placed:
+        return state.tx.apply(state, grads), state.params
+    norm = float(global_norm([grads[k].float() for k in state.params]))
+    blocks = TrainState({k: local(v) for k, v in state.params.items()},
+                        {k: local(v) for k, v in state.mu.items()},
+                        {k: local(v) for k, v in state.nu.items()},
+                        state.count, state.seed, state.tx)
+    gl = {k: local_block(g, mesh, placed[k]) if k in placed else g for k, g in grads.items()}
+    out = state.tx.apply(blocks, gl, norm=norm)  # masters' blocks updated in place
+    for moments, new in ((state.mu, blocks.mu), (state.nu, blocks.nu)):
+        for k, v in new.items():
+            moments[k] = (DTensor.from_local(v, mesh, placed[k], run_check=False)
+                          if k in placed else v)
+    state.count = blocks.count
+    return out, {k: whole(v) if k in placed else v for k, v in state.params.items()}
 
 
 def make_eval_step(model: MultiModalRetrievalModel,

@@ -89,16 +89,19 @@ class AdamW:
                 {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()})
 
     @torch.no_grad()
-    def apply(self, state: "TrainState", grads: Params) -> float:
+    def apply(self, state: "TrainState", grads: Params, norm: float = None) -> float:
         """One update of ``state`` in place from ``grads`` (any float dtype;
         each is cast to f32). Returns the global norm of the unclipped
         gradients. Every step is one ``torch._foreach_*`` op over all the
         parameters, in optax's order of operations; only the dtype casts go
-        tensor by tensor."""
+        tensor by tensor. ``norm``: the global norm of the whole gradients,
+        where ``state`` and ``grads`` hold one rank's blocks of sharded
+        parameters (``train/joint.py::make_train_step_dp``)."""
         keys = list(state.params)
         params = [state.params[k] for k in keys]
         g = [grads[k].float() for k in keys]
-        norm = float(global_norm(g))
+        if norm is None:
+            norm = float(global_norm(g))
         if norm >= self.clip_norm:
             g = torch._foreach_div(g, norm)
             torch._foreach_mul_(g, self.clip_norm)

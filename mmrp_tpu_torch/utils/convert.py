@@ -145,15 +145,17 @@ def state_dict_to_flax_flat(model: nn.Module,
     heads = {f"{path}.{lin}": m.num_heads for path, m in model.named_modules()
              if isinstance(m, MultiHeadDotProductAttention)
              for lin in ("query", "key", "value", "out")}
+    names = flax_paths(model)
     flat = {}
     for path, module in model.named_modules():
         for name, p in module.named_parameters(recurse=False):
+            key = f"{path}.{name}" if path else name
             if params is not None:
-                p = params[f"{path}.{name}" if path else name]
+                p = params[key]
             arr = p.detach().float().cpu().numpy()
             h = heads.get(path)
             if isinstance(module, nn.Linear) and name == "weight":
-                name, arr = "kernel", arr.T
+                arr = arr.T
                 if path in patch:
                     arr = arr.reshape(patch[path], patch[path], -1, arr.shape[-1])
                 elif h and path.endswith(".out"):
@@ -161,17 +163,41 @@ def state_dict_to_flax_flat(model: nn.Module,
                 elif h:
                     arr = arr.reshape(arr.shape[0], h, -1)
             elif isinstance(module, nn.Conv2d) and name == "weight":
-                name, arr = "kernel", arr.transpose(2, 3, 1, 0)
+                arr = arr.transpose(2, 3, 1, 0)
             elif h and name == "bias" and not path.endswith(".out"):
                 arr = arr.reshape(h, -1)
+            flat[names[key][0]] = np.array(arr, order="C")
+    return flat
+
+
+def flax_paths(model: nn.Module) -> Dict[str, tuple]:
+    """{parameter name: (its Flax path, ``/``-joined, the key
+    :func:`state_items` maps back from; whether the port's tensor is the
+    transpose of the Flax array)}: the naming of
+    :func:`state_dict_to_flax_flat`. Only an nn.Linear weight that is a 2-D
+    Dense kernel is a plain transpose; a conv, PatchEmbed or DenseGeneral
+    kernel changes rank and is marked False with its name."""
+    patch = {f"{path}.proj" for path, m in model.named_modules() if isinstance(m, PatchEmbed)}
+    mha = {f"{path}.{lin}" for path, m in model.named_modules()
+           if isinstance(m, MultiHeadDotProductAttention)
+           for lin in ("query", "key", "value", "out")}
+    out = {}
+    for path, module in model.named_modules():
+        for name in dict(module.named_parameters(recurse=False)):
+            leaf, transposed = name, False
+            if isinstance(module, nn.Linear) and name == "weight":
+                leaf, transposed = "kernel", path not in patch and path not in mha
+            elif isinstance(module, nn.Conv2d) and name == "weight":
+                leaf = "kernel"
             elif isinstance(module, (LayerNorm, GroupNorm)) and name == "weight":
-                name = "scale"
+                leaf = "scale"
             elif isinstance(module, nn.Embedding) and name == "weight":
-                name = "embedding"
+                leaf = "embedding"
+            key = f"{path}.{name}" if path else name
             # a parameter of the root module itself (a null token, the ViT's
             # cls token) has no path
-            flat["/".join((path.split(".") if path else []) + [name])] = np.array(arr, order="C")
-    return flat
+            out[key] = ("/".join((path.split(".") if path else []) + [leaf]), transposed)
+    return out
 
 
 def save_param_tree(path, flat: Mapping[str, np.ndarray]) -> None:

@@ -68,9 +68,9 @@ def _grads_match(port_fn, jax_fn, arrays, weights):
     number of inputs compared."""
     rng = np.random.default_rng(7)
     jargs = [None if a is None else jnp.asarray(a) for a in arrays]
-    want_out, vjp = jax.vjp(jax_fn, *jargs)
-    g = rng.standard_normal(np.shape(want_out)).astype(np.float32)
-    want = vjp(jnp.asarray(g))
+    g = rng.standard_normal(jax.eval_shape(jax_fn, *jargs).shape).astype(np.float32)
+    # jitted: the Pallas kernels run in interpret mode, five times slower eagerly
+    want = jax.jit(lambda args, ct: jax.vjp(jax_fn, *args)[1](ct))(jargs, jnp.asarray(g))
     leaves = [None if a is None else (_t(a.T) if i in weights else _t(a)).requires_grad_(True)
               for i, a in enumerate(arrays)]
     port_fn(*leaves).backward(_t(g))

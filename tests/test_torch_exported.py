@@ -127,10 +127,24 @@ def test_load_and_call_need_no_model_code(micro):
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-3000:]
 
 
+class StandInMesh:
+    """The attributes of a DeviceMesh that the artifact's checks read."""
+
+    device_type = "cpu"
+
+    def __init__(self, names, n):
+        self.mesh_dim_names, self._n = names, n
+
+    def size(self):
+        return self._n
+
+
 def test_error_paths(micro, tmp_path):
-    """tpu, cuda without a card (export and load), a mesh (ROADMAP item
-    10c), and a platform the artifact lacks, which names the available ones
-    as JAX's does."""
+    """tpu, cuda without a card (export and load), a platform the artifact
+    lacks, which names the available ones as JAX's does, and the mesh's
+    errors: a mesh of two axes, a bucket its size does not divide, a
+    multi-replica artifact without a mesh and a mesh of another size (on a
+    stand-in mesh: the checks come before any collective)."""
     model, path = micro[2], micro[3]
     kw = dict(image_size=IMG, text_len=LT, batch_sizes=(1,))
     with pytest.raises(ValueError, match="tpu"):
@@ -139,10 +153,18 @@ def test_error_paths(micro, tmp_path):
         exported.export_serving_programs(model, platforms=("cuda",), **kw)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         exported.ExportedPredictor.load(path)  # the default platform is cuda
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10c"):
-        exported.export_serving_programs(model, platforms=("cpu",), mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10c"):
-        exported.ExportedPredictor.load(path, platform="cpu", mesh=object())
+    with pytest.raises(ValueError, match="one-axis mesh"):
+        exported.export_serving_programs(model, platforms=("cpu",),
+                                         mesh=StandInMesh(("dp", "tp"), 4), **kw)
+    with pytest.raises(ValueError, match=r"batch buckets \[1\] not divisible by mesh size 2"):
+        exported.export_serving_programs(model, platforms=("cpu",),
+                                         mesh=StandInMesh(("dp",), 2), **kw)
+    with pytest.raises(ValueError, match="mesh size 2 does not match"):
+        exported.ExportedPredictor.load(path, platform="cpu", mesh=StandInMesh(("dp",), 2))
+    replicated = tmp_path / "replicated.npz"
+    exported.save_artifact(replicated, {"cpu::2::2": b"\0"}, {}, {})
+    with pytest.raises(ValueError, match=r"span \[2\] devices"):
+        exported.ExportedPredictor.load(replicated, platform="cpu")
     with pytest.raises(ValueError, match="tpu"):
         exported.ExportedPredictor.load(path, platform="tpu")
     cuda_only = tmp_path / "cuda_only.npz"

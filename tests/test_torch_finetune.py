@@ -73,7 +73,7 @@ def test_swin_for_finetune_matches_jax(rng, swin_kw, monkeypatch):
     jmodel, params, model = both_models(swin_kw)
     size = swin_kw["img_size"]
     x = rng.random((2, size, size, 3), dtype=np.float32)
-    want = jmodel.apply({"params": params}, jnp.asarray(x))
+    want = jax.jit(jmodel.apply)({"params": params}, jnp.asarray(x))
     with torch.no_grad():
         got = model(t(x))
     for k in ("logits", "patches", "global"):
@@ -248,7 +248,7 @@ def test_finetune_loop_matches_jax(rng, monkeypatch):
                             num_heads=2, device="cpu")
     sample = np.zeros((1, 28, 28, 3), np.float32)
     cfg = dict(epochs=3, lr=1e-3, seed=3, unfreeze_epochs=(1,))
-    jinit = jmodel.init(jax.random.PRNGKey(cfg["seed"]), jnp.asarray(sample))["params"]
+    jinit = jax.jit(jmodel.init)(jax.random.PRNGKey(cfg["seed"]), jnp.asarray(sample))["params"]
     monkeypatch.setattr(convert, "init_params", lambda m, seed: m.load_state_dict(
         flax_to_state_dict(jinit), strict=True))
     for mod in (jft, tft):
@@ -347,7 +347,7 @@ def test_port_weights_load_into_jax(rng):
         save_param_tree(f"{tmp}/p.npz", state_dict_to_flax_flat(model))
         tree = load_param_tree(f"{tmp}/p.npz")
     x = rng.random((2, 28, 28, 3), dtype=np.float32)
-    want = jmodel.apply({"params": tree}, jnp.asarray(x))["logits"]
+    want = jax.jit(jmodel.apply)({"params": tree}, jnp.asarray(x))["logits"]
     with torch.no_grad():
         got = model(t(x))["logits"]
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

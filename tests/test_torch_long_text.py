@@ -194,7 +194,7 @@ def test_text_encoder_at_128_tokens_matches_jax(rng, monkeypatch):
     params = randomize(jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.asarray(ids),
                                             jnp.asarray(mask))["params"], seed=4)
     monkeypatch.setenv("MMRP_FORCE_PALLAS", "1")
-    want = jmodel.apply({"params": params}, jnp.asarray(ids), jnp.asarray(mask))
+    want = jax.jit(jmodel.apply)({"params": params}, jnp.asarray(ids), jnp.asarray(mask))
     tmodel = load(ttext.TextEncoder(ttext.TextConfig.small(**kw), device="cpu"), params)
     with torch.no_grad():
         got = tmodel(torch.from_numpy(ids).long(), torch.from_numpy(mask))

@@ -101,10 +101,10 @@ def test_swin_encoder_matches_jax(rng, slice_route, route):
     jcfg = jswin.SwinConfig(img_size=56, embed_dim=16, depths=(2, 2), num_heads=(2, 2))
     img = rng.random((2, 56, 56, 3), dtype=np.float32)
     jmodel = jswin.SwinEncoder(jcfg)
-    params = randomize(jmodel.init(jax.random.PRNGKey(0), jnp.asarray(img))["params"])
+    params = randomize(jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.asarray(img))["params"])
     if route != "xla":
         slice_route(route)
-    want = jmodel.apply({"params": params}, jnp.asarray(img))
+    want = jax.jit(jmodel.apply)({"params": params}, jnp.asarray(img))
 
     fields = ROUTE_ENV[route][1] if route != "xla" else {}
     tcfg = tswin.SwinConfig(img_size=56, embed_dim=16, depths=(2, 2), num_heads=(2, 2),
@@ -126,11 +126,11 @@ def test_text_encoder_matches_jax(rng, slice_route, route):
     ids = rng.integers(0, 8192, (3, 20)).astype(np.int32)
     mask = (np.arange(20)[None, :] < np.array([20, 9, 1])[:, None]).astype(np.int32)
     jmodel = jtext.TextEncoder(jcfg)
-    params = randomize(jmodel.init(jax.random.PRNGKey(0), jnp.asarray(ids),
-                                   jnp.asarray(mask))["params"], seed=1)
+    params = randomize(jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.asarray(ids),
+                                            jnp.asarray(mask))["params"], seed=1)
     if route == "slice":
         slice_route()
-    want = jmodel.apply({"params": params}, jnp.asarray(ids), jnp.asarray(mask))
+    want = jax.jit(jmodel.apply)({"params": params}, jnp.asarray(ids), jnp.asarray(mask))
 
     tmodel = load(ttext.TextEncoder(ttext.TextConfig.small(**kw), device="cpu"), params)
     with torch.no_grad():
@@ -153,9 +153,10 @@ def test_fusion_layer_matches_jax(rng):
     tmask = (np.arange(Lt)[None, :] < np.array([Lt, 5])[:, None]).astype(np.int32)
     jargs = [jnp.asarray(a) for a in (patches, glob, txt, tmask)]
     jlayer = jmm.FusionLayer(jcfg, drop_path=0.0)
-    params = randomize(jlayer.init(jax.random.PRNGKey(0), *jargs, True, False)["params"],
-                       seed=2)
-    want, _ = jlayer.apply({"params": params}, *jargs, True, False)
+    params = randomize(jax.jit(jlayer.init, static_argnums=(5, 6))(
+        jax.random.PRNGKey(0), *jargs, True, False)["params"], seed=2)
+    want, _ = jax.jit(jlayer.apply, static_argnums=(5, 6))({"params": params}, *jargs, True,
+                                                            False)
 
     tcfg = tmm.MultiModalConfig(swin=tswin.SwinConfig.micro(), text=ttext.TextConfig.small(),
                                 joint_dim=D, num_heads=4, max_text_len=Lt)

@@ -423,6 +423,9 @@ def test_joint_training_matches_jax(tree, tmp_path, monkeypatch):
     t_train, t_val = joint_loaders(tree, cfg)
     j_train, j_val, j_test = jax_joint_loaders(tree, jcfg)
     jmodel = JModel(no_dropout(JMMConfig.from_config(jcfg, len(LABEL_COLS))))
+    # the init that JAX's init_train_state calls, jitted: eagerly it takes
+    # about 17 s on the CPU (the instance attribute shadows the method)
+    object.__setattr__(jmodel, "init", jax.jit(jmodel.init, static_argnames=("deterministic",)))
     init = {}
 
     def jax_warm(params):

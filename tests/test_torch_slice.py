@@ -77,8 +77,10 @@ def build(mode="multimodal", seed=0):
         dropout=0.0, drop_path=0.0, **HEAD)
     jmodel = jmm.MultiModalRetrievalModel(jcfg)
     img, ids, mask = inputs()
-    params = randomize(jmodel.init(jax.random.PRNGKey(seed), jnp.asarray(img),
-                                   jnp.asarray(ids), jnp.asarray(mask))["params"], seed)
+    # jitted: an eager Flax init of this model takes about 25 s on the CPU
+    params = randomize(jax.jit(jmodel.init)(jax.random.PRNGKey(seed), jnp.asarray(img),
+                                            jnp.asarray(ids), jnp.asarray(mask))["params"],
+                       seed)
     tcfg = MultiModalConfig(swin=SwinConfig(**SWIN), text=TextConfig.small(**TEXT), mode=mode,
                             **HEAD)
     tmodel = MultiModalRetrievalModel(tcfg, device="cpu")
