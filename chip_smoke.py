@@ -4206,7 +4206,7 @@ def main() -> int:
             # two products forward; S, dV, dP, dQ and dK backward
             prod = 2 * Bc * res * res * ws * ws * C
             # the CUDA-event time holds the wrapper's host time where the card
-            # waits; profile_forward --train splits the step's device time by stage
+            # waits
             ms = cuda_ms(torch, lambda: WC.core_forward(qkv, bias, **kw))
             plain_ms = cuda_ms(torch, lambda: WC.window_attention_core_plain(qkv, bias, **kw))
             record("wattn_core_fwd", label, f_err, ms, plain_ms, 2 * prod,

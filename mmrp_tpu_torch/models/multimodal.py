@@ -33,6 +33,10 @@ With ``remat_backbone`` each Swin block, BERT layer and fusion layer runs
 under activation checkpointing (``layers.py::remat``, JAX's ``nn.remat``,
 ``multimodal.py:102-121``), its dropout masks replayed in the backward.
 
+Each tower's host time is a span (``utils/trace.py``): ``tower.vision`` and
+``tower.text`` around the backbones' two towers, ``tower.fusion`` around each
+fusion layer on every route.
+
 ``MultiModalConfig.quant="int8"`` serves the fusion stack through the same
 XLA branch with every GEMM in W8A8 (``ops/quant.py``) and no kernel, as the
 JAX model does (``multimodal.py:231-241, 299-341``). ``from_config`` builds
@@ -93,6 +97,7 @@ from mmrp_tpu_torch.models.vit import ViTConfig, ViTEncoder
 from mmrp_tpu_torch.ops import _build
 from mmrp_tpu_torch.ops import fused_mlp as K2
 from mmrp_tpu_torch.ops.fused_mlp import fused_ln_mlp_residual, ln_mlp_plain
+from mmrp_tpu_torch.utils.trace import span
 
 MEDCLIP_DIM = 512  # MedCLIP's projection width
 
@@ -299,10 +304,12 @@ class Backbones(nn.Module):
                 generator: torch.Generator = None) -> Dict[str, torch.Tensor]:
         out = {}
         if self.config.mode != "text":
-            vis = self.vision(image, deterministic, generator)
+            with span("tower.vision"):
+                vis = self.vision(image, deterministic, generator)
             out.update(img_patches=vis["patches"], img_global=vis["global"])
         if self.config.mode != "image":
-            txt = self.text(input_ids, attention_mask, deterministic, generator)
+            with span("tower.text"):
+                txt = self.text(input_ids, attention_mask, deterministic, generator)
             out.update(txt_tokens=txt["tokens"], txt_cls=txt["cls"])
         return out
 
@@ -518,16 +525,18 @@ class MultiModalRetrievalModel(nn.Module):
         for i in range(cfg.num_fusion_layers):
             layer = self._modules[f"fusion_layer{i}"]
             args = (img_patches, img_global, txt_tokens, txt_mask)
-            if return_attention:
-                pooled, attn = layer(*args, return_attention=True)
-                attn_maps.append(attn)
-            elif deterministic:
-                pooled = layer(*args)
-            elif cfg.remat_backbone:
-                pooled = remat(lambda ip, ig, tt, g, m=layer: m.forward_train(
-                    ip, ig, tt, txt_mask, g), generator, img_patches, img_global, txt_tokens)
-            else:
-                pooled = layer.forward_train(*args, generator)
+            with span("tower.fusion"):
+                if return_attention:
+                    pooled, attn = layer(*args, return_attention=True)
+                    attn_maps.append(attn)
+                elif deterministic:
+                    pooled = layer(*args)
+                elif cfg.remat_backbone:
+                    pooled = remat(lambda ip, ig, tt, g, m=layer: m.forward_train(
+                        ip, ig, tt, txt_mask, g), generator, img_patches, img_global,
+                        txt_tokens)
+                else:
+                    pooled = layer.forward_train(*args, generator)
             joint = self._modules[f"joint_norm{i}"](joint + pooled)
 
         joint = joint.float()

@@ -28,6 +28,11 @@ Compact ingest, finished on the device, as in JAX:
 Host batches go to the card from pinned memory with ``non_blocking=True``:
 a copy from pageable memory would hold the host until it lands, and with it
 the dispatch of the next batch.
+
+Each batch's host time is spanned (``utils/trace.py``) under its dispatch
+number: ``stream.dispatch`` (children ``stream.h2d``, the copies in, and
+``gallery.topk``), ``stream.wait`` (the wait for its results) and
+``stream.results`` (the host work on them).
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from mmrp_tpu_torch.parallel.collectives import all_gather_cat
 from mmrp_tpu_torch.parallel.mesh import axis_group, mesh_shape, rows_of
 from mmrp_tpu_torch.retrieval.gallery import RetrievalEngine
 from mmrp_tpu_torch.serve.runner import build_demo_context
+from mmrp_tpu_torch.utils.trace import span
 
 
 class StreamingPipeline:
@@ -64,6 +70,8 @@ class StreamingPipeline:
         self.mesh = mesh
         self.device = next(model.parameters()).device
         self._fwd = serving_forward(model)
+        # batches dispatched and finished so far: a batch's number in the spans
+        self._dispatched = self._finished = 0
         # set by run() once the stream is consumed; None until then
         self.stats: Optional[Dict[str, Any]] = None
 
@@ -71,18 +79,19 @@ class StreamingPipeline:
 
     def _put(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         out = {}
-        for key in self._DEVICE_KEYS:
-            if key not in batch:
-                continue
-            arr = np.ascontiguousarray(batch[key])
-            if arr.dtype == np.uint16:
-                # PyTorch's uint16 has few kernels: the same bytes travel as
-                # int16 and widen on the device (_ingest)
-                arr = arr.view(np.int16)
-            t = torch.from_numpy(arr)
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out[key] = t
+        with span("stream.h2d"):
+            for key in self._DEVICE_KEYS:
+                if key not in batch:
+                    continue
+                arr = np.ascontiguousarray(batch[key])
+                if arr.dtype == np.uint16:
+                    # PyTorch's uint16 has few kernels: the same bytes travel as
+                    # int16 and widen on the device (_ingest)
+                    arr = arr.view(np.int16)
+                t = torch.from_numpy(arr)
+                if self.device.type == "cuda":
+                    t = t.pin_memory().to(self.device, non_blocking=True)
+                out[key] = t
         return out
 
     def _ingest(self, image: torch.Tensor, wc: Optional[torch.Tensor],
@@ -107,6 +116,12 @@ class StreamingPipeline:
         the results into pinned host memory, behind which an event is
         recorded. The copies sit on the stream ahead of the next batch's
         forward, so waiting for this event does not wait for that forward."""
+        seq = self._dispatched
+        self._dispatched += 1
+        with span("stream.dispatch", seq):
+            return self._enqueue(batch)
+
+    def _enqueue(self, batch: Dict[str, np.ndarray]):
         rows = batch
         if self.mesh is not None:  # this rank's block of the rows
             rows = {k: rows_of(np.asarray(batch[k]), self.mesh, "dp")
@@ -119,7 +134,8 @@ class StreamingPipeline:
         if self.mesh is not None:
             dev = [self._gather(t) for t in dev]
         if self.engine is not None:
-            dev += self.engine.retrieve_batch_device(dev[1], self.K)
+            with span("gallery.topk"):
+                dev += self.engine.retrieve_batch_device(dev[1], self.K)
         if self.device.type != "cuda":
             return batch, dev, None
         host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in dev]
@@ -136,8 +152,15 @@ class StreamingPipeline:
     def _finish(self, batch, host, done) -> Dict[str, Any]:
         """Wait for a dispatched batch's own copies (the only sync), then on
         the host: valid rows, thresholded label sets, retrieval ids."""
-        if done is not None:
-            done.synchronize()
+        seq = self._finished
+        self._finished += 1
+        with span("stream.wait", seq):
+            if done is not None:
+                done.synchronize()
+        with span("stream.results", seq):
+            return self._results(batch, host)
+
+    def _results(self, batch, host) -> Dict[str, Any]:
         probs, emb = host[0].numpy(), host[1].numpy()
         ret = host[2:] or None
         keep = np.asarray(batch.get("valid", np.ones(probs.shape[0]))) > 0

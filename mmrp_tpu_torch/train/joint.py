@@ -16,6 +16,14 @@ with dropout; with ``cfg.augment`` the images rotated and flipped first by
 says how the f32 master weights meet it. A step updates the state and the
 model in place and rebuilds every Swin block's cached serving bias from its
 updated table, so the serving route reads the stepped weights.
+
+A step's host time is spanned (``utils/trace.py``) under its count:
+``train.step`` holds ``train.forward`` (the towers' own spans inside),
+``train.loss``, ``train.backward``, ``train.read_losses`` (one per loss
+term read to the host), ``train.optimizer`` (with ``train.read_norm``, the
+gradient norm read for the clip) and ``train.write_back``. Those reads are
+the step's only waits on the device: 5 a step with the KG loss, 4 without,
+and the norm, each counted in ``host_reads``.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from mmrp_tpu_torch.models.multimodal import MultiModalRetrievalModel
 from mmrp_tpu_torch.ops import preprocess
 from mmrp_tpu_torch.train import losses as L
 from mmrp_tpu_torch.train.state import TrainState, make_optimizer, make_write_back, master_params
+from mmrp_tpu_torch.utils.trace import host_read, span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -54,14 +63,16 @@ def compute_losses(model: MultiModalRetrievalModel, kg_proj: Optional[torch.Tens
                    batch: Batch, generator: Optional[torch.Generator], cfg: Config,
                    pos_weight: Optional[torch.Tensor],
                    deterministic: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    image = batch["image"]
-    if not deterministic and cfg.augment:
-        # drawn before the dropout masks, from the same generator (JAX
-        # splits its step key into the augmentation's and dropout's)
-        image = preprocess.augment_batch(image, generator)
-    out = model(image, batch["input_ids"], batch["attention_mask"],
-                deterministic=deterministic, generator=generator)
-    return assemble_losses(kg_proj, out, batch, cfg, pos_weight)
+    with span("train.forward"):
+        image = batch["image"]
+        if not deterministic and cfg.augment:
+            # drawn before the dropout masks, from the same generator (JAX
+            # splits its step key into the augmentation's and dropout's)
+            image = preprocess.augment_batch(image, generator)
+        out = model(image, batch["input_ids"], batch["attention_mask"],
+                    deterministic=deterministic, generator=generator)
+    with span("train.loss"):
+        return assemble_losses(kg_proj, out, batch, cfg, pos_weight)
 
 
 def assemble_losses(kg_proj: Optional[torch.Tensor], out: Dict[str, torch.Tensor],
@@ -173,24 +184,31 @@ def _make_step(model: MultiModalRetrievalModel, cfg: Config, pos_weight, mesh=No
     def losses(kg_proj, batch, generator):
         if mesh is None:
             return compute_losses(model, kg_proj, batch, generator, cfg, pw)
-        image = batch["image"]
-        if cfg.augment:
-            image = preprocess.augment_batch(image, generator)
-        with force_core(model, core_kernel):
-            out = model(image, batch["input_ids"], batch["attention_mask"],
-                        deterministic=False, generator=generator)
-        gout = {k: all_gather_rows(out[k], group) for k in _GATHER_OUT}
-        gbatch = {k: all_gather_rows(batch[k], group) for k in _GATHER_BATCH if k in batch}
-        return assemble_losses(kg_proj, gout, gbatch, cfg, pw)
+        with span("train.forward"):
+            image = batch["image"]
+            if cfg.augment:
+                image = preprocess.augment_batch(image, generator)
+            with force_core(model, core_kernel):
+                out = model(image, batch["input_ids"], batch["attention_mask"],
+                            deterministic=False, generator=generator)
+        with span("train.loss"):
+            gout = {k: all_gather_rows(out[k], group) for k in _GATHER_OUT}
+            gbatch = {k: all_gather_rows(batch[k], group) for k in _GATHER_BATCH if k in batch}
+            return assemble_losses(kg_proj, gout, gbatch, cfg, pw)
 
     def step(state: TrainState, batch: Batch):
+        with span("train.step", state.count):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch: Batch):
         generator = state.step_generator(device)
         kg_proj = state.params.get("kg_proj")
         if kg_proj is not None:
             kg_proj.requires_grad_(True)
         model.zero_grad(set_to_none=True)
         total, metrics = losses(kg_proj, batch, generator)
-        total.backward()
+        with span("train.backward"):
+            total.backward()
         grads = {name: p.grad if p.grad is not None else torch.zeros_like(p)
                  for name, p in named.items()}
         if kg_proj is not None:
@@ -199,14 +217,17 @@ def _make_step(model: MultiModalRetrievalModel, cfg: Config, pos_weight, mesh=No
                 torch.zeros_like(kg_proj)
             kg_proj.requires_grad_(False)
             kg_proj.grad = None
-        metrics = {k: float(v.detach()) for k, v in metrics.items()}
-        if mesh is None:
-            metrics["grad_norm"], params = state.tx.apply(state, grads), state.params
-        else:
-            grads = dict(zip(grads, all_reduce_mean(list(grads.values()), group)))
-            metrics["grad_norm"], params = _apply_placed(state, grads, mesh)
-        model.zero_grad(set_to_none=True)
-        write_back(params)
+        # each read waits for the device to reach it
+        metrics = {k: host_read(v.detach(), "train.read_losses") for k, v in metrics.items()}
+        with span("train.optimizer"):
+            if mesh is None:
+                metrics["grad_norm"], params = state.tx.apply(state, grads), state.params
+            else:
+                grads = dict(zip(grads, all_reduce_mean(list(grads.values()), group)))
+                metrics["grad_norm"], params = _apply_placed(state, grads, mesh)
+        with span("train.write_back"):
+            model.zero_grad(set_to_none=True)
+            write_back(params)
         return state, metrics
 
     return step
@@ -226,7 +247,7 @@ def _apply_placed(state: TrainState, grads: Dict[str, torch.Tensor], mesh
     placed = {k: v.placements for k, v in state.params.items() if isinstance(v, DTensor)}
     if not placed:
         return state.tx.apply(state, grads), state.params
-    norm = float(global_norm([grads[k].float() for k in state.params]))
+    norm = host_read(global_norm([grads[k].float() for k in state.params]), "train.read_norm")
     blocks = TrainState({k: local(v) for k, v in state.params.items()},
                         {k: local(v) for k, v in state.mu.items()},
                         {k: local(v) for k, v in state.nu.items()},

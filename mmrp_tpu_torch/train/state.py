@@ -44,6 +44,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from mmrp_tpu_torch.utils.trace import host_read
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -101,7 +103,7 @@ class AdamW:
         params = [state.params[k] for k in keys]
         g = [grads[k].float() for k in keys]
         if norm is None:
-            norm = float(global_norm(g))
+            norm = host_read(global_norm(g), "train.read_norm")
         if norm >= self.clip_norm:
             g = torch._foreach_div(g, norm)
             torch._foreach_mul_(g, self.clip_norm)
