@@ -27,6 +27,21 @@ Phases, each of which fails the run (nonzero exit, no result line):
    int8 case also computes planted faults with its plain version (bf16
    activations; the other kind of activation scale), each of which must break
    the case's limits, and the static pair's difference is split by block;
+3b. K3's packed form (``fused_attention_packed``) at the stream's lengths:
+   a batch of 64 reports drawn as the benchmark's stream draws them (the
+   longest of 1,024, 234 tokens, among them), padded to 512, in each of the
+   four forms the packed text route runs (BERT's post-LN self-attention at C
+   768, the text enhancer's pre-LN with pos and alpha at C 1024, packed
+   queries against 49 patches, 49 queries against packed keys), each against
+   its plain version (``attention_plain_packed``) on the same card tensors
+   within the kernels' bound and against the padded form's valid rows, with
+   its launches counted (``launches_packed``, reset just before), its time
+   beside a bound worked out from the T packed rows and the padded form's
+   time at 512; then the flagship's ``StreamingPipeline`` over 3 such batches:
+   27 packed K3 launches of 37 a batch, ``text.packed`` on every batch, no
+   host read, and each batch's results within bf16 rounding of the padded
+   route's. ``python3 chip_smoke.py --packed-only`` runs phases 1, 2 and 3b
+   alone and prints no result line;
 4. slice: the flagship model (Swin-B 224 px, ClinicalBERT dims, 5 fusion
    layers at 1024, 43 labels) in bf16 from a seeded init, ``MMRPredictor
    .predict`` on 8 requests against a 100,000 x 1024 gallery that also holds
@@ -1092,8 +1107,9 @@ def pipeline_phase(torch, dev, smi: str, tmp: str) -> dict:
     reset()
     pred, (image, ids_, mask_), got, served, ranks = serve_train_records(
         torch, dev, out, records, read)
+    # the mask on the host, as the predictor gives it: the same text route
     want = serving_forward(model)(torch.from_numpy(image).to(dev), torch.from_numpy(ids_).to(dev),
-                                  torch.from_numpy(mask_).to(dev))
+                                  mask_)
     same = np.array_equal(got["probs"], want["probs"].float().cpu().numpy())
     log(f"from_run_dir: {sum(ranks)} of {len(ranks)} train records at rank 1 of their own "
         f"gallery row; probs bit-identical to the in-process model: {same}; launches {served}")
@@ -2796,6 +2812,206 @@ def mesh_phase(torch, dev, smi: str, train_ms=None) -> dict:
     return launches
 
 
+# phase 3b: K3's packed form at the stream's lengths (the benchmark's
+# stream-openi traffic: log-normal valid lengths, mean 38.7, sigma 0.6, 4 to
+# 512, padded to 512); 3 stream batches of the flagship
+PACKED_B, PACKED_L, PACKED_BATCHES = 64, 512, 3
+PACKED_MEAN, PACKED_SIGMA = 38.7, 0.6
+# packed K3 launches a stream batch: 12 BERT layers and, in each of the 5
+# fusion layers, the text enhancer, text -> image and image -> text (the
+# image enhancer and the fusion self-attention run padded: 10 more launches)
+PACKED_PER_BATCH, K3_PER_BATCH = 27, 37
+
+
+def stream_lengths(rng, B: int = PACKED_B):
+    """B valid lengths as the stream's traffic draws them: the quantiles (i +
+    0.5) / 1024 of its log-normal, rounded and clipped to [4, 512], the
+    longest among them and the rest drawn from the 1,024."""
+    import numpy as np
+
+    nd = statistics.NormalDist()
+    z = np.array([nd.inv_cdf((i + 0.5) / 1024) for i in range(1024)])
+    L = np.exp(np.log(PACKED_MEAN) - PACKED_SIGMA ** 2 / 2 + PACKED_SIGMA * z)
+    L = np.clip(np.rint(L), 4, PACKED_L).astype(np.int64)
+    rest = rng.choice(np.delete(L, L.argmax()), B - 1, replace=False)
+    return rng.permutation(np.concatenate([[L.max()], rest]))
+
+
+def packed_phase(torch, dev, smi: str) -> dict:
+    """Phase 3b (module docstring): returns the kernel record of
+    ``fused_attention_packed``."""
+    import numpy as np
+
+    from mmrp_tpu_torch.api import serving_forward
+    from mmrp_tpu_torch.labels import LABEL_COLS
+    from mmrp_tpu_torch.models.multimodal import MultiModalConfig, MultiModalRetrievalModel
+    from mmrp_tpu_torch.ops import fused_attention as K3
+    from mmrp_tpu_torch.serve.stream import StreamingPipeline
+    from mmrp_tpu_torch.utils import trace
+    from mmrp_tpu_torch.utils.convert import init_params
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rng = np.random.default_rng(SEED + 3)
+
+    def rnd(shape, scale=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    lengths = stream_lengths(rng)
+    rows = K3.pack(lengths, PACKED_L, dev)
+    T, B, L = rows.T, PACKED_B, PACKED_L
+    valid = torch.arange(L, device=dev)[None, :] < torch.from_numpy(lengths).to(dev)[:, None]
+    key_mask = torch.where(valid, 0.0, -1e9).to(f32)
+    lq2 = int((lengths.astype(np.int64) ** 2).sum())
+    log(f"packed K3 at the stream's lengths: batch {B}, T {T} of {B * L} rows "
+        f"({T / (B * L):.4f}), longest {rows.max_len}, mean {lengths.mean():.1f} [{smi}]")
+    alpha = torch.tensor(0.5, device=dev)
+    # (label, C, heads, ln_mode, packed side, pos + alpha); txt2img and
+    # img2txt against the 49 patches
+    forms = (("bert", 768, 12, "post", "self", False), ("txt_enh", 1024, 8, "pre", "self", True),
+             ("txt2img", 1024, 8, "post", "q", False), ("img2txt", 1024, 8, "post", "kv", False))
+    agg = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, padded_ms=0.0, device_ms=0.0,
+               bound_ms=0.0, flop_ms=0.0, byte_ms=0.0)
+    problems, by_form = [], {}
+    with torch.inference_mode():
+        for label, C, heads, mode, side, enh in forms:
+            w = []
+            for _ in range(4):
+                w += [rnd((C, C), C ** -0.5), rnd((C,), 0.1)]
+            ln = (1 + rnd((C,), 0.1, f32), rnd((C,), 0.1, f32))
+            pos = rnd((L, C), 0.5) if enh else None
+            common = dict(pos=pos, alpha=alpha if enh else None, num_heads=heads, ln_mode=mode,
+                          include_residual=side == "self", residual_from_raw=enh)
+            x_pad = rnd((B, L if side != "kv" else 49, C))
+            kv_pad = None if side == "self" else rnd((B, 49 if side == "q" else L, C))
+            if side == "self":
+                x, kw = x_pad[valid].contiguous(), dict(common, rows=rows)
+                pad_kw = dict(common, key_mask=key_mask)
+                flops, shape = 8 * T * C * C + 4 * lq2 * C, (T, C)
+            elif side == "q":
+                x, kw = x_pad[valid].contiguous(), dict(common, kv=kv_pad, rows=rows)
+                pad_kw = dict(common, kv=kv_pad)
+                flops, shape = 4 * T * C * C + 4 * B * 49 * C * C + 4 * T * 49 * C, (T, C)
+            else:
+                x = x_pad
+                kw = dict(common, kv=kv_pad[valid].contiguous(), kv_rows=rows)
+                pad_kw = dict(common, kv=kv_pad, key_mask=key_mask)
+                flops, shape = 4 * B * 49 * C * C + 4 * T * C * C + 4 * 49 * T * C, (B, 49, C)
+            args = (x, *ln, *w)
+            pad_args = (x_pad, *ln, *w)
+
+            def kern(a=args, k=kw):
+                return K3.fused_attention_packed(*a, **k)
+
+            def plain(a=args, k=kw):
+                return K3.attention_plain_packed(*a, **k)
+
+            def padded(a=pad_args, k=pad_kw):
+                return K3.fused_attention(*a, **k)
+
+            K3.fused_attention.launches = K3.fused_attention.launches_packed = 0
+            got = kern()
+            torch.cuda.synchronize()
+            if (K3.fused_attention.launches, K3.fused_attention.launches_packed) != (1, 1):
+                problems.append(f"packed {label}: launches {K3.fused_attention.launches}, "
+                                f"packed {K3.fused_attention.launches_packed}, expected 1, 1")
+            want = plain()
+            pad_out = padded()
+            pad_rows = pad_out[valid] if side != "kv" else pad_out
+            if got.shape != want.shape or got.shape != shape or not torch.isfinite(got).all():
+                fail(f"packed {label}: non-finite output or shape {tuple(got.shape)}")
+            ref = want.float().abs().clamp(min=1.0)
+            d = (got.float() - want.float()).abs()
+            err, rel = d.max().item(), (d / ref).max().item()
+            d_pad = (got.float() - pad_rows.float()).abs()
+            ms, plain_ms, pad_ms = (cuda_ms(torch, f) for f in (kern, plain, padded))
+            dev_ms = sum(device_ms_by_kernel(torch, kern).values())
+            nbytes = tensor_bytes(torch, args, kw) + tensor_bytes(torch, got)
+            flop_ms, byte_ms = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+            n_cuda = cuda_launches(torch, kern)
+            log(f"kernel fused_attention_packed {label:8s} (T {T}, C {C}, h{heads}, {mode}, "
+                f"packed {side}) max_abs_err {err:.3e} max_rel_err {rel:.3e} (tol "
+                f"{KERNEL_TOL:.3e}); vs the padded form's valid rows max {d_pad.max().item():.3e}"
+                f", {int((d_pad > 0).sum().item())} of {d_pad.numel()} apart  kernel {ms:.4f} ms"
+                f"  device {dev_ms:.4f} ms  plain {plain_ms:.4f} ms  padded form at L{L} "
+                f"{pad_ms:.4f} ms  bound {max(flop_ms, byte_ms):.4f} ms ({flops / 1e9:.2f} "
+                f"GFLOP, {nbytes / 1e6:.2f} MB)  CUDA launches per call {n_cuda}")
+            if rel > KERNEL_TOL:
+                problems.append(f"packed {label}: max_rel_err {rel} against its plain version")
+            if (d_pad / pad_rows.float().abs().clamp(min=1.0)).max().item() > KERNEL_TOL:
+                problems.append(f"packed {label}: strays from the padded form's valid rows")
+            calls = 12 if label == "bert" else 5
+            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("padded_ms", pad_ms),
+                             ("device_ms", dev_ms), ("flop_ms", flop_ms), ("byte_ms", byte_ms),
+                             ("bound_ms", max(flop_ms, byte_ms))):
+                agg[key] += calls * val
+            agg["max_abs_err"] = max(agg["max_abs_err"], err)
+            by_form[label] = dict(calls=calls, ms=ms, device_ms=dev_ms, padded_ms=pad_ms,
+                                  bound_ms=max(flop_ms, byte_ms), cuda_launches_per_call=n_cuda)
+            del args, pad_args, kw, pad_kw, got, want, pad_out, x_pad, kv_pad, w
+    if problems:
+        fail("; ".join(problems))
+
+    # -- the flagship's stream over batches at these lengths ----------------------
+    cfg = MultiModalConfig.flagship()
+    model = MultiModalRetrievalModel(cfg, dtype=bf16, device=dev).eval()
+    init_params(model, seed=SEED)
+    batches = []
+    for _ in range(PACKED_BATCHES + 1):
+        n = stream_lengths(rng)
+        batches.append({
+            "image": rng.integers(0, 256, (B, 224, 224)).astype(np.uint8),
+            "input_ids": rng.integers(5, cfg.text.vocab_size, (B, L)),
+            "attention_mask": (np.arange(L)[None, :] < n[:, None]).astype(np.int64)})
+    threshold = np.full(cfg.num_classes, 0.5, np.float32)
+    pipe = StreamingPipeline(model, None, LABEL_COLS, threshold)
+    list(pipe.run(batches[:1]))  # warm
+    torch.cuda.synchronize()
+    K3.fused_attention.launches = K3.fused_attention.launches_packed = 0
+    before = trace.counters()
+    res = list(pipe.run(batches[1:]))
+    torch.cuda.synchronize()
+    grown = {k: v - before.get(k, 0) for k, v in trace.counters().items()
+             if v != before.get(k, 0)}
+    n_b = PACKED_BATCHES
+    launches = (K3.fused_attention.launches, K3.fused_attention.launches_packed)
+    log(f"stream batch {B}, L{L}, {n_b} batches: K3 launches {launches[0]}, packed "
+        f"{launches[1]} ({launches[1] // n_b} of {launches[0] // n_b} a batch); counters "
+        f"{grown}; rows run {grown.get('text.rows', 0) / max(grown.get('text.rows_padded', 1), 1):.4f}"
+        " of the padded route's")
+    if launches != (K3_PER_BATCH * n_b, PACKED_PER_BATCH * n_b):
+        fail(f"stream: K3 launches {launches}, expected {K3_PER_BATCH * n_b} with "
+             f"{PACKED_PER_BATCH * n_b} packed")
+    if grown.get("text.packed") != n_b or grown.get("text.padded") or grown.get("host_reads"):
+        fail(f"stream: text route counters {grown}: expected text.packed {n_b}, no padded "
+             "forward and no host read")
+    fwd = serving_forward(model)
+    worst_cos, worst_dp = 1.0, 0.0
+    for batch, got in zip(batches[1:], res):
+        img = ((batch["image"].astype(np.float32) / 255.0 - 0.5) / 0.5)[..., None].repeat(3, -1)
+        want = fwd(torch.from_numpy(img).to(dev), torch.from_numpy(batch["input_ids"]).to(dev),
+                   torch.from_numpy(batch["attention_mask"]).to(dev))
+        wj = want["joint_emb"].float().cpu().numpy()
+        cos = (got["joint_emb"] * wj).sum(-1) / (np.linalg.norm(got["joint_emb"], axis=-1)
+                                                 * np.linalg.norm(wj, axis=-1))
+        worst_cos = min(worst_cos, float(cos.min()))
+        worst_dp = max(worst_dp, float(np.abs(got["probs"] - want["probs"].float().cpu()
+                                              .numpy()).max()))
+    log(f"stream packed against the padded route: joint_emb cosine min {worst_cos:.7f} (>= "
+        f"{EMB_COS_MIN}), max |dprobs| {worst_dp:.3e} (<= {PROBS_MAX_DIFF})")
+    if worst_cos < EMB_COS_MIN or worst_dp > PROBS_MAX_DIFF:
+        fail("stream: the packed route strays from the padded route")
+    del model, pipe, res, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"name": "fused_attention_packed", "route": "cuda",
+            "source": "mmrp_tpu_torch/csrc/seq_attention.cu",
+            "replaces": "mmrp_tpu/ops/fused_attention.py:299",
+            "launches": PACKED_PER_BATCH, "per": "stream batch", "path": "stream",
+            "text_rows": T, "text_rows_padded": B * L, **agg, "by_form": by_form,
+            "bound_by": "operations" if agg["flop_ms"] >= agg["byte_ms"] else "bytes"}
+
+
 def main() -> int:
     import torch
 
@@ -2918,6 +3134,11 @@ def main() -> int:
         mesh_phase(torch, dev, smi)
         phase_done("the mesh on one card")
         log("chip_smoke: --mesh-only ran phases 1, 2 and 12 alone; no result line")
+        return 0
+    if sys.argv[1:] == ["--packed-only"]:  # phases 1, 2 and 3b alone, no result line
+        packed_phase(torch, dev, smi)
+        phase_done("packed K3 at the stream's lengths")
+        log("chip_smoke: --packed-only ran phases 1, 2 and 3b alone; no result line")
         return 0
     if sys.argv[1:] == ["--export-only"]:  # phases 1, 2 and 11 alone, no result line
         with tempfile.TemporaryDirectory() as tmp:
@@ -3279,6 +3500,8 @@ def main() -> int:
     if problems:
         fail("; ".join(problems))
     phase_done("kernels")
+    packed_record = packed_phase(torch, dev, smi)
+    phase_done("packed K3 at the stream's lengths")
 
     # -- 4. the slice ----------------------------------------------------------
     cfg = MultiModalConfig.flagship()
@@ -4438,6 +4661,7 @@ def main() -> int:
             **{k: agg[k] for k in ("device_ms", "attn_ms", "attn_bound_ms", "proj_ms",
                                    "proj_bound_ms", "mlp_ms", "mlp_bound_ms") if k in agg},
             **extra})
+    records.append(packed_record)
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -18,16 +18,27 @@ from mmrp_tpu_torch.device import DEFAULT_DEVICE
 from mmrp_tpu_torch.models.explain import ExplanationEngine
 from mmrp_tpu_torch.models.multimodal import MultiModalRetrievalModel
 from mmrp_tpu_torch.models.quant_calib import build_quant_cache
+from mmrp_tpu_torch.models.text_encoder import prefix_lengths
 from mmrp_tpu_torch.retrieval.gallery import RetrievalEngine
 
 
 def serving_forward(model: MultiModalRetrievalModel) -> Callable[..., Dict[str, torch.Tensor]]:
-    """(image, ids, mask) tensors -> {probs, joint_emb, img_emb, txt_emb},
-    under ``torch.inference_mode()``."""
+    """(image, ids, mask) -> {probs, joint_emb, img_emb, txt_emb}, under
+    ``torch.inference_mode()``. ``mask`` is a tensor beside ``ids``, or the
+    caller's numpy array on the host, which the forward copies to ``ids``'s
+    device: where every row of it is a prefix of valid tokens and the batch
+    holds padding, the text then runs packed (the model's ``text_lengths``),
+    planned on the host with no read of the device."""
 
-    def fwd(image: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor):
+    def fwd(image: torch.Tensor, ids: torch.Tensor, mask):
+        lengths = None
+        if isinstance(mask, np.ndarray):
+            lengths = prefix_lengths(mask)
+            mask = torch.from_numpy(np.ascontiguousarray(mask, np.int64))
+            if ids.device.type == "cuda":
+                mask = mask.pin_memory().to(ids.device, non_blocking=True)
         with torch.inference_mode():
-            out = model(image, ids, mask)
+            out = model(image, ids, mask, text_lengths=lengths)
             return {
                 "probs": torch.sigmoid(out["logits"]),
                 "joint_emb": out["joint_emb"],
@@ -78,7 +89,7 @@ class MMRPredictor:
         out = self._fwd(
             torch.as_tensor(np.asarray(image, np.float32)).to(dev),
             torch.as_tensor(np.asarray(input_ids, np.int64)).to(dev),
-            torch.as_tensor(np.asarray(attention_mask, np.int64)).to(dev),
+            np.asarray(attention_mask, np.int64),
         )
         return {k: v.float().cpu().numpy() for k, v in out.items()}
 

@@ -39,6 +39,18 @@
 // quantize their bf16 inputs per row as they are staged; the products are
 // wgmma s8 with s32 sums, dequantized as acc * sx * sw in f32 (_qdot's
 // order), then the bias. The attention tile is the bf16 one.
+//
+// The packed form (mmrp_seq_attention_packed, bf16 only; template R): a
+// side's sequences lie back to back in its rows, sequence b in rows
+// off[b] .. off[b + 1] - 1 of an int32 (B + 1) offset table, so a batch of
+// reports runs its valid tokens and no padding. A side without a table is
+// regular: b * N .. (b + 1) * N - 1. The two GEMM launches are row-wise and
+// change only where a row reads its position (pos[qpos[row]]) and where it
+// writes q/k/v (head-major over the rows, (heads, M, D)); the attention
+// launch walks (64-query tile, head, sequence) over the sequence's own rows
+// and its own key tiles, so it needs no key mask: a padded row's exact-zero
+// softmax weight is a row that is not there. A valid row's numbers are the
+// padded form's: no GEMM row depends on another row.
 #include <cooperative_groups.h>
 
 #include <type_traits>
@@ -55,16 +67,17 @@ enum EpiMode { kProjOnly = 0, kResidualBase = 1, kResidualRaw = 2, kPostLN = 3 }
 constexpr int kMaxTokens = 512;
 
 struct QkvParams {
-  const bf16* x;       // (B * Nq, C)
-  const bf16* kv;      // (B * Nk, C) or null: k and v from x
+  const bf16* x;       // (Mq, C): B * Nq rows, or packed
+  const bf16* kv;      // (Mk, C) or null: k and v from x
   const bf16* pos;     // (Nq, C) or null
+  const int* qpos;     // packed: (Mq,) each x row's position in its sequence, or null
   const float* ln_s;   // (C,) pre-LN, read when ln_pre
   const float* ln_b;
   const unsigned char* w[3];  // q, k, v weights (C, C): bf16, or int8 (the Q8 kernel)
   const float* sw[3];         // int8 per-output-channel scales
   const bf16* b[3];           // (C,) biases
-  bf16* dst[3];               // q (B, heads, Nq, d), k and v (B, heads, Nk, d)
-  int B, Nq, Nk, C, heads, ln_pre;
+  bf16* dst[3];               // q (B, heads, Nq, d), k and v (B, heads, Nk, d); packed (heads, M, d)
+  int B, Nq, Nk, Mq, Mk, C, heads, ln_pre;
   int jobs0, groups0, groups1;  // x-side blocks; column groups of the x side and of kv
   int tiles0, tiles1, per;      // column tiles of each side; tiles a group walks
   float eps;
@@ -72,7 +85,7 @@ struct QkvParams {
 
 // One block per (64 rows, a group of up to p.per 128-column tiles of q | k |
 // v): the rows are staged once and the group's tiles walked over them.
-template <bool Q8>
+template <bool Q8, bool R>
 __global__ void __launch_bounds__(kGemmThreads) qkv_kernel(QkvParams p) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* a = align1024(smem_raw);
@@ -86,13 +99,13 @@ __global__ void __launch_bounds__(kGemmThreads) qkv_kernel(QkvParams p) {
     tile0 = (job % p.groups0) * p.per;
     tiles = p.tiles0;
     job /= p.groups0;
-    M = p.B * p.Nq;
+    M = p.Mq;
   } else {
     job -= p.jobs0;
     tile0 = (job % p.groups1) * p.per;
     tiles = p.tiles1;
     job /= p.groups1;
-    M = p.B * p.Nk;
+    M = p.Mk;
   }
   const int tile_end = min(tiles, tile0 + p.per);
   const int col_base = xside ? 0 : p.C;  // kv's tiles are k's and v's columns
@@ -107,7 +120,11 @@ __global__ void __launch_bounds__(kGemmThreads) qkv_kernel(QkvParams p) {
   const bf16* src = xside ? p.x : p.kv;
   stage_a<Q8>(
       a, ring, rs, rows, p.C, [&](int r) { return src + (size_t)(row0 + r) * p.C; },
-      [&](int r) { return p.pos + (size_t)((row0 + r) % p.Nq) * p.C; }, xside && p.pos,
+      [&](int r) {
+        const int row = row0 + r;
+        return p.pos + (size_t)(R && p.qpos ? p.qpos[row] : row % p.Nq) * p.C;
+      },
+      xside && p.pos,
       p.ln_s, p.ln_b, p.eps, xside && p.ln_pre, weights(tile0), ldw, kchunks);
 
   using Acc = typename std::conditional<Q8, int, float>::type;
@@ -125,7 +142,9 @@ __global__ void __launch_bounds__(kGemmThreads) qkv_kernel(QkvParams p) {
     for (int h = 0; h < 2; ++h) {
       const int rl = warp * 16 + g + 8 * h, r = row0 + rl;
       if (r >= M) continue;
-      const int bb = r / N, tok = r % N;
+      // head-major over the rows: (B, heads, N, D), or (heads, M, D) packed
+      const size_t base = R ? (size_t)r * D : ((size_t)(r / N) * p.heads * N + r % N) * D;
+      const size_t head_stride = R ? (size_t)M * D : (size_t)N * D;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const int c = n0 + j * 8 + 2 * t, head = c / D, d = c % D;
@@ -139,8 +158,7 @@ __global__ void __launch_bounds__(kGemmThreads) qkv_kernel(QkvParams p) {
         }
         v0 += to_f(bias[c]);
         v1 += to_f(bias[c + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(
-            p.dst[which] + (((size_t)bb * p.heads + head) * N + tok) * D + d) =
+        *reinterpret_cast<__nv_bfloat162*>(p.dst[which] + base + head * head_stride + d) =
             __floats2bfloat162_rn(v0, v1);
       }
     }
@@ -148,17 +166,21 @@ __global__ void __launch_bounds__(kGemmThreads) qkv_kernel(QkvParams p) {
 }
 
 struct AttnTileParams {
-  const bf16* q;         // (B, heads, Nq, D)
-  const bf16* k;         // (B, heads, Nk, D)
+  const bf16* q;         // (B, heads, Nq, D); packed (heads, Mq, D)
+  const bf16* k;         // (B, heads, Nk, D); packed (heads, Mk, D)
   const bf16* v;
   const float* key_mask; // (B, Nk) additive, or null
-  bf16* ctx;             // (B * Nq, C), head h in columns [h D, h D + D)
-  int heads, Nq, Nk, C;
+  const int* q_off;      // packed: (B + 1) row offsets of the queries' sequences, or null
+  const int* k_off;      // packed: the same of the keys'
+  bf16* ctx;             // (B * Nq, C) or packed (Mq, C), head h in columns [h D, h D + D)
+  int heads, Nq, Nk, Mq, Mk, C;
   float scale;
 };
 
 // One block per (64 queries, head, sequence); key tiles double-buffered.
-template <int D>
+// Packed (R): Nq / Nk are a side's longest sequence, or its regular length
+// where it has no offsets; a tile past its sequence's queries returns.
+template <int D, bool R>
 __global__ void __launch_bounds__(128) attn_kernel(AttnTileParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
   using L = TileLd<D>;
@@ -167,21 +189,36 @@ __global__ void __launch_bounds__(128) attn_kernel(AttnTileParams p) {
   bf16* vbuf = reinterpret_cast<bf16*>(smem + 3 * L::kBytes);
   constexpr int kTileElems = kTileRows * L::kLd;
   const int q0 = blockIdx.x * kTileRows, head = blockIdx.y, b = blockIdx.z;
-  const size_t bh = (size_t)b * p.heads + head;
-  const bf16* qg = p.q + (bh * p.Nq + q0) * D;
-  const bf16* kg = p.k + bh * p.Nk * D;
-  const bf16* vg = p.v + bh * p.Nk * D;
-  const float* mrow = p.key_mask ? p.key_mask + (size_t)b * p.Nk : nullptr;
-  const int tiles = (p.Nk + kTileRows - 1) / kTileRows;
+  int nq = p.Nq, nk = p.Nk;
+  size_t qrow, krow;  // the sequence's first query and key row
+  const bf16 *qg, *kg, *vg;
+  if (R) {
+    qrow = p.q_off ? p.q_off[b] : (size_t)b * p.Nq;
+    krow = p.k_off ? p.k_off[b] : (size_t)b * p.Nk;
+    if (p.q_off) nq = p.q_off[b + 1] - (int)qrow;
+    if (p.k_off) nk = p.k_off[b + 1] - (int)krow;
+    if (q0 >= nq) return;
+    qg = p.q + ((size_t)head * p.Mq + qrow + q0) * D;
+    kg = p.k + ((size_t)head * p.Mk + krow) * D;
+    vg = p.v + ((size_t)head * p.Mk + krow) * D;
+  } else {
+    const size_t bh = (size_t)b * p.heads + head;
+    qrow = (size_t)b * p.Nq;
+    qg = p.q + (bh * p.Nq + q0) * D;
+    kg = p.k + bh * p.Nk * D;
+    vg = p.v + bh * p.Nk * D;
+  }
+  const float* mrow = !R && p.key_mask ? p.key_mask + (size_t)b * p.Nk : nullptr;
+  const int tiles = (nk + kTileRows - 1) / kTileRows;
 
   auto load_kv = [&](int j) {
-    const int k0 = j * kTileRows, n = min(kTileRows, p.Nk - k0);
+    const int k0 = j * kTileRows, n = min(kTileRows, nk - k0);
     tile_rows_async<D>(kbuf + (j & 1) * kTileElems, n,
                        [&](int r) { return kg + (size_t)(k0 + r) * D; });
     tile_rows_async<D>(vbuf + (j & 1) * kTileElems, n,
                        [&](int r) { return vg + (size_t)(k0 + r) * D; });
   };
-  tile_rows_async<D>(qs, min(kTileRows, p.Nq - q0), [&](int r) { return qg + (size_t)r * D; });
+  tile_rows_async<D>(qs, min(kTileRows, nq - q0), [&](int r) { return qg + (size_t)r * D; });
   load_kv(0);
   cp_async_commit();
 
@@ -196,13 +233,13 @@ __global__ void __launch_bounds__(128) attn_kernel(AttnTileParams p) {
     }
     __syncthreads();
     if (j == 0) tile_begin(st, qs);
-    tile_step(st, kbuf + (j & 1) * kTileElems, vbuf + (j & 1) * kTileElems, j * kTileRows, p.Nk,
+    tile_step(st, kbuf + (j & 1) * kTileElems, vbuf + (j & 1) * kTileElems, j * kTileRows, nk,
               p.scale, [&](int, int key) { return mrow ? mrow[key] : 0.f; });
     __syncthreads();
   }
   tile_finish(st, [&](int r, int c, float v0, float v1) {
-    if (q0 + r < p.Nq)
-      *reinterpret_cast<__nv_bfloat162*>(p.ctx + ((size_t)b * p.Nq + q0 + r) * p.C + head * D + c) =
+    if (q0 + r < nq)
+      *reinterpret_cast<__nv_bfloat162*>(p.ctx + (qrow + q0 + r) * p.C + head * D + c) =
           __floats2bfloat162_rn(v0, v1);
   });
 }
@@ -213,7 +250,8 @@ struct OutParams {
   const float* swo;
   const bf16* bo;      // (C,)
   const bf16* x;       // (M, C) residual source
-  const bf16* pos;     // (Nq, C) or null: base = x + pos[r % Nq]
+  const bf16* pos;     // (Nq, C) or null: base = x + pos[r % Nq], packed pos[qpos[r]]
+  const int* qpos;     // packed: (M,) each row's position in its sequence, or null
   const float* alpha;  // device scalar, or null
   const float* ln_s;   // (C,) post-LN
   const float* ln_b;
@@ -224,7 +262,7 @@ struct OutParams {
 
 // One block per (128 output columns, 64 rows); for kPostLN the C / 128
 // column blocks of a row block form a cluster.
-template <bool Q8>
+template <bool Q8, bool R>
 __global__ void __launch_bounds__(kGemmThreads) out_kernel(OutParams p) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* a = align1024(smem_raw);
@@ -253,7 +291,9 @@ __global__ void __launch_bounds__(kGemmThreads) out_kernel(OutParams p) {
     const int rl = warp * 16 + g + 8 * h, r = row0 + rl;
     const bool live = r < p.M;
     const bf16* xr = p.x + (size_t)(live ? r : 0) * p.C;
-    const bf16* pr = p.pos ? p.pos + (size_t)((live ? r : 0) % p.Nq) * p.C : nullptr;
+    const int rr = live ? r : 0;
+    const bf16* pr = p.pos ? p.pos + (size_t)(R && p.qpos ? p.qpos[rr] : rr % p.Nq) * p.C
+                           : nullptr;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
 #pragma unroll
@@ -331,28 +371,28 @@ __global__ void __launch_bounds__(kGemmThreads) out_kernel(OutParams p) {
   }
 }
 
-template <int D>
+template <int D, bool R>
 cudaError_t launch_attn(const AttnTileParams& p, int B, cudaStream_t st) {
   const size_t smem = 5 * TileLd<D>::kBytes;
-  cudaError_t e = allow_smem(attn_kernel<D>, smem);
+  cudaError_t e = allow_smem(attn_kernel<D, R>, smem);
   if (e != cudaSuccess) return e;
-  attn_kernel<D><<<dim3((p.Nq + kTileRows - 1) / kTileRows, p.heads, B), 128, smem, st>>>(p);
+  attn_kernel<D, R><<<dim3((p.Nq + kTileRows - 1) / kTileRows, p.heads, B), 128, smem, st>>>(p);
   return cudaGetLastError();
 }
 
-template <bool Q8>
+template <bool Q8, bool R>
 cudaError_t launch_proj(const QkvParams& q, int blocks, cudaStream_t st) {
   const size_t smem = gemm_smem(q.C, 0);
-  cudaError_t e = allow_smem(qkv_kernel<Q8>, smem);
+  cudaError_t e = allow_smem(qkv_kernel<Q8, R>, smem);
   if (e != cudaSuccess) return e;
-  qkv_kernel<Q8><<<blocks, kGemmThreads, smem, st>>>(q);
+  qkv_kernel<Q8, R><<<blocks, kGemmThreads, smem, st>>>(q);
   return cudaGetLastError();
 }
 
-template <bool Q8>
+template <bool Q8, bool R>
 cudaError_t launch_out(const OutParams& o, cudaStream_t st) {
   const size_t smem = gemm_smem(o.C, 2 * kTileM * sizeof(float));
-  cudaError_t e = allow_smem(out_kernel<Q8>, smem);
+  cudaError_t e = allow_smem(out_kernel<Q8, R>, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(o.C / kTileN, (o.M + kTileM - 1) / kTileM);
@@ -366,9 +406,116 @@ cudaError_t launch_out(const OutParams& o, cudaStream_t st) {
   cluster.val.clusterDim.z = 1;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, out_kernel<Q8>, o);
+  e = cudaLaunchKernelEx(&cfg, out_kernel<Q8, R>, o);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// The three launches of one call, padded (R false: B sequences of Nq query
+// and Nk key rows) or packed (R true: Mq query and Mk key rows, a side's
+// sequences by its offsets, Nq / Nk its longest; bf16 only).
+template <bool R>
+int seq_attention(const void* x, const void* kv, const void* key_mask, const void* pos,
+                  const void* alpha, const void* ln_s, const void* ln_b, const void* wq,
+                  const void* bq, const void* wk, const void* bk, const void* wv,
+                  const void* bv, const void* wo, const void* bo, void* qkv, void* ctx,
+                  void* out, const void* q_off, const void* k_off, const void* qpos, int B,
+                  int Mq, int Mk, int Nq, int Nk, int C, int heads, int ln_mode,
+                  int include_residual, int residual_from_raw, float eps, const void* quant,
+                  cudaStream_t st) {
+  const int D = heads > 0 ? C / heads : 0;
+  if (B < 1 || heads < 1 || C % heads || C % kTileN || C > 8 * kTileN || ln_mode < 0 ||
+      ln_mode > 2 || Nq < 1 || Nq > kMaxTokens || Nk < 1 || Nk > kMaxTokens || Mq < 1 ||
+      Mk < 1 || (!kv && Mk != Mq) || (D != 32 && D != 64 && D != 128))
+    return (int)cudaErrorInvalidValue;
+  const QuantArgs* qa = static_cast<const QuantArgs*>(quant);
+  if (qa && qa->mode != kQuantOff && qa->mode != kQuantDyn) return (int)cudaErrorInvalidValue;
+  const bool q8 = qa && qa->mode == kQuantDyn;
+
+  QkvParams q{};
+  q.x = static_cast<const bf16*>(x);
+  q.kv = static_cast<const bf16*>(kv);
+  q.pos = static_cast<const bf16*>(pos);
+  q.qpos = static_cast<const int*>(qpos);
+  q.ln_s = static_cast<const float*>(ln_s);
+  q.ln_b = static_cast<const float*>(ln_b);
+  const void* w3[3] = {wq, wk, wv};
+  const void* b3[3] = {bq, bk, bv};
+  for (int i = 0; i < 3; ++i) {
+    q.w[i] = static_cast<const unsigned char*>(q8 ? qa->w[i] : w3[i]);
+    q.sw[i] = q8 ? static_cast<const float*>(qa->s[i]) : nullptr;
+    q.b[i] = static_cast<const bf16*>(b3[i]);
+  }
+  bf16* scratch = static_cast<bf16*>(qkv);
+  q.dst[0] = scratch;
+  q.dst[1] = scratch + (size_t)Mq * C;
+  q.dst[2] = q.dst[1] + (size_t)Mk * C;
+  q.B = B, q.Nq = Nq, q.Nk = Nk, q.Mq = Mq, q.Mk = Mk, q.C = C, q.heads = heads;
+  q.ln_pre = ln_mode == 1;
+  q.eps = eps;
+  // column tiles per block: one while the blocks are few, more (reusing the
+  // staged rows) once there are over two waves of 132 SMs at one tile each
+  const int tiles = C / kTileN, rb0 = (Mq + kTileM - 1) / kTileM;
+  const int rb1 = kv ? (Mk + kTileM - 1) / kTileM : 0;
+  q.tiles0 = kv ? tiles : 3 * tiles;
+  q.tiles1 = 2 * tiles;
+  q.per = max(1, min(4, (rb0 * q.tiles0 + rb1 * q.tiles1) / 264));
+  q.groups0 = (q.tiles0 + q.per - 1) / q.per;
+  q.groups1 = (q.tiles1 + q.per - 1) / q.per;
+  q.jobs0 = rb0 * q.groups0;
+  const int jobs = q.jobs0 + rb1 * q.groups1;
+
+  OutParams o{};
+  o.ctx = static_cast<const bf16*>(ctx);
+  o.wo = static_cast<const unsigned char*>(q8 ? qa->w[3] : wo);
+  o.swo = q8 ? static_cast<const float*>(qa->s[3]) : nullptr;
+  o.bo = static_cast<const bf16*>(bo);
+  o.x = q.x;
+  o.pos = q.pos;
+  o.qpos = q.qpos;
+  o.alpha = static_cast<const float*>(alpha);
+  o.ln_s = q.ln_s;
+  o.ln_b = q.ln_b;
+  o.out = static_cast<bf16*>(out);
+  o.M = Mq;
+  o.C = C;
+  o.Nq = Nq;
+  o.eps = eps;
+  o.mode = ln_mode == 2          ? kPostLN
+           : !include_residual   ? kProjOnly
+           : residual_from_raw   ? kResidualRaw
+                                 : kResidualBase;
+
+  cudaError_t e;
+  if constexpr (R) {
+    e = launch_proj<false, true>(q, jobs, st);
+  } else {
+    e = q8 ? launch_proj<true, false>(q, jobs, st) : launch_proj<false, false>(q, jobs, st);
+  }
+  if (e != cudaSuccess) return (int)e;
+
+  AttnTileParams t{};
+  t.q = q.dst[0];
+  t.k = q.dst[1];
+  t.v = q.dst[2];
+  t.key_mask = static_cast<const float*>(key_mask);
+  t.q_off = static_cast<const int*>(q_off);
+  t.k_off = static_cast<const int*>(k_off);
+  t.ctx = static_cast<bf16*>(ctx);
+  t.heads = heads, t.Nq = Nq, t.Nk = Nk, t.Mq = Mq, t.Mk = Mk, t.C = C;
+  t.scale = (float)(1.0 / sqrt((double)D));
+  switch (D) {
+    case 32: e = launch_attn<32, R>(t, B, st); break;
+    case 64: e = launch_attn<64, R>(t, B, st); break;
+    default: e = launch_attn<128, R>(t, B, st); break;
+  }
+  if (e != cudaSuccess) return (int)e;
+  if constexpr (R) {
+    e = launch_out<false, true>(o, st);
+  } else {
+    e = q8 ? launch_out<true, false>(o, st) : launch_out<false, false>(o, st);
+  }
+  return (int)e;
 }
 
 }  // namespace
@@ -393,87 +540,33 @@ int mmrp_seq_attention(const void* x, const void* kv, const void* key_mask, cons
                        void* out, int B, int Nq, int Nk, int C, int heads, int ln_mode,
                        int include_residual, int residual_from_raw, float eps,
                        const void* quant, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int D = heads > 0 ? C / heads : 0;
-  if (B < 1 || heads < 1 || C % heads || C % kTileN || C > 8 * kTileN || ln_mode < 0 ||
-      ln_mode > 2 || Nq < 1 || Nq > kMaxTokens || Nk < 1 || Nk > kMaxTokens ||
-      (D != 32 && D != 64 && D != 128))
-    return (int)cudaErrorInvalidValue;
-  const QuantArgs* qa = static_cast<const QuantArgs*>(quant);
-  if (qa && qa->mode != kQuantOff && qa->mode != kQuantDyn) return (int)cudaErrorInvalidValue;
-  const bool q8 = qa && qa->mode == kQuantDyn;
+  if (B < 1 || Nq < 1 || Nk < 1) return (int)cudaErrorInvalidValue;
+  return seq_attention<false>(x, kv, key_mask, pos, alpha, ln_s, ln_b, wq, bq, wk, bk, wv, bv, wo,
+                              bo, qkv, ctx, out, nullptr, nullptr, nullptr, B, B * Nq, B * Nk,
+                              Nq, Nk, C, heads, ln_mode, include_residual, residual_from_raw,
+                              eps, quant, static_cast<cudaStream_t>(stream));
+}
 
-  QkvParams q{};
-  q.x = static_cast<const bf16*>(x);
-  q.kv = static_cast<const bf16*>(kv);
-  q.pos = static_cast<const bf16*>(pos);
-  q.ln_s = static_cast<const float*>(ln_s);
-  q.ln_b = static_cast<const float*>(ln_b);
-  const void* w3[3] = {wq, wk, wv};
-  const void* b3[3] = {bq, bk, bv};
-  for (int i = 0; i < 3; ++i) {
-    q.w[i] = static_cast<const unsigned char*>(q8 ? qa->w[i] : w3[i]);
-    q.sw[i] = q8 ? static_cast<const float*>(qa->s[i]) : nullptr;
-    q.b[i] = static_cast<const bf16*>(b3[i]);
-  }
-  bf16* scratch = static_cast<bf16*>(qkv);
-  q.dst[0] = scratch;
-  q.dst[1] = scratch + (size_t)B * Nq * C;
-  q.dst[2] = q.dst[1] + (size_t)B * Nk * C;
-  q.B = B, q.Nq = Nq, q.Nk = Nk, q.C = C, q.heads = heads;
-  q.ln_pre = ln_mode == 1;
-  q.eps = eps;
-  // column tiles per block: one while the blocks are few, more (reusing the
-  // staged rows) once there are over two waves of 132 SMs at one tile each
-  const int tiles = C / kTileN, rb0 = (B * Nq + kTileM - 1) / kTileM;
-  const int rb1 = kv ? (B * Nk + kTileM - 1) / kTileM : 0;
-  q.tiles0 = kv ? tiles : 3 * tiles;
-  q.tiles1 = 2 * tiles;
-  q.per = max(1, min(4, (rb0 * q.tiles0 + rb1 * q.tiles1) / 264));
-  q.groups0 = (q.tiles0 + q.per - 1) / q.per;
-  q.groups1 = (q.tiles1 + q.per - 1) / q.per;
-  q.jobs0 = rb0 * q.groups0;
-  const int jobs = q.jobs0 + rb1 * q.groups1;
-
-  OutParams o{};
-  o.ctx = static_cast<const bf16*>(ctx);
-  o.wo = static_cast<const unsigned char*>(q8 ? qa->w[3] : wo);
-  o.swo = q8 ? static_cast<const float*>(qa->s[3]) : nullptr;
-  o.bo = static_cast<const bf16*>(bo);
-  o.x = q.x;
-  o.pos = q.pos;
-  o.alpha = static_cast<const float*>(alpha);
-  o.ln_s = q.ln_s;
-  o.ln_b = q.ln_b;
-  o.out = static_cast<bf16*>(out);
-  o.M = B * Nq;
-  o.C = C;
-  o.Nq = Nq;
-  o.eps = eps;
-  o.mode = ln_mode == 2          ? kPostLN
-           : !include_residual   ? kProjOnly
-           : residual_from_raw   ? kResidualRaw
-                                 : kResidualBase;
-
-  cudaError_t e = q8 ? launch_proj<true>(q, jobs, st) : launch_proj<false>(q, jobs, st);
-  if (e != cudaSuccess) return (int)e;
-
-  AttnTileParams t{};
-  t.q = q.dst[0];
-  t.k = q.dst[1];
-  t.v = q.dst[2];
-  t.key_mask = static_cast<const float*>(key_mask);
-  t.ctx = static_cast<bf16*>(ctx);
-  t.heads = heads, t.Nq = Nq, t.Nk = Nk, t.C = C;
-  t.scale = (float)(1.0 / sqrt((double)D));
-  switch (D) {
-    case 32: e = launch_attn<32>(t, B, st); break;
-    case 64: e = launch_attn<64>(t, B, st); break;
-    default: e = launch_attn<128>(t, B, st); break;
-  }
-  if (e != cudaSuccess) return (int)e;
-  e = q8 ? launch_out<true>(o, st) : launch_out<false>(o, st);
-  return (int)e;
+// The packed form, bf16: x (Mq, C), the B query sequences back to back by
+// the int32 (B + 1) offsets q_off, or B * Nq regular rows where q_off is
+// null; kv (Mk, C) likewise by k_off, or null (k and v from x: k_off is
+// q_off, Mk = Mq). Nq / Nk: a side's longest sequence (1 to 512), or its
+// regular length. qpos (Mq,) int32: each x row's position in its sequence,
+// the row of pos (Nq, C) it adds, or null (row % Nq). No key mask: a
+// sequence's keys are its own rows. qkv a bf16 scratch of (Mq + 2 Mk) C
+// elements, ctx (Mq, C), out like x.
+int mmrp_seq_attention_packed(const void* x, const void* kv, const void* pos, const void* alpha,
+                              const void* ln_s, const void* ln_b, const void* wq, const void* bq,
+                              const void* wk, const void* bk, const void* wv, const void* bv,
+                              const void* wo, const void* bo, void* qkv, void* ctx, void* out,
+                              const void* q_off, const void* k_off, const void* qpos, int B,
+                              int Mq, int Mk, int Nq, int Nk, int C, int heads, int ln_mode,
+                              int include_residual, int residual_from_raw, float eps,
+                              void* stream) {
+  return seq_attention<true>(x, kv, nullptr, pos, alpha, ln_s, ln_b, wq, bq, wk, bk, wv, bv, wo,
+                             bo, qkv, ctx, out, q_off, k_off, qpos, B, Mq, Mk, Nq, Nk, C, heads,
+                             ln_mode, include_residual, residual_from_raw, eps, nullptr,
+                             static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -24,6 +24,13 @@ at construction from the most tokens it can see (:func:`attention_route`):
 in ``fused_attention.plain_calls``) where it does not, ``int8`` for the W8A8
 XLA branch.
 
+Given the text's :class:`~mmrp_tpu_torch.ops.fused_attention.Packed` plan
+(``txt_rows``), ``CrossModalFusion`` runs the text side packed: the text
+enhancer and the text -> image attention on T packed query rows, the image
+-> text attention over each report's own rows as keys (K3's packed forms),
+and the text pooled as the mean of each report's rows. The image side is
+unchanged.
+
 Training (``forward_train``) takes the JAX XLA branches (``fusion.py:130-163,
 216-241``): plain GEMMs, f32 scores and softmax, dropout on the attention
 probabilities. ``quant=True`` serves through the same branches with every
@@ -44,10 +51,10 @@ from mmrp_tpu_torch.models.text_encoder import (
     mha_train,
     qlinear,
     qlinear_multi,
+    run_attention,
 )
-from mmrp_tpu_torch.ops import _build
 from mmrp_tpu_torch.ops import fused_attention as K3
-from mmrp_tpu_torch.ops.fused_attention import attention_plain, fused_attention
+from mmrp_tpu_torch.ops.fused_attention import Packed, to_padded
 from mmrp_tpu_torch.ops.quant import attach_int8
 
 
@@ -58,13 +65,6 @@ def attention_route(dim: int, num_heads: int, max_q: int, max_k: int, quant: boo
     if quant:
         return "int8"
     return "kernel" if K3.kernel_takes(dim, num_heads, max_q, max_k) else "plain"
-
-
-def run_attention(route: str, *args, **kwargs):
-    """K3 on a kernel route, its plain version (counted) on a plain one."""
-    if route == "kernel":
-        return fused_attention(*args, **kwargs)
-    return _build.run_plain(fused_attention, attention_plain, *args, **kwargs)
 
 
 def plain_lins(x, lins):
@@ -100,15 +100,22 @@ class CrossAttention(nn.Module):
 
     def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor,
                 kv_mask: Optional[torch.Tensor] = None,
-                post_ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
-        """``post_ln`` (scale, bias): return LayerNorm(q_in + attn_out)."""
+                post_ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                rows: Optional[Packed] = None,
+                kv_rows: Optional[Packed] = None) -> torch.Tensor:
+        """``post_ln`` (scale, bias): return LayerNorm(q_in + attn_out).
+        ``rows`` / ``kv_rows``: q_in / kv_in packed (K3's packed form), each
+        query attending its own sequence's keys, no ``kv_mask``."""
         if self.quant:
             return self._xla(q_in, kv_in, kv_mask, post_ln, qlinear_multi, 0.0, None)
         ln_s, ln_b = post_ln if post_ln is not None else (None, None)
+        if rows is not None or kv_rows is not None:
+            keys = dict(rows=rows, kv_rows=kv_rows)
+        else:
+            keys = dict(key_mask=None if kv_mask is None else additive_key_mask(kv_mask))
         return run_attention(
             self.route, q_in, ln_s, ln_b, self.q.weight, self.q.bias, self.k.weight, self.k.bias,
-            self.v.weight, self.v.bias, self.out.weight, self.out.bias, kv=kv_in,
-            key_mask=None if kv_mask is None else additive_key_mask(kv_mask),
+            self.v.weight, self.v.bias, self.out.weight, self.out.bias, kv=kv_in, **keys,
             num_heads=self.num_heads, ln_mode="post" if post_ln is not None else "none",
             include_residual=False)
 
@@ -180,15 +187,20 @@ class PreFusionEnhancer(nn.Module):
         (out,) = lins(ctx, (a.out,))
         return x + self.alpha.to(x.dtype) * out
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                rows: Optional[Packed] = None) -> torch.Tensor:
+        """``rows``: x (T, D) packed, each row at its position in its sequence."""
         if self.quant:
             return self._xla(x, mask, qlinear_multi, 0.0, None)
-        N = x.shape[1]
-        pos = self._pos(N)
+        if rows is not None:
+            keys = dict(rows=rows)
+            pos = self._pos(rows.width)[: rows.max_len]
+        else:
+            keys = dict(key_mask=None if mask is None else additive_key_mask(mask))
+            pos = self._pos(x.shape[1])
         return run_attention(
             self.route, x, self.LayerNorm_0.weight, self.LayerNorm_0.bias, *self.attention.weights(),
-            key_mask=None if mask is None else additive_key_mask(mask),
-            pos=pos, alpha=self.alpha, num_heads=self.num_heads,
+            **keys, pos=pos, alpha=self.alpha, num_heads=self.num_heads,
             ln_mode="pre", include_residual=True, residual_from_raw=True)
 
 
@@ -210,9 +222,23 @@ class CrossModalFusion(nn.Module):
 
     def forward(self, img_patches: torch.Tensor, img_global: torch.Tensor,
                 txt_tokens: torch.Tensor, txt_mask: Optional[torch.Tensor] = None,
-                return_attention: bool = False):
+                return_attention: bool = False, txt_rows: Optional[Packed] = None):
         """The fused sequence; with ``return_attention`` (sequence,
-        {"txt2img", "img2txt"} softmax weights)."""
+        {"txt2img", "img2txt"} softmax weights). ``txt_rows``: txt_tokens
+        (T, D) packed by it, the text side on K3's packed forms (module
+        docstring); ``txt_mask`` is then not read."""
+        if txt_rows is not None:
+            if return_attention or self.txt_enh.quant:
+                raise ValueError("CrossModalFusion: the packed text runs the bf16 kernel "
+                                 "routes only, without attention maps")
+            txt_e = self.txt_enh(txt_tokens, rows=txt_rows)
+            pat_e = self.img_enh(img_patches)
+            txt = self.txt2img(txt_e, pat_e, post_ln=(self.txt_norm.weight, self.txt_norm.bias),
+                               rows=txt_rows)
+            patches = self.img2txt(pat_e, txt_e,
+                                   post_ln=(self.img_norm.weight, self.img_norm.bias),
+                                   kv_rows=txt_rows)
+            return self._sequence(img_global, txt, patches, None, txt_rows)
         txt_e = self.txt_enh(txt_tokens, txt_mask)
         pat_e = self.img_enh(img_patches)
         # text queries attend the patches and vice versa, both over the
@@ -240,9 +266,14 @@ class CrossModalFusion(nn.Module):
                                              generator)
         return self._sequence(img_global, txt, patches, txt_mask)
 
-    def _sequence(self, img_global, txt, patches, txt_mask) -> torch.Tensor:
+    def _sequence(self, img_global, txt, patches, txt_mask,
+                  txt_rows: Optional[Packed] = None) -> torch.Tensor:
         """Masked text pooling and the fused sequence [cls, patches, txt]."""
-        if txt_mask is not None:
+        if txt_rows is not None:
+            # the masked mean's arithmetic on each report's own rows
+            n = txt_rows.lengths.to(patches.dtype)[:, None]
+            txt_pooled = to_padded(txt, txt_rows).sum(1) / torch.clamp(n, min=1.0)
+        elif txt_mask is not None:
             w = txt_mask.to(patches.dtype)
             txt_pooled = (txt * w[:, :, None]).sum(1) / torch.clamp(
                 w.sum(1, keepdim=True), min=1.0)

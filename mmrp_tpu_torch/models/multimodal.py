@@ -33,6 +33,13 @@ With ``remat_backbone`` each Swin block, BERT layer and fusion layer runs
 under activation checkpointing (``layers.py::remat``, JAX's ``nn.remat``,
 ``multimodal.py:102-121``), its dropout masks replayed in the backward.
 
+``text_lengths`` (host, each row's prefix length; ``api.serving_forward``
+passes them) selects the packed text route where the batch holds padding:
+the text tower and each fusion layer's text side run each report's valid
+tokens only (``ops/fused_attention.py::Packed``, K3's packed forms), with
+the same numbers on the valid rows. It is the serving forward's bf16 route:
+training, the explain hooks and the int8 routes run padded.
+
 Each tower's host time is a span (``utils/trace.py``): ``tower.vision`` and
 ``tower.text`` around the backbones' two towers, ``tower.fusion`` around each
 fusion layer on every route.
@@ -58,6 +65,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -68,7 +76,6 @@ from mmrp_tpu_torch.models.fusion import (
     attach_int8_all,
     attention_route,
     plain_lins,
-    run_attention,
 )
 from mmrp_tpu_torch.models.layers import (
     DropPath,
@@ -90,12 +97,15 @@ from mmrp_tpu_torch.models.text_encoder import (
     TextConfig,
     TextEncoder,
     mha_train,
+    pack_text,
     qlinear_multi,
+    run_attention,
 )
 from mmrp_tpu_torch.models.text_encoder import attention_route as text_attention_route
 from mmrp_tpu_torch.models.vit import ViTConfig, ViTEncoder
 from mmrp_tpu_torch.ops import _build
 from mmrp_tpu_torch.ops import fused_mlp as K2
+from mmrp_tpu_torch.ops.fused_attention import Packed
 from mmrp_tpu_torch.ops.fused_mlp import fused_ln_mlp_residual, ln_mlp_plain
 from mmrp_tpu_torch.utils.trace import span
 
@@ -301,7 +311,8 @@ class Backbones(nn.Module):
         return self._modules[self.vision_name] if self.vision_name else None
 
     def forward(self, image, input_ids, attention_mask, deterministic: bool = True,
-                generator: torch.Generator = None) -> Dict[str, torch.Tensor]:
+                generator: torch.Generator = None,
+                txt_rows: Optional[Packed] = None) -> Dict[str, torch.Tensor]:
         out = {}
         if self.config.mode != "text":
             with span("tower.vision"):
@@ -309,7 +320,7 @@ class Backbones(nn.Module):
             out.update(img_patches=vis["patches"], img_global=vis["global"])
         if self.config.mode != "image":
             with span("tower.text"):
-                txt = self.text(input_ids, attention_mask, deterministic, generator)
+                txt = self.text(input_ids, attention_mask, deterministic, generator, txt_rows)
             out.update(txt_tokens=txt["tokens"], txt_cls=txt["cls"])
         return out
 
@@ -355,14 +366,15 @@ class FusionLayer(nn.Module):
                             (*self.attention.linears(), self.ffn.Dense_0, self.ffn.Dense_1))
 
     def forward(self, img_patches, img_global, txt_tokens, txt_mask,
-                return_attention: bool = False):
+                return_attention: bool = False, txt_rows: Optional[Packed] = None):
         """The pooled sequence; with ``return_attention`` (pooled, the fusion's
         attention weights), the whole layer on the JAX XLA branch after the
-        enhancers (no kernel route for the self-attention and the FFN)."""
+        enhancers (no kernel route for the self-attention and the FFN).
+        ``txt_rows``: txt_tokens packed by it (``CrossModalFusion``)."""
         if return_attention:
             seq, attn = self.fusion(img_patches, img_global, txt_tokens, txt_mask, True)
             return self._xla(seq, qlinear_multi if self.quant else plain_lins, None), attn
-        seq = self.fusion(img_patches, img_global, txt_tokens, txt_mask)
+        seq = self.fusion(img_patches, img_global, txt_tokens, txt_mask, txt_rows=txt_rows)
         if self.quant:
             return self._xla(seq, qlinear_multi, None)
         B, L, D = seq.shape
@@ -472,7 +484,8 @@ class MultiModalRetrievalModel(nn.Module):
                 patch_delta: Optional[torch.Tensor] = None,
                 txt_delta: Optional[torch.Tensor] = None,
                 features: Optional[Dict[str, torch.Tensor]] = None,
-                return_features: bool = False) -> Dict[str, torch.Tensor]:
+                return_features: bool = False,
+                text_lengths: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
         """``deterministic=False`` is the training route (module docstring);
         it needs ``generator``. The explain hooks as JAX's: ``features``
         (img_patches / img_global / txt_tokens / txt_cls, the raw backbone
@@ -481,7 +494,10 @@ class MultiModalRetrievalModel(nn.Module):
         added to the projected patches / text tokens; ``return_attention``
         adds "attention", one {"txt2img", "img2txt"} dict per fusion layer.
         The outputs also hold the projected patches and text tokens in f32
-        (``img_patches_proj``, ``txt_tokens_proj``)."""
+        (``img_patches_proj``, ``txt_tokens_proj``; on the packed text route
+        the latter is (T, D), each report's valid rows back to back).
+        ``text_lengths``: each row's prefix length on the host (module
+        docstring)."""
         cfg = self.config
         if not deterministic and generator is None:
             raise ValueError("MultiModalRetrievalModel: the training route needs a "
@@ -495,8 +511,13 @@ class MultiModalRetrievalModel(nn.Module):
             raise ValueError("patch_delta requires the image tower (mode='text')")
         if cfg.mode == "image" and txt_delta is not None:
             raise ValueError("txt_delta requires the text tower (mode='image')")
+        rows = None
+        if text_lengths is not None and self._packs_text(deterministic, return_attention,
+                                                         patch_delta, txt_delta, features):
+            width = min(input_ids.shape[1], cfg.text.max_positions)
+            rows = pack_text(text_lengths, width, input_ids.device)
         feats = features if features is not None else self.backbones(
-            image, input_ids, attention_mask, deterministic, generator)
+            image, input_ids, attention_mask, deterministic, generator, rows)
         B = input_ids.shape[0]
         if cfg.mode != "text":
             img_patches = self.img_proj(feats["img_patches"].to(self.dtype))
@@ -510,7 +531,7 @@ class MultiModalRetrievalModel(nn.Module):
             if txt_delta is not None:  # token-level IG
                 txt_tokens = (txt_tokens + txt_delta).to(self.dtype)
             txt_cls = self.txt_cls_proj(feats["txt_cls"].to(self.dtype))
-            txt_mask = attention_mask[:, : txt_tokens.shape[1]]
+            txt_mask = attention_mask[:, : txt_tokens.shape[1]] if rows is None else None
         if cfg.mode == "image":
             txt_tokens = self.null_txt.expand(B, 1, -1).contiguous()
             txt_cls = txt_tokens[:, 0, :]
@@ -530,7 +551,7 @@ class MultiModalRetrievalModel(nn.Module):
                     pooled, attn = layer(*args, return_attention=True)
                     attn_maps.append(attn)
                 elif deterministic:
-                    pooled = layer(*args)
+                    pooled = layer(*args, txt_rows=rows)
                 elif cfg.remat_backbone:
                     pooled = remat(lambda ip, ig, tt, g, m=layer: m.forward_train(
                         ip, ig, tt, txt_mask, g), generator, img_patches, img_global,
@@ -557,3 +578,13 @@ class MultiModalRetrievalModel(nn.Module):
         if return_features:
             out["features"] = feats
         return out
+
+    def _packs_text(self, deterministic, return_attention, patch_delta, txt_delta,
+                    features) -> bool:
+        """Whether a forward may take the packed text route: the serving
+        forward in bf16 weights (no int8 route), with the text tower, and no
+        explain hook."""
+        cfg = self.config
+        return (deterministic and not return_attention and patch_delta is None
+                and txt_delta is None and features is None and cfg.mode != "image"
+                and cfg.quant == "none" and cfg.text.quant == "none")

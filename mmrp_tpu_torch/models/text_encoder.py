@@ -18,13 +18,22 @@ The attention's route is fixed at construction (:func:`attention_route`):
 ``kernel`` where K3 takes the width, heads and ``max_positions`` tokens,
 ``plain`` (K3's plain version, counted in ``fused_attention.plain_calls``)
 where it does not, ``int8`` for the XLA W8A8 branch.
+
+Given a :class:`~mmrp_tpu_torch.ops.fused_attention.Packed` plan of the
+batch's valid lengths (:func:`pack_text`), the serving forward runs packed:
+every report's valid tokens back to back in T rows, K3's packed form, the
+FFN and LayerNorms on T rows; ``tokens`` is then (T, D). Counters
+(``utils/trace.py::count``): ``text.packed`` / ``text.padded``, the forwards
+of each route, and ``text.rows`` / ``text.rows_padded``, the rows run and the
+B x L the padded route runs.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -32,8 +41,16 @@ from mmrp_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mmrp_tpu_torch.models.layers import LayerNorm, MhaParams, dropout, gelu, ln_f32, remat
 from mmrp_tpu_torch.ops import _build
 from mmrp_tpu_torch.ops import fused_attention as K3
-from mmrp_tpu_torch.ops.fused_attention import attention_plain, fused_attention
+from mmrp_tpu_torch.ops.fused_attention import (
+    Packed,
+    attention_plain,
+    attention_plain_packed,
+    fused_attention,
+    fused_attention_packed,
+    pack,
+)
 from mmrp_tpu_torch.ops.quant import attach_int8, quant_dot, quant_dot_multi
+from mmrp_tpu_torch.utils.trace import count
 
 
 @dataclass(frozen=True)
@@ -84,6 +101,38 @@ def qlinear_multi(x: torch.Tensor, lins) -> list:
                            wscales=[lin.weight_scale for lin in lins])
 
 
+def prefix_lengths(mask: np.ndarray) -> Optional[np.ndarray]:
+    """Each row's length where every row of the host mask (B, L) is a prefix
+    of at least one valid token; else None."""
+    mask = np.asarray(mask) != 0
+    if mask.ndim != 2 or mask.shape[1] == 0:
+        return None
+    lengths = mask.sum(1)
+    if lengths.min() < 1 or not (mask == (np.arange(mask.shape[1]) < lengths[:, None])).all():
+        return None
+    return lengths
+
+
+def pack_text(lengths: np.ndarray, width: int, device) -> Optional[Packed]:
+    """The packed plan of a batch of prefix ``lengths`` (host) padded to
+    ``width`` tokens (those past ``width`` cut, as the encoder cuts them),
+    or None where the batch holds no padding."""
+    lengths = np.minimum(lengths, width)
+    if lengths.sum() >= len(lengths) * width:
+        return None
+    return pack(lengths, width, device)
+
+
+def run_attention(route: str, *args, **kwargs):
+    """K3 on a kernel route, its plain version (counted) on a plain one; the
+    packed form where ``rows`` or ``kv_rows`` is given."""
+    packed = kwargs.get("rows") is not None or kwargs.get("kv_rows") is not None
+    if route == "kernel":
+        return (fused_attention_packed if packed else fused_attention)(*args, **kwargs)
+    plain = attention_plain_packed if packed else attention_plain
+    return _build.run_plain(fused_attention, plain, *args, **kwargs)
+
+
 def additive_key_mask(mask: torch.Tensor) -> torch.Tensor:
     """(B, N) 0/1 validity -> (B, N) additive f32 (0 / -1e9)."""
     return torch.where(mask > 0, 0.0, -1e9).to(torch.float32)
@@ -119,9 +168,11 @@ class BertEmbeddings(nn.Module):
         self.token_type = nn.Embedding(config.type_vocab_size, config.hidden_dim, **kw)
         self.LayerNorm_0 = LayerNorm(config.hidden_dim, dtype, device)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        L = input_ids.shape[1]
-        pos_ids = torch.arange(L, device=input_ids.device)[None, :]
+    def forward(self, input_ids: torch.Tensor,
+                pos_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``pos_ids``: each token's position, else 0 .. L - 1 along dim 1."""
+        if pos_ids is None:
+            pos_ids = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
         x = self.word(input_ids) + self.position(pos_ids) \
             + self.token_type(torch.zeros_like(input_ids))
         return self.LayerNorm_0(x)
@@ -153,8 +204,12 @@ class BertLayer(nn.Module):
             for lin in self.attention.linears():
                 attach_int8(lin, from_master=config.quant == "int8")
 
-    def forward(self, x: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
-        """x: (B, L, D); key_mask: (B, L) additive f32 (0 valid / -1e9 pad)."""
+    def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor],
+                rows: Optional[Packed] = None) -> torch.Tensor:
+        """x: (B, L, D); key_mask: (B, L) additive f32 (0 valid / -1e9 pad).
+        With ``rows``: x (T, D) packed, no key mask, bf16 weights only."""
+        if rows is not None and self.quant != "none":
+            raise ValueError("BertLayer: the packed form runs the bf16 weights only")
         if self.route == "int8":
             a = self.attention
             q, k, v = qlinear_multi(x, (a.query, a.key, a.value))
@@ -168,10 +223,10 @@ class BertLayer(nn.Module):
             # the numbers of their int8 caches
             c8 = q8 and not torch.is_grad_enabled()
             args = (x, self.attn_norm.weight, self.attn_norm.bias, *self.attention.weights(c8))
-            kw = dict(key_mask=key_mask, num_heads=self.num_heads, ln_mode="post", quant=q8,
-                      wscales=self.attention.scales() if c8 else None)
-            x = fused_attention(*args, **kw) if self.route == "kernel" else \
-                _build.run_plain(fused_attention, attention_plain, *args, **kw)
+            keys = dict(rows=rows) if rows is not None else dict(
+                key_mask=key_mask, quant=q8, wscales=self.attention.scales() if c8 else None)
+            x = run_attention(self.route, *args, **keys, num_heads=self.num_heads,
+                              ln_mode="post")
         if self.quant == "none":
             y = self.ffn_out(gelu(self.ffn_in(x)))
         else:
@@ -203,14 +258,28 @@ class TextEncoder(nn.Module):
             self.add_module(f"layer{i}", BertLayer(config, dtype, device))
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                deterministic: bool = True,
-                generator: torch.Generator = None) -> Dict[str, torch.Tensor]:
+                deterministic: bool = True, generator: torch.Generator = None,
+                rows: Optional[Packed] = None) -> Dict[str, torch.Tensor]:
         """``deterministic=False`` takes the training route, with dropout
-        drawn from ``generator``."""
+        drawn from ``generator``. ``rows`` (serving): the packed route, whose
+        ``tokens`` are each report's valid rows back to back (T, D)."""
         cfg = self.config
         # truncate to max positions, like the JAX encoder
         input_ids = input_ids[:, : cfg.max_positions]
         attention_mask = attention_mask[:, : cfg.max_positions]
+        B, L = input_ids.shape
+        count("text.packed" if rows is not None else "text.padded")
+        count("text.rows", rows.T if rows is not None else B * L)
+        count("text.rows_padded", B * L)
+        if rows is not None:
+            if not deterministic or rows.width != L:
+                raise ValueError(f"TextEncoder: a packed plan of width {rows.width} for "
+                                 f"{L} tokens, deterministic={deterministic}")
+            ids = input_ids[:, : rows.max_len].reshape(-1).index_select(0, rows.slot)
+            x = self.embeddings(ids, rows.pos)
+            for i in range(cfg.num_layers):
+                x = self._modules[f"layer{i}"](x, None, rows)
+            return {"tokens": x, "cls": x.index_select(0, rows.offsets[:-1])}
         x = self.embeddings(input_ids)
         key_mask = additive_key_mask(attention_mask)
         if not deterministic:

@@ -29,6 +29,17 @@ on a CUDA tensor it refuses, and the text encoder and the fusion modules
 route such shapes to :func:`attention_plain` by their plan, counted in
 ``fused_attention.plain_calls``.
 
+The packed form (:func:`fused_attention_packed`, bf16, no ``quant``):
+sequences of different lengths lie back to back in the rows of a 2-D
+``(T, C)`` tensor, described by a :class:`Packed` plan (:func:`pack`, made
+on the host from the lengths and copied to the device once); a side without
+a plan is a regular ``(B, N, C)`` tensor. Each sequence attends only its own
+keys, so no key mask is needed: a padded form's masked key has softmax
+weight exactly 0, and a padded query row is thrown away, so the packed
+form's rows are the padded form's valid rows. :func:`attention_plain_packed`
+is its plain version: the padded function on the rows padded to the longest
+sequence, with the key mask of the padding.
+
 Weights use the nn.Linear layout: each of wq/wk/wv/wo is (C_out, C_in).
 
 The launches are the op ``torch.ops.mmrp.seq_attention`` (``_build.kernel_op``),
@@ -40,8 +51,9 @@ on a CUDA tensor and the plain version's (int8 for ``quant``) on a CPU one.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -259,4 +271,186 @@ def _fake(x, *args, **kwargs):
 _op = _build.kernel_op("seq_attention", _launch, _fake)
 fused_attention.launches = 0
 fused_attention.launches_int8 = 0
+fused_attention.launches_packed = 0
 fused_attention.plain_calls = 0
+
+
+class Packed(NamedTuple):
+    """B sequences packed back to back in T rows (:func:`pack`). The int32
+    tensors are views of one device buffer:
+
+    - ``offsets`` (B + 1,): sequence b is rows ``offsets[b]`` to
+      ``offsets[b + 1] - 1``;
+    - ``lengths`` (B,): each sequence's length;
+    - ``pos`` (T,): each row's position in its sequence;
+    - ``slot`` (T,): each row's index in the (B, max_len) padded layout;
+    - ``pad_index`` (B * max_len,): each padded slot's row, T past its
+      sequence.
+
+    ``width`` is the length the batch was padded to (the padded form runs
+    B * width rows); ``T``, ``max_len`` and ``width`` are host ints."""
+    offsets: torch.Tensor
+    lengths: torch.Tensor
+    pos: torch.Tensor
+    slot: torch.Tensor
+    pad_index: torch.Tensor
+    B: int
+    T: int
+    max_len: int
+    width: int
+
+
+def pack(lengths: np.ndarray, width: int, device) -> Packed:
+    """The :class:`Packed` plan of sequences of ``lengths`` (host ints, each
+    1 to ``width``), made on the host and sent to ``device`` in one copy
+    (from pinned memory, not waited for, on a CUDA device)."""
+    lengths = np.asarray(lengths, np.int64)
+    B, T = len(lengths), int(lengths.sum())
+    if B < 1 or lengths.min() < 1 or lengths.max() > width:
+        raise ValueError(f"pack: lengths must be 1 to {width}, got {lengths.tolist()}")
+    max_len = int(lengths.max())
+    offsets = np.concatenate([[0], np.cumsum(lengths)])
+    pos = np.arange(T) - np.repeat(offsets[:-1], lengths)
+    slot = np.repeat(np.arange(B) * max_len, lengths) + pos
+    pad_index = np.full(B * max_len, T)
+    pad_index[slot] = np.arange(T)
+    parts = (offsets, lengths, pos, slot, pad_index)
+    # each part starts 32 bytes into the buffer, as the kernels' inputs must
+    starts = np.cumsum([0] + [-(-len(a) // 8) * 8 for a in parts])
+    buf = np.zeros(starts[-1], np.int32)
+    for a, s0 in zip(parts, starts):
+        buf[s0:s0 + len(a)] = a
+    t = torch.from_numpy(buf)
+    device = torch.device(device)
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    else:
+        t = t.to(device)
+    views = [t[s0:s0 + len(a)] for a, s0 in zip(parts, starts)]
+    return Packed(*views, B=B, T=T, max_len=max_len, width=width)
+
+
+def to_padded(x: torch.Tensor, rows: Packed) -> torch.Tensor:
+    """Packed rows (T, C) -> (B, max_len, C), zero past each sequence."""
+    C = x.shape[-1]
+    full = torch.cat([x, x.new_zeros((1, C))])
+    return full.index_select(0, rows.pad_index).view(rows.B, rows.max_len, C)
+
+
+def _check_packed(x, kv, rows: Optional[Packed], kv_rows: Optional[Packed]) -> None:
+    if rows is None and kv_rows is None:
+        raise ValueError("fused_attention_packed: give rows, kv_rows or both")
+    if kv is None and kv_rows is not None:
+        raise ValueError("fused_attention_packed: self-attention takes its keys' rows from rows")
+    for name, t, r in (("x", x, rows), ("kv", kv, kv_rows)):
+        if t is not None and t.dim() != (2 if r is not None else 3):
+            raise ValueError(f"fused_attention_packed: {name} must be (T, C) with its rows, "
+                             f"else (B, N, C), got {tuple(t.shape)}")
+
+
+def attention_plain_packed(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
+                           kv=None, pos=None, alpha=None, *, rows: Optional[Packed] = None,
+                           kv_rows: Optional[Packed] = None, num_heads: int,
+                           ln_mode: str = "pre", include_residual: bool = True,
+                           residual_from_raw: bool = False, eps: float = 1e-6) -> torch.Tensor:
+    """:func:`fused_attention_packed` in plain PyTorch: :func:`attention_plain`
+    on each packed side padded to its longest sequence, the keys past a
+    sequence masked, and the query rows packed again."""
+    _check_packed(x, kv, rows, kv_rows)
+    keys = rows if kv is None else kv_rows
+    xs = x if rows is None else to_padded(x, rows)
+    kvs = kv if kv is None or kv_rows is None else to_padded(kv, kv_rows)
+    mask = None
+    if keys is not None:
+        valid = keys.pad_index.view(keys.B, keys.max_len) < keys.T
+        mask = torch.where(valid, 0.0, -1e9).to(torch.float32)
+    out = attention_plain(xs, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, kv=kvs,
+                          key_mask=mask, pos=None if pos is None else pos[:xs.shape[1]],
+                          alpha=alpha, num_heads=num_heads, ln_mode=ln_mode,
+                          include_residual=include_residual, residual_from_raw=residual_from_raw,
+                          eps=eps)
+    return out if rows is None else out.reshape(-1, x.shape[-1]).index_select(0, rows.slot)
+
+
+def fused_attention_packed(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
+                           kv: Optional[torch.Tensor] = None, pos: Optional[torch.Tensor] = None,
+                           alpha: Optional[torch.Tensor] = None, *,
+                           rows: Optional[Packed] = None, kv_rows: Optional[Packed] = None,
+                           num_heads: int, ln_mode: str = "pre", include_residual: bool = True,
+                           residual_from_raw: bool = False, eps: float = 1e-6) -> torch.Tensor:
+    """K3's packed form (module docstring): x (T, C) packed by ``rows`` or
+    (B, Nq, C); kv (Tk, C) packed by ``kv_rows``, (B, Nk, C), or None
+    (self-attention over x's own sequences). ``pos`` (at least max_len or Nq
+    rows) is read at each row's position in its sequence. Counted in
+    ``fused_attention.launches`` and ``launches_packed``; the gradient route
+    is the plain version's."""
+    _check_form(ln_mode, kv)
+    tensors = (x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, kv, pos, alpha)
+    kw = dict(rows=rows, kv_rows=kv_rows, num_heads=num_heads, ln_mode=ln_mode,
+              include_residual=include_residual, residual_from_raw=residual_from_raw, eps=eps)
+
+    def plain(*t):
+        return attention_plain_packed(*t, **kw)
+
+    if x.device.type == "cpu":
+        return plain(*tensors)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_attention_packed: no kernel for {x.device}")
+
+    def kernel(*t):
+        return _launch_packed(*t, **kw)
+    return _build.grad_route(kernel, plain, tensors)
+
+
+def _launch_packed(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, kv, pos, alpha, *,
+                   rows: Optional[Packed], kv_rows: Optional[Packed], num_heads: int,
+                   ln_mode: str, include_residual: bool, residual_from_raw: bool,
+                   eps: float) -> torch.Tensor:
+    """The packed form's launches on CUDA tensors (:func:`fused_attention_packed`)."""
+    _check_packed(x, kv, rows, kv_rows)
+    keys = rows if kv is None else kv_rows
+    src = x if kv is None else kv
+    C, B = x.shape[-1], (rows or kv_rows).B
+    # rows and longest sequence of each side; a regular side is B x N
+    Mq, Nq = (rows.T, rows.max_len) if rows is not None else (B * x.shape[1], x.shape[1])
+    Mk, Nk = (keys.T, keys.max_len) if keys is not None else (B * src.shape[1], src.shape[1])
+    if not kernel_takes(C, num_heads, Nq, Nk):
+        raise ValueError(
+            "fused_attention_packed: the kernel takes head dims 32/64/128, C a multiple of 128 "
+            f"up to 1024 and 1 to {MAX_TOKENS} tokens a sequence, got C={C}, "
+            f"heads={num_heads}, Nq={Nq}, Nk={Nk}")
+    if ln_mode != "none" and (ln_scale is None or ln_bias is None):
+        raise ValueError(f"fused_attention_packed: ln_mode={ln_mode!r} needs ln_scale and ln_bias")
+    if pos is not None and pos.shape[0] < Nq:
+        raise ValueError(f"fused_attention_packed: pos has {pos.shape[0]} rows, the longest "
+                         f"sequence {Nq}")
+    bf16, f32, i32 = torch.bfloat16, torch.float32, torch.int32
+    q_off = None if rows is None else rows.offsets
+    k_off = None if keys is None else keys.offsets
+    qpos = None if rows is None or pos is None else rows.pos
+
+    def shape(r, M):
+        return (M, C) if r is not None else (B, M // B, C)
+
+    _build.check_cuda_inputs("fused_attention_packed", x.device, [
+        ("x", x, bf16, shape(rows, Mq)), ("kv", kv, bf16, shape(kv_rows, Mk)),
+        ("pos", pos, bf16, None if pos is None else (pos.shape[0], C)),
+        ("alpha", alpha, f32, ()), ("ln_scale", ln_scale, f32, (C,)),
+        ("ln_bias", ln_bias, f32, (C,)),
+        *[(n, w, bf16, (C, C)) for n, w in (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo))],
+        ("bq", bq, bf16, (C,)), ("bk", bk, bf16, (C,)), ("bv", bv, bf16, (C,)),
+        ("bo", bo, bf16, (C,)), ("q_off", q_off, i32, (B + 1,)),
+        ("k_off", k_off, i32, (B + 1,)), ("qpos", qpos, i32, (Mq,)),
+    ])
+    qkv = torch.empty((Mq + 2 * Mk) * C, dtype=bf16, device=x.device)
+    ctx = torch.empty((Mq, C), dtype=bf16, device=x.device)
+    out = torch.empty_like(x)
+    _build.launch(
+        "mmrp_seq_attention_packed", x.device,
+        *map(_build.ptr, (x, kv, pos, alpha, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
+                          qkv, ctx, out, q_off, k_off, qpos)),
+        B, Mq, Mk, Nq, Nk, C, num_heads, _LN_MODES[ln_mode], int(include_residual),
+        int(residual_from_raw), float(eps), _build.stream_of(x))
+    fused_attention.launches += 1
+    fused_attention.launches_packed += 1
+    return out

@@ -25,6 +25,10 @@ Compact ingest, finished on the device, as in JAX:
   its resize);
 - then (x - 0.5) / 0.5 and 3 channels; float32 NHWC passes through as it is.
 
+The mask goes to the forward as the host's array: ``api.serving_forward``
+copies it to the card and plans the packed text route from it without
+reading the device.
+
 Host batches go to the card from pinned memory with ``non_blocking=True``:
 a copy from pageable memory would hold the host until it lands, and with it
 the dispatch of the next batch.
@@ -75,7 +79,8 @@ class StreamingPipeline:
         # set by run() once the stream is consumed; None until then
         self.stats: Optional[Dict[str, Any]] = None
 
-    _DEVICE_KEYS = ("image", "input_ids", "attention_mask", "window_center", "window_width")
+    _DEVICE_KEYS = ("image", "input_ids", "window_center", "window_width")
+    _KEYS = _DEVICE_KEYS + ("attention_mask",)
 
     def _put(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         out = {}
@@ -125,11 +130,11 @@ class StreamingPipeline:
         rows = batch
         if self.mesh is not None:  # this rank's block of the rows
             rows = {k: rows_of(np.asarray(batch[k]), self.mesh, "dp")
-                    for k in self._DEVICE_KEYS if k in batch}
+                    for k in self._KEYS if k in batch}
         tb = self._put(rows)
         image = self._ingest(tb["image"], tb.get("window_center"), tb.get("window_width"),
                              np.asarray(batch["image"]).dtype == np.uint16)
-        out = self._fwd(image, tb["input_ids"].long(), tb["attention_mask"].long())
+        out = self._fwd(image, tb["input_ids"].long(), np.asarray(rows["attention_mask"]))
         dev = [out["probs"].float(), out["joint_emb"].float()]
         if self.mesh is not None:
             dev = [self._gather(t) for t in dev]

@@ -1128,3 +1128,114 @@ def test_attention_layout_is_the_kernels_host_code(dev):
                     tfw.attn_splits(windows, C, sms), (windows, C, sms)
                 n += 1
     assert n > 1500
+
+
+# report lengths around the 64-wide attention tiles, up to the model's 512
+# positions, in one batch
+PACKED_LENGTHS = [1, 4, 39, 64, 65, 200, 512]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ln_mode,packed,C,heads,Nq,Nk", [
+    ("post", "self", 768, 12, 512, 512),   # BERT layer, head dim 64
+    ("pre", "self", 1024, 8, 512, 512),    # text enhancer: pos, alpha, raw residual
+    ("post", "q", 1024, 8, 512, 49),       # text -> image: packed queries, 49 patches
+    ("post", "kv", 1024, 8, 49, 512),      # image -> text: 49 queries, packed keys
+])
+def test_seq_attention_packed_kernel(dev, ln_mode, packed, C, heads, Nq, Nk):
+    """K3's packed form against its padded form on the padded batch, whose
+    valid rows it gives (no GEMM row reads another row, and a masked key's
+    softmax weight is exactly 0) but for a rare last rounding: the two are
+    compiled apart, and an output whose f32 value lies within a rounding of
+    a bf16 tie may round the other way (1 of 906,000 in the pre form). So
+    every output within one bf16 ulp of the padded form's, at most 1e-5 of
+    them apart; and against its plain version within 4 bf16 ulps."""
+    import numpy as np
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    B, L = len(PACKED_LENGTHS), 512
+    args, kw = _k3_inputs(gen, dev, ln_mode, packed != "self", B, Nq, Nk, C, heads)
+    kw["include_residual"] = packed == "self"
+    lengths = torch.tensor(PACKED_LENGTHS, device=dev)
+    valid = torch.arange(L, device=dev)[None, :] < lengths[:, None]
+    rows = tfa.pack(np.array(PACKED_LENGTHS), L, dev)
+    x, kv = args[0], kw["kv"]
+    pk = dict(kv=kv, pos=kw["pos"], alpha=kw["alpha"], num_heads=heads, ln_mode=ln_mode,
+              include_residual=kw["include_residual"],
+              residual_from_raw=kw["residual_from_raw"])
+    if packed == "self":
+        kw["key_mask"] = torch.where(valid, 0.0, -1e9)
+        xp = x[valid].contiguous()
+        pk.update(rows=rows)
+    elif packed == "q":
+        kw["key_mask"] = None
+        xp = x[valid].contiguous()
+        pk.update(rows=rows)
+    else:
+        kw["key_mask"] = torch.where(valid, 0.0, -1e9)
+        xp = x
+        pk.update(kv=kv[valid].contiguous(), kv_rows=rows)
+    before = (tfa.fused_attention.launches, tfa.fused_attention.launches_packed)
+    with torch.no_grad():
+        padded = tfa.fused_attention(*args, **kw)
+        got = tfa.fused_attention_packed(xp, *args[1:], **pk)
+        want = tfa.attention_plain_packed(xp, *args[1:], **pk)
+    torch.cuda.synchronize()
+    assert (tfa.fused_attention.launches, tfa.fused_attention.launches_packed) == \
+        (before[0] + 2, before[1] + 1)
+    ref = (padded[valid] if packed != "kv" else padded).float()
+    diff = (got.float() - ref).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=2.0 ** -126))) - 7)
+    assert (diff <= ulp).all() and (diff > 0).float().mean().item() <= 1e-5
+    torch.testing.assert_close(got.float(), want.float(), **SWIN_TOL)
+
+
+@pytest.mark.cuda
+def test_stream_batch_runs_the_text_packed(dev):
+    """A StreamingPipeline batch of prefix masks on a small model whose widths
+    the kernels take: the packed route (K3's packed launches, the text
+    counters), no read of the device while it is planned, and the padded
+    route's results within bf16 rounding (the FFN's library GEMMs round
+    T rows as they round B x L)."""
+    import numpy as np
+
+    from mmrp_tpu_torch.api import serving_forward
+    from mmrp_tpu_torch.models.multimodal import MultiModalConfig, MultiModalRetrievalModel
+    from mmrp_tpu_torch.models.swin import SwinConfig
+    from mmrp_tpu_torch.models.text_encoder import TextConfig
+    from mmrp_tpu_torch.serve.stream import StreamingPipeline
+    from mmrp_tpu_torch.utils import trace
+    from mmrp_tpu_torch.utils.convert import init_params
+
+    L, B = 512, len(PACKED_LENGTHS)
+    cfg = MultiModalConfig(
+        swin=SwinConfig(img_size=56, embed_dim=64, depths=(2,), num_heads=(2,)),
+        text=TextConfig.small(hidden_dim=256, num_layers=2, num_heads=4, intermediate_dim=512),
+        joint_dim=128, num_fusion_layers=2, num_heads=4, num_classes=5, max_text_len=L)
+    model = MultiModalRetrievalModel(cfg, dtype=torch.bfloat16, device=dev).eval()
+    init_params(model, seed=0)
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.random((B, 56, 56, 3), dtype=np.float32),
+             "input_ids": rng.integers(0, cfg.text.vocab_size, (B, L)),
+             "attention_mask": (np.arange(L)[None, :] <
+                                np.array(PACKED_LENGTHS)[:, None]).astype(np.int64)}
+    pipe = StreamingPipeline(model, K=3)
+    pipe.process_batch(batch)  # warm
+    counters = trace.counters()
+    before = (tfa.fused_attention.launches, tfa.fused_attention.launches_packed)
+    got = pipe.process_batch(batch)
+    grown = {k: v - counters.get(k, 0) for k, v in trace.counters().items()
+             if v != counters.get(k, 0)}
+    assert grown == {"text.packed": 1, "text.rows": sum(PACKED_LENGTHS),
+                     "text.rows_padded": B * L}
+    # per layer: BERT's 2; the fusion's txt_enh, txt2img, img2txt packed,
+    # img_enh and the self-attention padded
+    assert (tfa.fused_attention.launches - before[0],
+            tfa.fused_attention.launches_packed - before[1]) == (2 + 5 * 2, 2 + 3 * 2)
+    want = serving_forward(model)(*(torch.from_numpy(batch[k]).to(dev) for k in
+                                    ("image", "input_ids", "attention_mask")))
+    np.testing.assert_allclose(got["probs"], want["probs"].float().cpu().numpy(), rtol=0,
+                               atol=5e-3)
+    cos = torch.nn.functional.cosine_similarity(torch.as_tensor(got["joint_emb"]),
+                                                want["joint_emb"].float().cpu(), dim=-1)
+    assert cos.min().item() > 0.9999

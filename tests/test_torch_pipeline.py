@@ -666,7 +666,8 @@ def port_run(tree):
 
 def serve_and_check(run: Path, model):
     """from_run_dir on the CPU: each train record's own gallery row at rank 1
-    (no rerank), probs bit-identical to the in-process model's."""
+    (no rerank), probs bit-identical to the in-process model's (given the
+    mask on the host, as the predictor gives it: the same text route)."""
     pred = MMRPredictor.from_run_dir(str(run), device="cpu")
     tree = run.parent
     recs = {r["id"]: r for r in json.loads((tree / "records_cache.json").read_text())["records"]}
@@ -677,7 +678,7 @@ def serve_and_check(run: Path, model):
     tok_ids = np.stack([s["input_ids"] for s in items]).astype(np.int64)
     mask = np.stack([s["attention_mask"] for s in items]).astype(np.int64)
     got = pred.predict(image, tok_ids, mask, K=3, retrieve=False)
-    want = serving_forward(model)(t(image), t(tok_ids), t(mask))
+    want = serving_forward(model)(t(image), t(tok_ids), mask)
     np.testing.assert_array_equal(got["probs"], want["probs"].numpy())
     for b, rid in enumerate(ids):
         assert pred.retrieve(got["joint_emb"][b], K=1, rerank=False)[0][0] == rid
